@@ -1,0 +1,19 @@
+"""ray_tpu_torch — the PyTorch/CUDA port of ray_tpu, for NVIDIA Hopper.
+
+A second package beside `ray_tpu/` (the JAX reference, which it never
+imports).  It mirrors the reference's layout so each module has an
+obvious counterpart: `ray_tpu_torch/ops/attention.py` <->
+`ray_tpu/ops/attention.py`, and so on.  Plain tensor code is PyTorch;
+each Pallas kernel of the reference becomes a kernel written by hand for
+Hopper (`ops/csrc/`), built with nvcc at first use.
+
+Ported so far — the serving path: the paged-KV cache, the
+continuous-batching engine with in-step sampling (token-exact with the
+reference's threefry draws), the cached GPT forward, and the
+single-query paged-decode attention kernel.
+
+Every entry point takes `device=None`, which means CUDA; without a card
+it raises unless the caller passes `device="cpu"`.
+"""
+
+from ray_tpu_torch._device import resolve_device  # noqa: F401

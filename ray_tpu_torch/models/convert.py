@@ -1,0 +1,49 @@
+"""Carry weights across from the JAX reference.
+
+The reference initialises with `jax.random`, whose draws no torch
+generator reproduces, so the two packages compute the same thing only on
+weights moved across: take the reference's GPT params as numpy
+(`jax.tree.map(np.asarray, params)`) and turn them into the port's
+params — same keys, same stacked layouts, same dtypes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ray_tpu_torch._device import DeviceLike, resolve_device
+from ray_tpu_torch.models import gpt
+
+
+def _tensor(arr) -> torch.Tensor:
+    arr = np.array(arr, order="C")     # a writable copy the tensor owns
+    if arr.dtype.name == "bfloat16":        # ml_dtypes: no numpy-native bf16
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def params_from_numpy(tree: dict, config: gpt.GPTConfig,
+                      device: DeviceLike = None) -> dict:
+    """The reference's GPT param tree (numpy leaves) as the port's params
+    on `device`.  Raises if a key or a shape differs from
+    `gpt.param_shapes(config)`."""
+    device = resolve_device(device)
+
+    def convert(sub, shapes, path):
+        if set(sub) != set(shapes):
+            raise ValueError(f"params{path}: keys {sorted(sub)} != "
+                             f"expected {sorted(shapes)}")
+        out = {}
+        for key, want in shapes.items():
+            if isinstance(want, dict):
+                out[key] = convert(sub[key], want, f"{path}[{key!r}]")
+                continue
+            t = _tensor(sub[key])
+            if tuple(t.shape) != want:
+                raise ValueError(f"params{path}[{key!r}]: shape "
+                                 f"{tuple(t.shape)} != expected {want}")
+            out[key] = t.to(device)
+        return out
+
+    return convert(tree, gpt.param_shapes(config), "")

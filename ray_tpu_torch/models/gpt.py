@@ -1,0 +1,241 @@
+"""Decoder-only transformer (GPT family): the cached forward of the
+serving path (port of ray_tpu/models/gpt.py).
+
+Plain functions on tensors, as in the reference: params are a nested
+dict of tensors with the layers STACKED on a leading dim (`wq/wk/wv
+[n, d, h, dh]`, `wo [n, h, dh, d]`, `w_up [n, d, f]`, `w_down [n, f, d]`),
+kept in fp32, and the forward casts weights to the activation dtype
+where it uses them.  A Python loop over the stacked layers takes the
+place of `lax.scan`.
+
+Ported: the config table, `init_params`, `_layernorm`, `_block_cached`,
+`forward_cached` and `lm_head`.  The training forward (`forward`,
+`forward_trunk`, `loss_fn`) and the MoE MLP come with the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ray_tpu_torch._device import DeviceLike, resolve_device
+from ray_tpu_torch.ops.attention import paged_attention, paged_kv_update
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    vocab_size: int = 50304          # GPT-2 vocab padded to a multiple of 128
+    n_layers: int = 12
+    d_model: int = 768
+    n_heads: int = 12
+    d_ff: int = 3072
+    max_seq_len: int = 1024
+    dtype: Any = torch.bfloat16      # activation dtype (params kept fp32)
+    n_experts: int = 0               # 0 = dense MLP; >0 = Switch MoE
+    capacity_factor: float = 1.25
+    tie_embeddings: bool = True
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+
+# Preset configs: the reference's names and sizes.
+CONFIGS = {
+    "nano": GPTConfig(vocab_size=512, n_layers=2, d_model=64, n_heads=4,
+                      d_ff=128, max_seq_len=128, dtype=torch.float32),
+    "nano-moe": GPTConfig(vocab_size=512, n_layers=2, d_model=64, n_heads=4,
+                          d_ff=128, max_seq_len=128, n_experts=4,
+                          dtype=torch.float32),
+    "gpt2-small": GPTConfig(),                     # 124M
+    "gpt2-medium": GPTConfig(n_layers=24, d_model=1024, n_heads=16,
+                             d_ff=4096),
+    "gpt2-xl": GPTConfig(n_layers=48, d_model=1600, n_heads=25, d_ff=6400),
+    "7b": GPTConfig(vocab_size=32000, n_layers=32, d_model=4096, n_heads=32,
+                    d_ff=11008, max_seq_len=4096),
+}
+
+# Leaves that the forward only ever uses cast to the activation dtype.
+_MATMUL_BLOCK_KEYS = ("wq", "wk", "wv", "wo", "w_up", "w_down")
+_MATMUL_TOP_KEYS = ("tok_embed", "pos_embed", "lm_head")
+
+
+def param_shapes(config: GPTConfig) -> dict:
+    """Shape tree congruent with `init_params` (and the reference's)."""
+    c = config
+    n, d, h, dh, f = c.n_layers, c.d_model, c.n_heads, c.head_dim, c.d_ff
+    blocks = {
+        "ln1_scale": (n, d), "ln1_bias": (n, d),
+        "wq": (n, d, h, dh), "wk": (n, d, h, dh), "wv": (n, d, h, dh),
+        "wo": (n, h, dh, d),
+        "ln2_scale": (n, d), "ln2_bias": (n, d),
+    }
+    if c.n_experts:
+        e = c.n_experts
+        blocks.update(router=(n, d, e), w_up=(n, e, d, f),
+                      w_down=(n, e, f, d))
+    else:
+        blocks.update(w_up=(n, d, f), w_down=(n, f, d))
+    shapes = {
+        "tok_embed": (c.vocab_size, d),
+        "pos_embed": (c.max_seq_len, d),
+        "blocks": blocks,
+        "final_ln_scale": (d,),
+        "final_ln_bias": (d,),
+    }
+    if not c.tie_embeddings:
+        shapes["lm_head"] = (d, c.vocab_size)
+    return shapes
+
+
+def init_params(config: GPTConfig, generator: Optional[torch.Generator] = None,
+                device: DeviceLike = None) -> dict:
+    """Random fp32 params with the reference's shapes and scales
+    (ray_tpu/models/gpt.py init_params).  The draws come from `generator`
+    (default: a CPU generator seeded 0) and differ from `jax.random`'s;
+    to run both packages on the same weights use convert.params_from_numpy."""
+    device = resolve_device(device)
+    c = config
+    n, d, h, dh, f = c.n_layers, c.d_model, c.n_heads, c.head_dim, c.d_ff
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+
+    def normal(shape):
+        return torch.randn(shape, generator=gen, device=gen.device,
+                           dtype=torch.float32)
+
+    def dense(shape, fan_in):
+        return normal(shape) / math.sqrt(fan_in)
+
+    blocks = {
+        "ln1_scale": torch.ones(n, d),
+        "ln1_bias": torch.zeros(n, d),
+        "wq": dense((n, d, h, dh), d),
+        "wk": dense((n, d, h, dh), d),
+        "wv": dense((n, d, h, dh), d),
+        # Residual-branch outputs scaled per GPT-2 (1/sqrt(2*n_layers)).
+        "wo": dense((n, h, dh, d), h * dh) / math.sqrt(2 * n),
+        "ln2_scale": torch.ones(n, d),
+        "ln2_bias": torch.zeros(n, d),
+    }
+    if c.n_experts:
+        e = c.n_experts
+        blocks["router"] = dense((n, d, e), d)
+        blocks["w_up"] = dense((n, e, d, f), d)
+        blocks["w_down"] = dense((n, e, f, d), f) / math.sqrt(2 * n)
+    else:
+        blocks["w_up"] = dense((n, d, f), d)
+        blocks["w_down"] = dense((n, f, d), f) / math.sqrt(2 * n)
+    params = {
+        "tok_embed": normal((c.vocab_size, d)) * 0.02,
+        "pos_embed": normal((c.max_seq_len, d)) * 0.01,
+        "blocks": blocks,
+        "final_ln_scale": torch.ones(d),
+        "final_ln_bias": torch.zeros(d),
+    }
+    if not c.tie_embeddings:
+        params["lm_head"] = dense((d, c.vocab_size), d)
+    return _map(params, lambda t: t.to(device))
+
+
+def _map(tree: dict, fn) -> dict:
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def working_params(params: dict, config: GPTConfig,
+                   device: DeviceLike = None) -> dict:
+    """The serving engine's copy of `params` on `device`, with every
+    weight that the forward only uses cast to `config.dtype` (matmul
+    weights and the embedding tables) cast ONCE here.
+
+    Casting fp32 -> bf16 once gives the same bits as the per-call
+    `.to(h.dtype)` in `_block_cached`/`lm_head` (which is then a no-op),
+    so the numbers do not change.  LayerNorm scales and biases stay
+    fp32: `_layernorm` mixes them in at fp32."""
+    device = resolve_device(device)
+
+    def cast(key, t):
+        dtype = config.dtype if key in _MATMUL_TOP_KEYS + _MATMUL_BLOCK_KEYS \
+            else t.dtype
+        return t.to(device=device, dtype=dtype)
+
+    out = {k: cast(k, v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = {k: cast(k, v) for k, v in params["blocks"].items()}
+    return out
+
+
+def _layernorm(x, scale, bias, eps=1e-5):
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
+def lm_head(params: dict, x: torch.Tensor, config: GPTConfig) -> torch.Tensor:
+    """Project hidden states [..., D] to vocab logits [..., V]."""
+    head = (params["tok_embed"].T if config.tie_embeddings
+            else params["lm_head"]).to(config.dtype)
+    return x @ head
+
+
+def _block_cached(x, p, k_pool, v_pool, config: GPTConfig, block_tables,
+                  positions, valid, ctx_lens):
+    """One transformer block over a paged KV cache: new K/V are scattered
+    into this layer's pool slice (in place), then attention runs over the
+    block table (ops/attention.py paged path).  x [B, T, D]; positions
+    [B, T] absolute; ctx_lens [B] = context length including this slice."""
+    b, t, d = x.shape
+    nh, dh = config.n_heads, config.head_dim
+    h = _layernorm(x, p["ln1_scale"], p["ln1_bias"])
+
+    def heads(w):                    # "bld,dhk->blhk"
+        return (h @ w.reshape(d, nh * dh).to(h.dtype)).view(b, t, nh, dh)
+
+    q, k, v = heads(p["wq"]), heads(p["wk"]), heads(p["wv"])
+    paged_kv_update(k_pool, v_pool, k, v, block_tables, positions, valid)
+    attn = paged_attention(q, k_pool, v_pool, block_tables, ctx_lens,
+                           positions)
+    x = x + attn.reshape(b, t, nh * dh) @ p["wo"].reshape(nh * dh, d).to(
+        h.dtype)
+
+    h = _layernorm(x, p["ln2_scale"], p["ln2_bias"])
+    # jax.nn.gelu's default is the tanh approximation.
+    hidden = F.gelu(h @ p["w_up"].to(h.dtype), approximate="tanh")
+    x = x + hidden @ p["w_down"].to(h.dtype)
+    return x, k_pool, v_pool
+
+
+def forward_cached(params: dict, tokens: torch.Tensor,
+                   positions: torch.Tensor, valid: torch.Tensor,
+                   k_pool: torch.Tensor, v_pool: torch.Tensor,
+                   block_tables: torch.Tensor, ctx_lens: torch.Tensor,
+                   config: GPTConfig):
+    """Cached (incremental) trunk for autoregressive decode/prefill.
+
+    tokens [B, T] is a SLICE of each lane's sequence at absolute
+    `positions` [B, T] (per-lane offsets); K/V for the slice are written
+    IN PLACE into the paged pools [n_layers, NB, BS, H, D] and attention
+    covers each lane's whole block table.  `valid` masks padding
+    lanes/overhang (their cache writes are dropped).  Returns
+    (x [B, T, D], k_pool, v_pool) — the pools are the tensors passed in;
+    the lm head is applied by the caller on the positions it needs.
+
+    Dense-MLP configs only (n_experts == 0), as in the reference."""
+    c = config
+    if c.n_experts:
+        raise NotImplementedError("cached decode supports dense MLP only")
+    pos = positions.clamp(0, c.max_seq_len - 1).long()
+    x = params["tok_embed"][tokens.long()].to(c.dtype)
+    x = x + params["pos_embed"][pos].to(c.dtype)
+    blocks = params["blocks"]
+    for layer in range(c.n_layers):
+        p = {k: v[layer] for k, v in blocks.items()}
+        x, _, _ = _block_cached(x, p, k_pool[layer], v_pool[layer], c,
+                                block_tables, positions, valid, ctx_lens)
+    x = _layernorm(x, params["final_ln_scale"], params["final_ln_bias"])
+    return x, k_pool, v_pool

@@ -1,0 +1,190 @@
+"""The port's paged attention (ray_tpu_torch/ops/attention.py) against the
+JAX reference on the same numpy inputs: the in-place K/V scatter with its
+dropped writes, the masked-dense reference, the T=1/T>1 dispatch, and
+the decode kernel's plain version against the Pallas kernel (run in
+interpret mode, as tests/test_inference.py runs it).  f32 throughout at
+2e-5: the two sides sum in different orders."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.ops import attention as jattn
+from ray_tpu_torch.ops import attention as tattn
+
+# Tiny tensors: one thread each keeps the parallel test workers from
+# oversubscribing the host's cores.
+torch.set_num_threads(1)
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _case(seed, *, b=3, kh=2, q_per_kv=1, d=64, bs=8, mb=4, nb=16, t=1):
+    rng = np.random.default_rng(seed)
+    h = kh * q_per_kv
+    return dict(
+        q=rng.standard_normal((b, t, h, d)).astype(np.float32),
+        k_pool=rng.standard_normal((nb, bs, kh, d)).astype(np.float32),
+        v_pool=rng.standard_normal((nb, bs, kh, d)).astype(np.float32),
+        tables=rng.permutation(nb)[:b * mb].reshape(b, mb).astype(np.int32),
+    )
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def test_paged_kv_update_matches_reference():
+    rng = np.random.default_rng(0)
+    nb, bs, kh, d, b, t = 6, 4, 2, 8, 3, 5
+    pools = [rng.standard_normal((nb, bs, kh, d)).astype(np.float32)
+             for _ in range(2)]
+    new = [rng.standard_normal((b, t, kh, d)).astype(np.float32)
+           for _ in range(2)]
+    tables = np.asarray([[1, 2], [3, 0], [5, 4]], np.int32)
+    positions = np.asarray([[0, 1, 2, 3, 4], [5, 6, 7, 8, 9],
+                            [2, 3, 4, 5, 6]], np.int32)
+    valid = np.ones((b, t), bool)
+    valid[1, 3:] = False          # prompt overhang
+    valid[2] = False              # padding lane
+    want = jattn.paged_kv_update(*map(jnp.asarray, pools + new), tables,
+                                 positions, valid)
+    tk, tv = _t(pools[0]), _t(pools[1])
+    got = tattn.paged_kv_update(tk, tv, _t(new[0]), _t(new[1]), _t(tables),
+                                _t(positions).long(), _t(valid))
+    assert got[0] is tk and got[1] is tv          # updated in place
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(want[1]))
+
+
+def test_paged_kv_update_drops_out_of_range_writes():
+    """Known divergence: the reference drops invalid and out-of-pool
+    writes (`.at[].set(mode="drop")`), where a bare torch `index_copy_`
+    would raise or write.  Invalid slots must leave the pool untouched,
+    including when no slot at all is valid."""
+    nb, bs, kh, d = 4, 4, 2, 8
+    tables = np.asarray([[1, 2], [3, 0]], np.int32)
+    positions = np.asarray([[0], [5]], np.int32)
+    for valid in (np.asarray([[True], [False]]),
+                  np.asarray([[False], [False]])):
+        k = torch.zeros(nb, bs, kh, d)
+        v = torch.zeros(nb, bs, kh, d)
+        tattn.paged_kv_update(k, v, torch.ones(2, 1, kh, d),
+                              torch.ones(2, 1, kh, d), _t(tables),
+                              _t(positions), _t(valid))
+        want = jattn.paged_kv_update(
+            jnp.zeros((nb, bs, kh, d)), jnp.zeros((nb, bs, kh, d)),
+            jnp.ones((2, 1, kh, d)), jnp.ones((2, 1, kh, d)), tables,
+            positions, valid)
+        np.testing.assert_array_equal(k.numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(v.numpy(), np.asarray(want[1]))
+        assert float(k.sum()) == kh * d * int(valid.sum())
+    # Negative positions land where the reference's floor-div/mod puts
+    # them; a table pointing past the pool is dropped.
+    k = torch.zeros(nb, bs, kh, d)
+    v = torch.zeros(nb, bs, kh, d)
+    bad_tables = np.asarray([[9, 9], [1, 2]], np.int32)     # 9 >= nb
+    pos = np.asarray([[1], [-3]], np.int32)
+    ok = np.ones((2, 1), bool)
+    tattn.paged_kv_update(k, v, torch.ones(2, 1, kh, d),
+                          torch.ones(2, 1, kh, d), _t(bad_tables), _t(pos),
+                          _t(ok))
+    want = jattn.paged_kv_update(
+        jnp.zeros((nb, bs, kh, d)), jnp.zeros((nb, bs, kh, d)),
+        jnp.ones((2, 1, kh, d)), jnp.ones((2, 1, kh, d)), bad_tables, pos,
+        ok)
+    np.testing.assert_array_equal(k.numpy(), np.asarray(want[0]))
+
+
+@pytest.mark.parametrize("t", [1, 5])
+@pytest.mark.parametrize("q_per_kv", [1, 4])
+def test_paged_attention_matches_reference(t, q_per_kv):
+    c = _case(1, q_per_kv=q_per_kv, t=t)
+    ctx_lens = np.asarray([7, 17, 32], np.int32)
+    q_pos = (ctx_lens[:, None] - t + np.arange(t)[None]).astype(np.int32)
+    want_ref = jattn.paged_attention_reference(
+        c["q"], c["k_pool"], c["v_pool"], c["tables"], ctx_lens, q_pos)
+    want = jattn.paged_attention(c["q"], c["k_pool"], c["v_pool"],
+                                 c["tables"], ctx_lens, q_pos)
+    args = (_t(c["q"]), _t(c["k_pool"]), _t(c["v_pool"]), _t(c["tables"]),
+            _t(ctx_lens), _t(q_pos))
+    np.testing.assert_allclose(tattn.paged_attention_reference(*args),
+                               np.asarray(want_ref), **TOL)
+    np.testing.assert_allclose(tattn.paged_attention(*args),
+                               np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("q_per_kv", [1, 4])
+def test_decode_plain_matches_pallas_kernel(q_per_kv, d):
+    c = _case(2, q_per_kv=q_per_kv, d=d)
+    q = c["q"][:, 0]
+    ctx_lens = np.asarray([5, 17, 32], np.int32)     # partial/multi/full
+    want = jattn.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(c["k_pool"]), jnp.asarray(c["v_pool"]),
+        jnp.asarray(c["tables"]), jnp.asarray(ctx_lens), use_kernel=True,
+        interpret=True)
+    args = (_t(q), _t(c["k_pool"]), _t(c["v_pool"]), _t(c["tables"]),
+            _t(ctx_lens))
+    plain = tattn.paged_decode_attention_plain(*args)
+    np.testing.assert_allclose(plain.numpy(), np.asarray(want), **TOL)
+    # On CPU tensors the wrapper IS the plain version, and no kernel ran.
+    before = tattn.paged_decode_attention.launches
+    np.testing.assert_array_equal(tattn.paged_decode_attention(*args).numpy(),
+                                  plain.numpy())
+    assert tattn.paged_decode_attention.launches == before
+
+
+def test_all_masked_rows_are_finite():
+    """Known divergence: a lane with ctx_len = 0 is all-masked.  The
+    reference's dense path (and the port's plain version) give a uniform
+    average over the gathered context — finite NEG_INF, never NaN; the
+    Pallas kernel (and the CUDA kernel) give zeros."""
+    c = _case(3)
+    q = c["q"][:, 0]
+    ctx_lens = np.asarray([0, 9, 0], np.int32)
+    args = (_t(q), _t(c["k_pool"]), _t(c["v_pool"]), _t(c["tables"]),
+            _t(ctx_lens))
+    plain = tattn.paged_decode_attention_plain(*args).numpy()
+    assert np.isfinite(plain).all()
+    want = jattn.paged_attention_reference(
+        q[:, None], c["k_pool"], c["v_pool"], c["tables"], ctx_lens,
+        (ctx_lens - 1)[:, None])[:, 0]
+    np.testing.assert_allclose(plain, np.asarray(want), **TOL)
+    b, mb, bs = 3, 4, 8
+    v_ctx = c["v_pool"][c["tables"]].reshape(b, mb * bs, 2, 64)
+    np.testing.assert_allclose(plain[0], v_ctx[0].mean(0), **TOL)
+    kernel = jattn.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(c["k_pool"]), jnp.asarray(c["v_pool"]),
+        jnp.asarray(c["tables"]), jnp.asarray(ctx_lens), use_kernel=True,
+        interpret=True)
+    assert not np.asarray(kernel)[0].any()
+
+
+def _kernel_args(**over):
+    args = dict(q=torch.zeros(2, 4, 64), k_pool=torch.zeros(8, 16, 2, 64),
+                v_pool=torch.zeros(8, 16, 2, 64),
+                block_tables=torch.zeros(2, 4, dtype=torch.int32),
+                ctx_lens=torch.ones(2, dtype=torch.int32))
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("bad,err", [
+    (dict(q=torch.zeros(2, 4, 64, dtype=torch.float16)), TypeError),
+    (dict(q=torch.zeros(2, 4, 32), k_pool=torch.zeros(8, 16, 2, 32),
+          v_pool=torch.zeros(8, 16, 2, 32)), ValueError),
+    (dict(q=torch.zeros(2, 3, 64)), ValueError),
+    (dict(block_tables=torch.zeros(2, 4, dtype=torch.int64)), TypeError),
+    (dict(ctx_lens=torch.ones(3, dtype=torch.int32)), ValueError),
+    (dict(q=torch.zeros(2, 64, 4).transpose(1, 2)), ValueError),
+])
+def test_kernel_argument_checks(bad, err):
+    """What the CUDA kernel does not take is refused before any launch."""
+    tattn._check_kernel_args(**_kernel_args())       # the good case passes
+    with pytest.raises(err):
+        tattn._check_kernel_args(**_kernel_args(**bad))
