@@ -1,11 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (ray_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py                     # all phases, one card
-    python3 chip_smoke.py --phases device,kernels
+    python3 chip_smoke.py                     # one card
 
-Phases, each printing one JSON line; any failure ends the run with a
-nonzero exit code and no result line:
+It runs every phase, each printing one JSON line; any failure ends the
+run with a nonzero exit code and no result line:
 
   device   the card (nvidia-smi name and power limit), torch/CUDA versions,
            then every kernel of the port built from csrc/ with nvcc.
@@ -31,7 +30,6 @@ without a card, and when the ray_tpu_torch package is not beside it.
 
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import json
 import statistics
@@ -42,7 +40,6 @@ import time
 
 import torch
 
-PHASES = ("device", "kernels", "serve", "parity")
 # NVIDIA's H100 SXM data sheet: HBM3 rate; dense bf16 tensor-core and
 # f32 (non-tensor) peaks, at the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
@@ -190,7 +187,7 @@ def phase_kernels(report: dict) -> None:
     report["paged_decode_attention"] = dict(
         name="paged_decode_attention", route="cuda",
         source="ray_tpu_torch/ops/csrc/paged_decode.cu",
-        replaces="ray_tpu/ops/attention.py:291", launches=None,
+        replaces="ray_tpu/ops/attention.py:291",
         max_abs_err=main["max_abs_err"], ms=main["ms"],
         plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=main["library_ms"])
@@ -297,7 +294,7 @@ def phase_serve(report: dict) -> None:
     generated = sum(len(c.tokens) for _, c in streams)
     ttfts = sorted(c.ttft for _, c in streams)
     decode_tokens = generated - len(streams)     # first tokens: prefill
-    report.setdefault("paged_decode_attention", {})["launches"] = launches
+    report["paged_decode_attention"]["launches"] = launches
     emit("serve", requests=len(streams), generated_tokens=generated,
          wall_s=wall, engine_setup_s=setup_s,
          output_tokens_per_s=generated / wall,
@@ -350,10 +347,6 @@ def phase_parity() -> None:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {PHASES}")
-    phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
@@ -361,28 +354,17 @@ def main() -> int:
     from ray_tpu_torch.ops import _build
 
     smi = smi_line()
-    if "device" in phases:
-        t0 = time.perf_counter()
-        built = _build.build()
-        build_s = time.perf_counter() - t0
-        # ptxas's report per kernel instantiation: registers, spills.
-        ptxas = {name: [ln.split(":", 1)[-1].strip() for ln in
-                        so.with_suffix(".log").read_text().splitlines()
-                        if "registers" in ln or "spill" in ln]
-                 for name, so in built.items()}
-        emit("device", nvidia_smi=smi, torch=torch.__version__,
-             cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
-             count=torch.cuda.device_count(), build_s=build_s,
-             ptxas=ptxas)
+    t0 = time.perf_counter()
+    _build.build("paged_decode")
+    emit("device", nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(),
+         build_s=time.perf_counter() - t0)
     report: dict = {}
-    if "kernels" in phases:
-        phase_kernels(report)
-    if "serve" in phases:
-        phase_serve(report)
-    if "parity" in phases:
-        phase_parity()
-    if report:
-        print(json.dumps({"kernels": list(report.values())}))
+    phase_kernels(report)
+    phase_serve(report)
+    phase_parity()
+    print(json.dumps({"kernels": list(report.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

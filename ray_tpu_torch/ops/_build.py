@@ -6,11 +6,10 @@ Each `csrc/<name>.cu` has a plain C interface and compiles on its own:
          -Xcompiler -fPIC -o <build>/<name>-<hash>.so csrc/<name>.cu
 
 into `ray_tpu_torch/_build/` (git-ignored).  The library's name carries
-a hash of the sources and flags, so an edited kernel rebuilds and an
-unchanged one is reused.  `build()` starts one nvcc per missing library,
-all at once, and waits for them.  A failed build raises with nvcc's
-output; nothing falls back.  No PyTorch header is compiled, so a build
-takes seconds.
+a hash of its source and the flags, so an edited kernel rebuilds and an
+unchanged one is reused.  A failed build raises with nvcc's output;
+nothing falls back.  No PyTorch header is compiled, so a build takes
+seconds.
 """
 
 from __future__ import annotations
@@ -22,19 +21,15 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
-
-
-def kernel_names() -> list:
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -48,43 +43,25 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
-    h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
-    for src in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
-
-
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
-    """Compile every named kernel library that is not built yet, one
-    nvcc per source, all started together.  Returns name -> .so path;
-    the ptxas report of each build is kept beside it as `.log`."""
-    names = kernel_names() if names is None else list(names)
-    targets = {n: _target(n) for n in names}
-    missing = {n: t for n, t in targets.items() if not t.exists()}
-    if not missing:
-        return targets
+def build(name: str) -> Path:
+    """Compile `csrc/<name>.cu` unless it is built already; returns the
+    .so path."""
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(src.read_bytes())
+    target = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    if target.exists():
+        return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for name, target in missing.items():
-        tmp = target.with_suffix(f".so.tmp.{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        missing[name].with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, missing[name])
-    if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return targets
+    tmp = target.with_suffix(f".so.tmp.{os.getpid()}")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"CUDA kernel build failed: {name}: nvcc exited "
+                           f"{proc.returncode}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, target)
+    return target
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -92,5 +69,5 @@ def load_library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(str(build([name])[name]))
+            lib = _libs[name] = ctypes.CDLL(str(build(name)))
         return lib

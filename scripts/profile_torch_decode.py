@@ -1,19 +1,20 @@
 """Where the port's decode step spends its time, on one CUDA card.
 
-    python3 scripts/profile_torch_decode.py [--lanes 32] [--ctx 512]
+    python3 scripts/profile_torch_decode.py
 
 Builds ray_tpu_torch's InferenceEngine at gpt2-small (bf16, random
-weights from a seed), fills every lane with a prompt of --ctx tokens,
-then times decode steps two ways: the host clock per step (each step
-ends in its one device->host transfer), and a torch.profiler trace of a
-window of steps giving the device's busy share and the device time by
-kernel.  Runs greedy and with every lane sampling (temperature > 0).
+weights from a seed), fills all 32 lanes with a prompt of 512 tokens,
+then times 16 decode steps two ways: the host clock per step (each step
+ends in its one device->host transfer), and a torch.profiler trace of
+another 16 steps giving the device time by kernel.  The device's busy
+share is the device time per step over the untraced step: the profiler
+about doubles a step's host time, so the traced window is no measure of
+the step.  Runs greedy and with every lane sampling (temperature > 0).
 Prints one JSON line per mode, then the card's nvidia-smi line.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import sys
@@ -25,65 +26,62 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+LANES, CTX, STEPS = 32, 512, 16
 
-def _fill(eng, lanes, ctx, temperature):
+
+def _fill(eng, temperature):
     """Admit one request per lane and run its whole prompt's prefill."""
-    for i in range(lanes):
-        eng.submit([(7 * i + j) % 50304 for j in range(ctx)],
+    for i in range(LANES):
+        eng.submit([(7 * i + j) % 50304 for j in range(CTX)],
                    max_new_tokens=256, temperature=temperature, seed=i)
-    for _ in range(-(-ctx // eng.prefill_chunk)):
+    for _ in range(-(-CTX // eng.prefill_chunk)):
         eng.step()
 
 
-def measure(lanes: int, ctx: int, temperature: float, steps: int) -> dict:
+def measure(temperature: float) -> dict:
     from ray_tpu_torch.inference import InferenceEngine
 
     eng = InferenceEngine("gpt", "gpt2-small", device="cuda", seed=0,
-                          max_lanes=lanes, block_size=16, auto_start=False)
-    _fill(eng, lanes, ctx, temperature)
+                          max_lanes=LANES, block_size=16, auto_start=False)
+    _fill(eng, temperature)
     for _ in range(4):                                  # warm-up
         eng.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(steps):
+    for _ in range(STEPS):
         eng.step()
-    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    host_ms = (time.perf_counter() - t0) / STEPS * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
+        for _ in range(STEPS):
             eng.step()
-        traced_ms = (time.perf_counter() - t0) / steps * 1e3
+        traced_ms = (time.perf_counter() - t0) / STEPS * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type.name == "CUDA"]
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     eng.shutdown()
+    device_ms = device_us / STEPS / 1e3
     return {
-        "lanes": lanes, "ctx": ctx, "temperature": temperature,
-        "steps": steps, "step_ms": host_ms, "traced_step_ms": traced_ms,
-        "device_ms_per_step": device_us / steps / 1e3,
-        "device_busy_share": device_us / 1e3 / (traced_ms * steps),
-        "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
+        "lanes": LANES, "ctx": CTX, "temperature": temperature,
+        "steps": STEPS, "step_ms": host_ms, "traced_step_ms": traced_ms,
+        "device_ms_per_step": device_ms,
+        "device_busy_share": device_ms / host_ms,
+        "kernel_launches_per_step": sum(e.count for e in kernels) / STEPS,
         "top_kernels": [{"name": e.key[:80],
-                         "ms_per_step": e.self_device_time_total / steps
+                         "ms_per_step": e.self_device_time_total / STEPS
                          / 1e3,
-                         "calls_per_step": e.count / steps} for e in top],
+                         "calls_per_step": e.count / STEPS} for e in top],
     }
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--lanes", type=int, default=32)
-    ap.add_argument("--ctx", type=int, default=512)
-    ap.add_argument("--steps", type=int, default=16)
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_decode: needs a CUDA device", file=sys.stderr)
         return 1
     for temperature in (0.0, 0.8):
-        print(json.dumps(measure(args.lanes, args.ctx, temperature,
-                                 args.steps)), flush=True)
+        print(json.dumps(measure(temperature)), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
