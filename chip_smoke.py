@@ -7,21 +7,38 @@ It runs every phase, each printing one JSON line; any failure ends the
 run with a nonzero exit code and no result line:
 
   device   the card (nvidia-smi name and power limit), torch/CUDA versions,
-           then every kernel of the port built from csrc/ with nvcc.
-  kernels  each kernel against its plain PyTorch version on the same
-           inputs at the serving path's shapes (gpt2-small decode: 32
-           lanes, 12 heads of 64, block 16, ragged contexts up to 1024;
-           bf16 and f32) and a GQA shape, then timed with CUDA events
-           (median over launches, L2 flushed before each) beside its
-           bound, its plain version and one PyTorch library call.
-  serve    the main path: InferenceEngine("gpt", "gpt2-small") at full
+           then every kernel of the port built from csrc/ with nvcc, one
+           nvcc per source, all started together.
+  kernels  the paged-decode kernel (K4) against its plain PyTorch version
+           on the same inputs at the serving path's shapes (gpt2-small
+           decode: 32 lanes, 12 heads of 64, block 16, ragged contexts up
+           to 1024; bf16 and f32) and GQA shapes, then timed with CUDA
+           events (median over launches, L2 flushed before each) beside
+           its bound, its plain version and one PyTorch library call.
+  flash    the flash-attention kernels K1 (forward), K2 (dq) and K3
+           (dk, dv) against their plain versions at the train shape
+           (B 24, L 1024, 12 heads of 64, causal; bf16 and f32), at D 128
+           and 256, non-causal with q_len != kv_len, and at a length that
+           is no multiple of a tile; then timed the same way, beside
+           scaled_dot_product_attention's forward (K1) and backward (K2
+           and K3 together).
+  serve    the serving path: InferenceEngine("gpt", "gpt2-small") at full
            width, random bf16 weights from a seed, 32 lanes, answering 24
            streamed requests (greedy and seeded, a shared prefix).  The
            kernel launch counts are set to 0 just before and read just
            after; the decode kernel must have run once per layer per
            decode step.
+  train    the training path: gpt.make_train_step(gpt2-small, adamw(1e-4))
+           at full width (bf16 activations, fp32 params, random weights
+           from a seed) on one repeated batch of 24 x 1024 random tokens,
+           as bench.py drives the reference: 2 warm-up steps, then timed
+           steps.  K1, K2 and K3 must each have run 12 times per timed
+           step, every loss must be finite and the last below the first.
   parity   gpt2-small in float32: the same greedy requests through the
            engine on the card and on the CPU must give the same tokens.
+  train_parity  gpt2-small widths in float32 at 2 layers, batch 2 x 256:
+           one train step on the card and one on the CPU from the same
+           weights and tokens; the losses and every gradient must agree.
 
 Then, on lines of their own: the kernels' JSON record, the card's name
 and power limit, and last {"ok": true, "device": {...}}.  Exits nonzero
@@ -32,6 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -193,6 +211,159 @@ def phase_kernels(report: dict) -> None:
         bound_by=main["bound_by"], library_ms=main["library_ms"])
 
 
+# ------------------------------------------------------------------ flash
+
+# Flash kernels vs plain on the same inputs.  f32: both sides compute in
+# f32 and sum up to L * D products in another order.  bf16: both compute
+# in f32 (P is never rounded to bf16) and round once, so they may differ
+# by one bf16 ulp (2**-7 relative at most).  LSE and delta are f32 for
+# either input type.
+FLASH_TOLERANCE = {torch.float32: (1e-4, 1e-4),
+                   torch.bfloat16: (1e-3, 2 ** -7)}
+FLASH_CASES = {
+    "train-bf16": dict(b=24, lq=1024, lk=1024, h=12, d=64, causal=True,
+                       dtype=torch.bfloat16),
+    "train-f32": dict(b=24, lq=1024, lk=1024, h=12, d=64, causal=True,
+                      dtype=torch.float32),
+    "d128-bf16": dict(b=4, lq=1024, lk=1024, h=8, d=128, causal=True,
+                      dtype=torch.bfloat16),
+    "d256-f32": dict(b=2, lq=512, lk=512, h=4, d=256, causal=True,
+                     dtype=torch.float32),
+    "d256-bf16": dict(b=2, lq=512, lk=512, h=4, d=256, causal=True,
+                      dtype=torch.bfloat16),
+    # Non-causal with q_len != kv_len, neither a multiple of a tile.
+    "full-ragged-bf16": dict(b=4, lq=500, lk=1000, h=12, d=64, causal=False,
+                             dtype=torch.bfloat16),
+    # Causal at a length that is no multiple of the 64-row tile.
+    "causal-ragged-f32": dict(b=3, lq=1000, lk=1000, h=12, d=64,
+                              causal=True, dtype=torch.float32),
+}
+
+
+def _flash_bounds(c) -> dict:
+    """Least time of each kernel's work at case c on an H100, as
+    (ms, "bytes"|"operations"): each operand it reads once, each output
+    written once; 2 flops per multiply-add of its products (K1: S and
+    PV; K2: S, dP and dQ; K3: S, dP, dV and dK) over the visible (q, k)
+    pairs only, at the peak for the input type."""
+    b, lq, lk, h, d = c["b"], c["lq"], c["lk"], c["h"], c["d"]
+    sz = torch.empty((), dtype=c["dtype"]).element_size()
+    pairs = b * h * (lq * (lq + 1) // 2 if c["causal"] else lq * lk)
+    row_q, row_k, lens = b * lq * h * d * sz, b * lk * h * d * sz, b * h * lq * 4
+    work = {  # name: (bytes, flops)
+        "K1": (2 * row_q + 2 * row_k + lens, 4 * d * pairs),  # q,k,v -> o, lse
+        "K2": (4 * row_q + 2 * row_k + 2 * lens, 6 * d * pairs),
+        "K3": (2 * row_q + 4 * row_k + 2 * lens, 8 * d * pairs),
+    }
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS[c["dtype"]]
+        out[name] = (max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def _flash_errors(name, dtype, pairs) -> float:
+    """Check each (kernel, plain) pair; returns the largest abs error."""
+    worst = 0.0
+    for what, got, want in pairs:
+        atol, rtol = FLASH_TOLERANCE[torch.float32 if got.dtype ==
+                                     torch.float32 else dtype]
+        got, want = got.float(), want.float()
+        check(bool(torch.isfinite(got).all()), f"{name} {what}: not finite")
+        err = (got - want).abs()
+        check(bool((err <= atol + rtol * want.abs()).all()),
+              f"{name} {what}: kernel disagrees with its plain version "
+              f"(max abs err {float(err.max())}, atol {atol}, rtol {rtol})")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def phase_flash(report: dict) -> None:
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention as A
+
+    gen = torch.Generator().manual_seed(1)
+    results = {}
+    for name, c in FLASH_CASES.items():
+        b, lq, lk, h, d, causal = (c[k] for k in
+                                   ("b", "lq", "lk", "h", "d", "causal"))
+
+        def rand(l):
+            return torch.randn(b, l, h, d, generator=gen).to(
+                c["dtype"]).cuda()
+
+        q, k, v, do = rand(lq), rand(lk), rand(lk), rand(lq)
+        scale = d ** -0.5
+        o, lse = A.flash_forward(q, k, v, causal, scale)
+        po, plse = A.flash_forward_plain(q, k, v, causal, scale)
+        dq, delta = A.flash_dq(q, k, v, o, lse, do, causal, scale)
+        pdq, pdelta = A.flash_dq_plain(q, k, v, o, lse, do, causal, scale)
+        dk, dv = A.flash_dkv(q, k, v, do, lse, delta, causal, scale)
+        pdk, pdv = A.flash_dkv_plain(q, k, v, do, lse, pdelta, causal, scale)
+        torch.cuda.synchronize()
+        err = {
+            "K1": _flash_errors(name, c["dtype"], [("O", o, po),
+                                                   ("LSE", lse, plse)]),
+            "K2": _flash_errors(name, c["dtype"], [("dq", dq, pdq),
+                                                   ("delta", delta, pdelta)]),
+            "K3": _flash_errors(name, c["dtype"], [("dk", dk, pdk),
+                                                   ("dv", dv, pdv)]),
+        }
+        del po, plse, pdq, pdelta, pdk, pdv
+        # The library yardstick: SDPA on [B, H, L, D] views (never called
+        # by the port); its backward is K2 and K3 together.
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+        lib_fwd = _time_ms(sdpa, reps=20)
+        lib_bwd = _time_ms(sdpa_fwd_bwd, reps=20) - lib_fwd
+        bounds = _flash_bounds(c)
+        times = {
+            "K1": (lambda: A.flash_forward(q, k, v, causal, scale),
+                   lambda: A.flash_forward_plain(q, k, v, causal, scale),
+                   lib_fwd),
+            "K2": (lambda: A.flash_dq(q, k, v, o, lse, do, causal, scale),
+                   lambda: A.flash_dq_plain(q, k, v, o, lse, do, causal,
+                                            scale), lib_bwd),
+            "K3": (lambda: A.flash_dkv(q, k, v, do, lse, delta, causal,
+                                       scale),
+                   lambda: A.flash_dkv_plain(q, k, v, do, lse, delta, causal,
+                                             scale), lib_bwd),
+        }
+        results[name] = {
+            kern: dict(max_abs_err=err[kern], ms=_time_ms(fn, reps=20),
+                       plain_ms=_time_ms(plain, reps=5), library_ms=lib,
+                       bound_ms=bounds[kern][0], bound_by=bounds[kern][1])
+            for kern, (fn, plain, lib) in times.items()}
+        del q, k, v, do, o, lse, dq, delta, dk, dv, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+    atol = {str(t).replace("torch.", ""): FLASH_TOLERANCE[t]
+            for t in FLASH_TOLERANCE}
+    emit("flash", tolerance_atol_rtol=atol, cases=results)
+    train = results["train-bf16"]
+    for kern, fn, line in (("K1", "flash_forward", 53),
+                           ("K2", "flash_dq", 414), ("K3", "flash_dkv", 457)):
+        report[fn] = dict(
+            name=fn, route="cuda",
+            source="ray_tpu_torch/ops/csrc/flash_attention.cu",
+            replaces=f"ray_tpu/ops/attention.py:{line}", **train[kern])
+        if kern != "K1":
+            report[fn]["library_note"] = (
+                "scaled_dot_product_attention backward: dq, dk and dv "
+                "together (K2 + K3)")
+
+
 # ------------------------------------------------------------------ serve
 
 def _serve_requests(rng_seed: int = 0):
@@ -346,6 +517,118 @@ def phase_parity() -> None:
     check(same, "CUDA and CPU greedy tokens differ")
 
 
+# ------------------------------------------------------------------ train
+
+TRAIN_WARMUP, TRAIN_STEPS = 2, 6
+
+
+def phase_train(report: dict) -> None:
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models._functional import adamw
+    from ray_tpu_torch.ops import attention as A
+
+    config = gpt.CONFIGS["gpt2-small"]
+    batch, seq = 24, 1024
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    init_state, train_step = gpt.make_train_step(config, adamw(1e-4),
+                                                 device="cuda")
+    state = init_state(0)
+    tokens = torch.randint(0, config.vocab_size, (batch, seq),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    setup_s = time.perf_counter() - t0
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        state, metrics = train_step(state, {"tokens": tokens})
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+
+    kernels = (A.flash_forward, A.flash_dq, A.flash_dkv)
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, metrics = train_step(state, {"tokens": tokens})
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = [fn.launches for fn in kernels]
+
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"train loss {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    want = TRAIN_STEPS * config.n_layers
+    for fn, n in zip(kernels, launches):
+        check(n == want, f"{fn.__name__} launched {n} times for "
+                         f"{TRAIN_STEPS} steps x {config.n_layers} layers")
+        report[fn.__name__]["launches"] = n
+    tokens_per_s = batch * seq * TRAIN_STEPS / dt
+    n_params = gpt.num_params(config)
+    emit("train", config="gpt2-small", batch=batch, seq=seq,
+         params=n_params, setup_s=setup_s, warmup_steps=TRAIN_WARMUP,
+         steps=TRAIN_STEPS, step_ms=dt / TRAIN_STEPS * 1e3,
+         gpt2_125m_train_tokens_per_sec_per_chip=tokens_per_s,
+         mfu=6 * n_params * tokens_per_s / PEAK_FLOPS[torch.bfloat16],
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         losses=losses, kernel_launches=dict(
+             zip((fn.__name__ for fn in kernels), launches)))
+
+
+# Per leaf, max |g_cuda - g_cpu| / max |g_cpu|.  Both sides compute in
+# f32 (TF32 off) and sum in other orders: cuBLAS and the flash kernels on
+# the card, the CPU's BLAS and the plain versions on the host, over 256
+# positions and a 50304-way softmax.  2e-4 leaves room for that, while a
+# wrong mask, layout or missing term moves a gradient by O(1).
+GRAD_TOLERANCE = 2e-4
+
+
+def phase_train_parity() -> None:
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models._functional import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    config = dataclasses.replace(gpt.CONFIGS["gpt2-small"], n_layers=2,
+                                 dtype=torch.float32)
+    params = gpt.init_params(config, torch.Generator().manual_seed(5),
+                             device="cpu")
+    tokens = torch.randint(0, config.vocab_size, (2, 256),
+                           generator=torch.Generator().manual_seed(6))
+    out = {}
+    for device in ("cuda", "cpu"):
+        init_state, train_step = gpt.make_train_step(config, adamw(1e-4),
+                                                     device=device)
+        state, metrics = train_step(init_state(params=params),
+                                    {"tokens": tokens})
+        grads = gpt._map(state["params"], lambda t: t.grad.cpu())
+        out[device] = (float(metrics["loss"]), grads)
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    worst, worst_leaf = 0.0, None
+
+    def compare(a, b, path):
+        nonlocal worst, worst_leaf
+        for key in b:
+            if isinstance(b[key], dict):
+                compare(a[key], b[key], f"{path}{key}/")
+                continue
+            rel = float((a[key] - b[key]).abs().max()
+                        / b[key].abs().max().clamp_min(1e-30))
+            if rel >= worst:
+                worst, worst_leaf = rel, path + key
+
+    compare(out["cuda"][1], out["cpu"][1], "")
+    emit("train_parity", config="gpt2-small widths, 2 layers, float32",
+         batch=[2, 256], loss_cuda=out["cuda"][0], loss_cpu=out["cpu"][0],
+         loss_rel_err=loss_rel, max_grad_rel_err=worst,
+         worst_leaf=worst_leaf, grad_tolerance=GRAD_TOLERANCE)
+    check(loss_rel <= 1e-4, f"train loss CUDA {out['cuda'][0]} vs CPU "
+                            f"{out['cpu'][0]}")
+    check(worst <= GRAD_TOLERANCE, f"gradient {worst_leaf}: CUDA vs CPU "
+                                   f"relative error {worst}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -355,15 +638,18 @@ def main() -> int:
 
     smi = smi_line()
     t0 = time.perf_counter()
-    _build.build("paged_decode")
+    built = _build.build_all()
     emit("device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(),
-         build_s=time.perf_counter() - t0)
+         built=[p.name for p in built], build_s=time.perf_counter() - t0)
     report: dict = {}
     phase_kernels(report)
+    phase_flash(report)
     phase_serve(report)
+    phase_train(report)
     phase_parity()
+    phase_train_parity()
     print(json.dumps({"kernels": list(report.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,10 @@ Hopper (`ops/csrc/`), built with nvcc at first use.
 Ported so far — the serving path: the paged-KV cache, the
 continuous-batching engine with in-step sampling (token-exact with the
 reference's threefry draws), the cached GPT forward, and the
-single-query paged-decode attention kernel.
+single-query paged-decode attention kernel; and the single-device GPT
+training path: the training forward and loss, flash attention forward
+and backward kernels, the fused chunked cross-entropy and AdamW
+(`models.gpt.make_train_step`).
 
 Every entry point takes `device=None`, which means CUDA; without a card
 it raises unless the caller passes `device="cpu"`.

@@ -4,7 +4,9 @@ The reference initialises with `jax.random`, whose draws no torch
 generator reproduces, so the two packages compute the same thing only on
 weights moved across: take the reference's GPT params as numpy
 (`jax.tree.map(np.asarray, params)`) and turn them into the port's
-params — same keys, same stacked layouts, same dtypes.
+params — same keys, same stacked layouts, same dtypes.  `params_to_numpy`
+goes the other way, so the reference can be handed the port's weights
+(or updated params compared leaf by leaf).
 """
 
 from __future__ import annotations
@@ -47,3 +49,19 @@ def params_from_numpy(tree: dict, config: gpt.GPTConfig,
         return out
 
     return convert(tree, gpt.param_shapes(config), "")
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The inverse of `params_from_numpy`: the port's params as a tree of
+    numpy arrays on the host (bf16 leaves as ml_dtypes' bfloat16)."""
+
+    def convert(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy().copy()
+
+    return {k: params_to_numpy(v) if isinstance(v, dict) else convert(v)
+            for k, v in params.items()}

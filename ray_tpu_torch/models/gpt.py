@@ -1,16 +1,20 @@
-"""Decoder-only transformer (GPT family): the cached forward of the
-serving path (port of ray_tpu/models/gpt.py).
+"""Decoder-only transformer (GPT family): the training forward and loss,
+and the cached forward of the serving path (port of
+ray_tpu/models/gpt.py).
 
 Plain functions on tensors, as in the reference: params are a nested
 dict of tensors with the layers STACKED on a leading dim (`wq/wk/wv
 [n, d, h, dh]`, `wo [n, h, dh, d]`, `w_up [n, d, f]`, `w_down [n, f, d]`),
 kept in fp32, and the forward casts weights to the activation dtype
-where it uses them.  A Python loop over the stacked layers takes the
-place of `lax.scan`.
+where it uses them, inside the graph, so the fp32 leaves get the
+gradients.  A Python loop over the stacked layers takes the place of
+`lax.scan`.
 
-Ported: the config table, `init_params`, `_layernorm`, `_block_cached`,
-`forward_cached` and `lm_head`.  The training forward (`forward`,
-`forward_trunk`, `loss_fn`) and the MoE MLP come with the training slice.
+Ported: the config table, `init_params`, `num_params`, `_layernorm`,
+`_block`, `forward_trunk`, `forward`, `loss_fn` (single device),
+`make_train_step`, `_block_cached`, `forward_cached` and `lm_head`.  The
+MoE MLP and every mesh with an axis above 1 wait for the multi-device
+slice and raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -21,9 +25,14 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.ops.attention import paged_attention, paged_kv_update
+from ray_tpu_torch.models import _functional
+from ray_tpu_torch.models._functional import _map
+from ray_tpu_torch.ops.attention import (flash_attention, paged_attention,
+                                         paged_kv_update)
+from ray_tpu_torch.ops.cross_entropy import fused_cross_entropy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +46,7 @@ class GPTConfig:
     dtype: Any = torch.bfloat16      # activation dtype (params kept fp32)
     n_experts: int = 0               # 0 = dense MLP; >0 = Switch MoE
     capacity_factor: float = 1.25
+    remat: bool = False              # recompute each block in the backward
     tie_embeddings: bool = True
 
     @property
@@ -56,7 +66,7 @@ CONFIGS = {
                              d_ff=4096),
     "gpt2-xl": GPTConfig(n_layers=48, d_model=1600, n_heads=25, d_ff=6400),
     "7b": GPTConfig(vocab_size=32000, n_layers=32, d_model=4096, n_heads=32,
-                    d_ff=11008, max_seq_len=4096),
+                    d_ff=11008, max_seq_len=4096, remat=True),
 }
 
 # Leaves that the forward only ever uses cast to the activation dtype.
@@ -141,9 +151,11 @@ def init_params(config: GPTConfig, generator: Optional[torch.Generator] = None,
     return _map(params, lambda t: t.to(device))
 
 
-def _map(tree: dict, fn) -> dict:
-    return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+def num_params(config: GPTConfig) -> int:
+    def count(tree):
+        return sum(count(v) if isinstance(v, dict) else math.prod(v)
+                   for v in tree.values())
+    return count(param_shapes(config))
 
 
 def working_params(params: dict, config: GPTConfig,
@@ -181,6 +193,114 @@ def lm_head(params: dict, x: torch.Tensor, config: GPTConfig) -> torch.Tensor:
     head = (params["tok_embed"].T if config.tie_embeddings
             else params["lm_head"]).to(config.dtype)
     return x @ head
+
+
+_MULTI_DEVICE = "the multi-device slice of the port (ROADMAP A8)"
+
+
+def _check_single_device(config: GPTConfig, mesh) -> None:
+    """The port runs one device: MoE and a mesh with any axis above 1
+    raise.  `mesh` is None or anything with a `.shape` mapping of axis
+    sizes (a one-device mesh is accepted)."""
+    if config.n_experts:
+        raise NotImplementedError(f"the Switch MoE MLP waits for "
+                                  f"{_MULTI_DEVICE}")
+    if mesh is not None and any(s > 1 for s in dict(mesh.shape).values()):
+        raise NotImplementedError(f"a mesh with an axis above 1 waits for "
+                                  f"{_MULTI_DEVICE}")
+
+
+def _block(x, p, config: GPTConfig):
+    """One training block: x [B, L, D] -> x.  Attention is
+    `flash_attention` (K1 forward, K2/K3 backward) with causal=True."""
+    b, l, d = x.shape
+    nh, dh = config.n_heads, config.head_dim
+    h = _layernorm(x, p["ln1_scale"], p["ln1_bias"])
+
+    def heads(w):                    # "bld,dhk->blhk"
+        return (h @ w.reshape(d, nh * dh).to(h.dtype)).view(b, l, nh, dh)
+
+    attn = flash_attention(heads(p["wq"]), heads(p["wk"]), heads(p["wv"]),
+                           causal=True)
+    x = x + attn.reshape(b, l, nh * dh) @ p["wo"].reshape(nh * dh, d).to(
+        h.dtype)
+
+    h = _layernorm(x, p["ln2_scale"], p["ln2_bias"])
+    # jax.nn.gelu's default is the tanh approximation.
+    hidden = F.gelu(h @ p["w_up"].to(h.dtype), approximate="tanh")
+    return x + hidden @ p["w_down"].to(h.dtype)
+
+
+def forward_trunk(params: dict, tokens: torch.Tensor, config: GPTConfig,
+                  mesh=None, position_offset: int = 0):
+    """Transformer stack up to (excluding) the lm head.
+    tokens [B, L] -> (x [B, L, D], moe_aux_loss f32 scalar, 0 here).
+
+    position_offset shifts the learned position table: a suffix call at
+    absolute position p reads pos_embed[p:p+l].  With `config.remat` each
+    block is recomputed in the backward (non-reentrant checkpoint), so
+    its flash forward runs twice per step."""
+    c = config
+    _check_single_device(c, mesh)
+    l = tokens.shape[1]
+    x = params["tok_embed"][tokens.long()].to(c.dtype)
+    pos = params["pos_embed"][position_offset:position_offset + l]
+    x = x + pos[None].to(c.dtype)
+    blocks = params["blocks"]
+    for layer in range(c.n_layers):
+        p = {k: v[layer] for k, v in blocks.items()}
+        if c.remat:
+            x = torch.utils.checkpoint.checkpoint(_block, x, p, c,
+                                                  use_reentrant=False)
+        else:
+            x = _block(x, p, c)
+    x = _layernorm(x, params["final_ln_scale"], params["final_ln_bias"])
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(params: dict, tokens: torch.Tensor, config: GPTConfig,
+            mesh=None, position_offset: int = 0):
+    """tokens [B, L] -> (logits [B, L, V], moe_aux_loss scalar)."""
+    x, aux = forward_trunk(params, tokens, config, mesh, position_offset)
+    return lm_head(params, x, config), aux
+
+
+def loss_fn(params: dict, batch: dict, config: GPTConfig, mesh=None):
+    """batch = {"tokens": [B, L], optional "loss_mask": [B, L]} ->
+    next-token cross-entropy (f32 scalar), single device.
+
+    As in the reference, the model runs on the full length and the
+    targets are the tokens rolled left by one; the last position, which
+    would predict the rolled-around token 0, is always masked.  The loss
+    is the fused chunked cross-entropy on the (tied) head, which never
+    materialises [B, L, V].  The reference's `+ 0.01 * aux` term is 0
+    for the dense MLP, the only one ported."""
+    c = config
+    tokens = batch["tokens"]
+    targets = torch.roll(tokens, -1, dims=1)
+    valid = torch.ones(tokens.shape, dtype=torch.float32,
+                       device=tokens.device)
+    valid[:, -1] = 0.0
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        valid = valid * mask
+    x, _ = forward_trunk(params, tokens, c, mesh)
+    b, l, d = x.shape
+    head = (params["tok_embed"].T if c.tie_embeddings
+            else params["lm_head"]).to(c.dtype)
+    return fused_cross_entropy(x.reshape(b * l, d), head,
+                               targets.reshape(-1), valid.reshape(-1))
+
+
+def make_train_step(config: GPTConfig, optimizer, mesh=None, *,
+                    device: DeviceLike = None):
+    """Returns (init_state, train_step), the shared functional-LM
+    contract (models/_functional.py), on `device` (None -> CUDA).  A mesh
+    with an axis above 1 raises: the multi-device slice is not ported."""
+    _check_single_device(config, mesh)
+    return _functional.make_train_step(config, optimizer,
+                                       init_params=init_params,
+                                       loss_fn=loss_fn, device=device)
 
 
 def _block_cached(x, p, k_pool, v_pool, config: GPTConfig, block_tables,

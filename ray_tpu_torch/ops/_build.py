@@ -9,7 +9,7 @@ into `ray_tpu_torch/_build/` (git-ignored).  The library's name carries
 a hash of its source and the flags, so an edited kernel rebuilds and an
 unchanged one is reused.  A failed build raises with nvcc's output;
 nothing falls back.  No PyTorch header is compiled, so a build takes
-seconds.
+seconds.  `build_all` starts one nvcc per source, all at once.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -43,25 +43,57 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` unless it is built already; returns the
-    .so path."""
-    src = CSRC / f"{name}.cu"
+def _target(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(src.read_bytes())
-    target = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc on `csrc/<name>.cu` unless it is built already; returns
+    (target, tmp, process) with process None when there is nothing to do."""
+    target = _target(name)
     if target.exists():
-        return target
+        return target, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".so.tmp.{os.getpid()}")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return target, tmp, proc
+
+
+def _finish(name: str, target: Path, tmp, proc) -> Path:
+    if proc is None:
+        return target
+    output, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"CUDA kernel build failed: {name}: nvcc exited "
-                           f"{proc.returncode}\n{proc.stdout}{proc.stderr}")
+                           f"{proc.returncode}\n{output}")
     os.replace(tmp, target)
     return target
+
+
+def build(name: str) -> Path:
+    """Compile `csrc/<name>.cu` unless it is built already; returns the
+    .so path."""
+    return _finish(name, *_start(name))
+
+
+def build_all() -> List[Path]:
+    """Compile every `csrc/*.cu`, one nvcc each, all started together."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    started = [(name, _start(name)) for name in names]
+    built, failed = [], []
+    for name, job in started:          # wait for every nvcc, then raise
+        try:
+            built.append(_finish(name, *job))
+        except RuntimeError as exc:
+            failed.append(str(exc))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return built
 
 
 def load_library(name: str) -> ctypes.CDLL:

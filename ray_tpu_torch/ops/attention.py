@@ -1,19 +1,25 @@
-"""Paged-KV attention for the serving path (port of ray_tpu/ops/attention.py).
+"""Attention ops (port of ray_tpu/ops/attention.py).
 
-The KV cache lives in a preallocated block pool [num_blocks, block_size,
-kv_heads, head_dim]; each sequence owns a row of a block table mapping
-its logical context positions onto pool blocks (inference/kv_cache.py).
-The decode step asks: one query per lane attends over that lane's block
-table.  That step runs the hand-written Hopper kernel
-`csrc/paged_decode.cu` on CUDA tensors; multi-token prefill chunks run
-the masked-dense `paged_attention_reference`.
+Training: `flash_attention` is a `torch.autograd.Function` whose forward
+runs K1 (`csrc/flash_attention.cu` flash_fwd_kernel) and saves (O, LSE),
+and whose backward runs K2 (dq, and delta = rowsum(dO * O)) then K3
+(dk, dv).  Calls the kernels do not take go to `reference_attention` and
+its autograd, as the reference sends them to its XLA path.
+
+Serving: the KV cache lives in a preallocated block pool [num_blocks,
+block_size, kv_heads, head_dim]; each sequence owns a row of a block
+table mapping its logical context positions onto pool blocks
+(inference/kv_cache.py).  The decode step asks: one query per lane
+attends over that lane's block table.  That step runs the hand-written
+Hopper kernel `csrc/paged_decode.cu` on CUDA tensors; multi-token
+prefill chunks run the masked-dense `paged_attention_reference`.
 
 Dispatch follows the tensor, never the environment: a CPU tensor takes
 the kernel's plain PyTorch version, a CUDA tensor launches the kernel or
 raises.
 
 Layouts: q is [batch, length, heads, head_dim] (BLHD) as in the
-reference.  Flash attention (training) is not ported yet.
+reference.
 """
 
 from __future__ import annotations
@@ -29,6 +35,264 @@ NEG_INF = -1e30
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (64, 128, 256)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (training): K1-K3
+# ---------------------------------------------------------------------------
+
+def _build_mask(q_len, k_len, causal, segment_ids, device):
+    """[1|B, 1, q_len, k_len] bool mask or None.  Causal is aligned to the
+    bottom right: query i sees keys <= i + k_len - q_len."""
+    mask = None
+    if causal:
+        mask = torch.ones(q_len, k_len, dtype=torch.bool, device=device).tril(
+            k_len - q_len)[None, None]
+    if segment_ids is not None:
+        seg = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+        mask = seg if mask is None else (mask & seg)
+    return mask
+
+
+def reference_attention(q, k, v, *, causal: bool = True,
+                        scale: Optional[float] = None, segment_ids=None):
+    """Plain attention, as the reference's XLA path: logits in the input
+    dtype, softmax in f32, probabilities cast back to v's dtype."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    mask = _build_mask(q.shape[1], k.shape[1], causal, segment_ids, q.device)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits.float(), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def _use_kernel(q_len, kv_len, d, causal) -> bool:
+    """The reference's `_use_pallas` rule without its tiling condition:
+    the CUDA kernels mask a ragged last tile themselves, so any length
+    rides them.  The kernels mask causal top-left (q >= k), which agrees
+    with the reference's bottom-right mask only on square calls."""
+    return d in _KERNEL_HEAD_DIMS and not (causal and q_len != kv_len)
+
+
+def _heads_first(x):
+    return x.float().transpose(1, 2)                  # [B, H, L, D] f32
+
+
+def _scores(q, k, causal, scale):
+    """(q * scale) . k in f32 as [B, H, Lq, Lk], and the visibility mask
+    of the kernels (top-left causal)."""
+    s = (_heads_first(q) * scale) @ _heads_first(k).transpose(-1, -2)
+    if not causal:
+        return s, None
+    lq, lk = q.shape[1], k.shape[1]
+    pos_q = torch.arange(lq, device=q.device)[:, None]
+    pos_k = torch.arange(lk, device=q.device)[None, :]
+    return s, pos_q >= pos_k
+
+
+def flash_forward_plain(q, k, v, causal: bool, scale: float):
+    """Plain version of K1: (O [B, L, H, D] in q's dtype, LSE [B, H, L]
+    f32), with l clamped to 1e-30 as in the kernel."""
+    s, mask = _scores(q, k, causal, scale)
+    if mask is not None:
+        s = s.masked_fill(~mask, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l_safe = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = (p @ _heads_first(v)) / l_safe
+    lse = (m + torch.log(l_safe))[..., 0]
+    return out.transpose(1, 2).to(q.dtype), lse
+
+
+def _probs(q, k, lse, causal, scale):
+    s, mask = _scores(q, k, causal, scale)
+    p = torch.exp(s - lse[..., None])
+    return p if mask is None else p.masked_fill(~mask, 0.0)
+
+
+def flash_dq_plain(q, k, v, out, lse, dout, causal: bool, scale: float):
+    """Plain version of K2: (dq in q's dtype, delta [B, H, L] f32)."""
+    do = _heads_first(dout)
+    delta = (do * _heads_first(out)).sum(-1)
+    p = _probs(q, k, lse, causal, scale)
+    ds = p * (do @ _heads_first(v).transpose(-1, -2) - delta[..., None])
+    dq = (ds @ _heads_first(k)) * scale
+    return dq.transpose(1, 2).to(q.dtype), delta
+
+
+def flash_dkv_plain(q, k, v, dout, lse, delta, causal: bool, scale: float):
+    """Plain version of K3: (dk, dv) in k's and v's dtypes."""
+    do = _heads_first(dout)
+    p = _probs(q, k, lse, causal, scale)
+    dv = p.transpose(-1, -2) @ do
+    ds = p * (do @ _heads_first(v).transpose(-1, -2) - delta[..., None])
+    dk = (ds.transpose(-1, -2) @ _heads_first(q)) * scale
+    return dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
+
+
+def flash_backward_plain(q, k, v, out, lse, dout, causal: bool,
+                         scale: float):
+    """Plain version of K2 then K3, written out (delta, P from LSE, dS):
+    (dq, dk, dv)."""
+    dq, delta = flash_dq_plain(q, k, v, out, lse, dout, causal, scale)
+    dk, dv = flash_dkv_plain(q, k, v, dout, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+@functools.cache
+def _flash_kernels():
+    """The three C entry points of csrc/flash_attention.cu, built and
+    bound on first use."""
+    from ray_tpu_torch.ops._build import load_library
+
+    lib = load_library("flash_attention")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tail = [i, i, i, i, i, f, i, i, p]     # b, h, lq, lk, d, scale, causal,
+    fns = (lib.flash_attention_forward,     # dtype, stream
+           lib.flash_attention_dq, lib.flash_attention_dkv)
+    for fn, n_ptr in zip(fns, (5, 8, 8)):
+        fn.argtypes = [p] * n_ptr + tail
+        fn.restype = ctypes.c_int
+    return fns
+
+
+def _check_flash_args(name, causal, tensors, lens) -> None:
+    """Raise on any input the flash kernels do not take.  `tensors` are
+    the [B, L, H, D] operands (q, k, v, then q-length ones); `lens` the
+    f32 [B, H, Lq] ones."""
+    q = tensors[0]
+    b, lq, h, d = q.shape
+    lk = tensors[1].shape[1]
+    if q.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{name}: dtype must be float32 or bfloat16; got "
+                        f"{q.dtype}")
+    if not _use_kernel(lq, lk, d, causal) or lk == 0:
+        raise ValueError(f"{name}: no kernel for head dim {d}, q_len {lq}, "
+                         f"kv_len {lk}, causal={causal}")
+    if b * h > 65535:
+        raise ValueError(f"{name}: batch * heads {b * h} > 65535")
+    for i, t in enumerate(tensors):
+        want = (b, lq if i == 0 or i >= 3 else lk, h, d)
+        if t.dim() != 4 or tuple(t.shape) != want or t.dtype != q.dtype:
+            raise ValueError(f"{name}: operand {i} is {tuple(t.shape)} "
+                             f"{t.dtype}, want {want} {q.dtype}")
+    for t in lens:
+        if tuple(t.shape) != (b, h, lq) or t.dtype != torch.float32:
+            raise ValueError(f"{name}: want f32 [{b}, {h}, {lq}]; got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    for t in (*tensors, *lens):
+        if t.device != q.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name}: every operand must be contiguous, "
+                             f"16-byte aligned and on {q.device}")
+
+
+def _launch(name, which, operands, causal, scale):
+    """Launch entry point `which` of `_flash_kernels()` on the current
+    stream; `operands` start with q and k."""
+    q, k = operands[:2]
+    b, lq, h, d = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _flash_kernels()[which](
+            *[t.data_ptr() for t in operands], b, h, lq, k.shape[1], d,
+            float(scale), int(causal), _KERNEL_DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError_t "
+                           f"{err}")
+
+
+def _on_cuda(name, x) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    return True
+
+
+def flash_forward(q, k, v, causal: bool, scale: float):
+    """K1: (O, LSE [B, H, Lq] f32).  A CPU tensor takes
+    `flash_forward_plain`; a CUDA tensor launches the kernel or raises.
+    `flash_forward.launches` counts kernel launches."""
+    if not _on_cuda("flash_forward", q):
+        return flash_forward_plain(q, k, v, causal, scale)
+    _check_flash_args("flash_forward", causal, (q, k, v), ())
+    b, lq, h, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(b, h, lq, dtype=torch.float32, device=q.device)
+    _launch("flash_forward", 0, (q, k, v, out, lse), causal, scale)
+    flash_forward.launches += 1
+    return out, lse
+
+
+def flash_dq(q, k, v, out, lse, dout, causal: bool, scale: float):
+    """K2: (dq, delta [B, H, Lq] f32).  CPU: `flash_dq_plain`.
+    `flash_dq.launches` counts kernel launches."""
+    if not _on_cuda("flash_dq", q):
+        return flash_dq_plain(q, k, v, out, lse, dout, causal, scale)
+    _check_flash_args("flash_dq", causal, (q, k, v, out, dout), (lse,))
+    b, lq, h, _ = q.shape
+    dq = torch.empty_like(q)
+    delta = torch.empty(b, h, lq, dtype=torch.float32, device=q.device)
+    _launch("flash_dq", 1, (q, k, v, out, dout, lse, dq, delta), causal,
+            scale)
+    flash_dq.launches += 1
+    return dq, delta
+
+
+def flash_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float):
+    """K3: (dk, dv), reading the delta that K2 wrote.  CPU:
+    `flash_dkv_plain`.  `flash_dkv.launches` counts kernel launches."""
+    if not _on_cuda("flash_dkv", q):
+        return flash_dkv_plain(q, k, v, dout, lse, delta, causal, scale)
+    _check_flash_args("flash_dkv", causal, (q, k, v, dout), (lse, delta))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_dkv", 2, (q, k, v, dout, lse, delta, dk, dv), causal,
+            scale)
+    flash_dkv.launches += 1
+    return dk, dv
+
+
+flash_forward.launches = 0
+flash_dq.launches = 0
+flash_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward K1, saving (q, k, v, O, LSE) with O as returned (rounded
+    to the input dtype, as the reference's residual); backward K2 then
+    K3."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_forward(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        dq, delta = flash_dq(q, k, v, out, lse, dout, ctx.causal, ctx.scale)
+        dk, dv = flash_dkv(q, k, v, dout, lse, delta, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: Optional[float] = None):
+    """Differentiable attention over [B, L, H, D] through K1-K3 where the
+    kernels take the call (head dim 64/128/256, square when causal);
+    otherwise `reference_attention` and its autograd, as the reference
+    falls back to XLA.  The reference's block_q/block_k are TPU tiling
+    and have no counterpart.  Non-contiguous inputs are copied."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if not _use_kernel(q.shape[1], k.shape[1], d, causal):
+        return reference_attention(q, k, v, causal=causal, scale=scale)
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal, scale)
 
 
 def paged_kv_update(k_pool, v_pool, k_new, v_new, block_tables, positions,

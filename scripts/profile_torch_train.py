@@ -1,0 +1,87 @@
+"""Where the port's GPT-2 train step spends its time, on one CUDA card.
+
+    python3 scripts/profile_torch_train.py
+
+Builds ray_tpu_torch's train step at gpt2-small (bf16 activations, fp32
+params, random weights from a seed, AdamW) on one repeated batch of
+24 x 1024 random tokens, as bench.py drives the reference; runs 2
+warm-up steps, times 4 steps on the host clock (ending in a
+synchronise), then traces 3 more with torch.profiler for the device
+time by kernel.  The device's busy share is the device time per step
+over the untraced step.  The flash-attention kernels (K1-K3) are also
+summed on their own.  Prints one JSON line, then the card's nvidia-smi
+line.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+BATCH, SEQ, WARMUP, STEPS, TRACED = 24, 1024, 2, 4, 3
+
+
+def measure() -> dict:
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models._functional import adamw
+
+    config = gpt.CONFIGS["gpt2-small"]
+    init_state, train_step = gpt.make_train_step(config, adamw(1e-4),
+                                                 device="cuda")
+    state = init_state(0)
+    tokens = torch.randint(0, config.vocab_size, (BATCH, SEQ),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    batch = {"tokens": tokens}
+    for _ in range(WARMUP):
+        state, _ = train_step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        state, _ = train_step(state, batch)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / STEPS * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACED):
+            state, _ = train_step(state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA"]
+    device_ms = sum(e.self_device_time_total for e in kernels) / TRACED / 1e3
+    flash_ms = sum(e.self_device_time_total for e in kernels
+                   if "flash_" in e.key and "_kernel" in e.key) / TRACED / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    return {
+        "config": "gpt2-small", "batch": BATCH, "seq": SEQ, "steps": STEPS,
+        "step_ms": host_ms, "device_ms_per_step": device_ms,
+        "device_busy_share": device_ms / host_ms,
+        "flash_kernels_ms_per_step": flash_ms,
+        "kernel_launches_per_step": sum(e.count for e in kernels) / TRACED,
+        "top_kernels": [{"name": e.key[:90],
+                         "ms_per_step": e.self_device_time_total / TRACED
+                         / 1e3,
+                         "calls_per_step": e.count / TRACED} for e in top],
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_torch_train: needs a CUDA device", file=sys.stderr)
+        return 1
+    print(json.dumps(measure()), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
