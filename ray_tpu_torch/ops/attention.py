@@ -1,10 +1,14 @@
 """Attention ops (port of ray_tpu/ops/attention.py).
 
 Training: `flash_attention` is a `torch.autograd.Function` whose forward
-runs K1 (`csrc/flash_attention.cu` flash_fwd_kernel) and saves (O, LSE),
-and whose backward runs K2 (dq, and delta = rowsum(dO * O)) then K3
-(dk, dv).  Calls the kernels do not take go to `reference_attention` and
-its autograd, as the reference sends them to its XLA path.
+runs K1 (`csrc/flash_attention.cu`) and saves (O, LSE), and whose
+backward runs K2 (dq, and delta = rowsum(dO * O)) then K3 (dk, dv).
+bf16 calls at head dim 64 and 128 run K1 and K3 on the tensor cores,
+with P and dS rounded to bf16 before the products that take them (as
+`reference_attention` rounds P); f32 calls, bf16 at head dim 256, and K2
+always run f32 kernels (`flash_design`).  Calls the kernels do not take
+go to `reference_attention` and its autograd, as the reference sends
+them to its XLA path.
 
 Serving: the KV cache lives in a preallocated block pool [num_blocks,
 block_size, kv_heads, head_dim]; each sequence owns a row of a block
@@ -35,6 +39,29 @@ NEG_INF = -1e30
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (64, 128, 256)
+
+# A bf16 output of K1 (O) or K3 (dk, dv) on the tensor cores against its
+# plain version, entry by entry: |kernel - plain| <= a * rowmax|plain| +
+# r * |plain|, as (a, r), where rowmax is the largest |plain| in the
+# entry's own row (a q row of O, a kv row of dk or dv: the last dim).  P
+# (and, for dk, dS) is rounded to bf16 (unit roundoff 2**-8) before the
+# product that takes it.  A row's sums have terms of mixed sign, so that
+# error scales with the row's magnitude rather than with each entry's.
+# Both sides round their output to bf16, which may leave them one ulp
+# apart (up to 2**-7 of |plain|).  Scaling by the row, not by the
+# tensor, keeps the limit tight on late causal rows, whose values are
+# small: a kv or q tile skipped there moves a row by far more than 2**-7
+# of its own largest entry.  LSE keeps the f32 tolerance (l is summed
+# from the f32 P); K2 and every f32 call keep the f32 kernels'.
+TENSOR_CORE_TOLERANCE = (2 ** -7, 2 ** -7)
+
+
+def tensor_core_limit(plain: torch.Tensor) -> torch.Tensor:
+    """The largest |kernel - plain| that TENSOR_CORE_TOLERANCE allows at
+    each entry of a bf16 O, dk or dv ([..., D] f32, like `plain`)."""
+    a, r = TENSOR_CORE_TOLERANCE
+    mag = plain.float().abs()
+    return a * mag.amax(dim=-1, keepdim=True) + r * mag
 
 
 # ---------------------------------------------------------------------------
@@ -142,8 +169,8 @@ def flash_backward_plain(q, k, v, out, lse, dout, causal: bool,
 
 @functools.cache
 def _flash_kernels():
-    """The three C entry points of csrc/flash_attention.cu, built and
-    bound on first use."""
+    """The C entry points of csrc/flash_attention.cu (forward, dq, dkv,
+    then the design query), built and bound on first use."""
     from ray_tpu_torch.ops._build import load_library
 
     lib = load_library("flash_attention")
@@ -154,7 +181,21 @@ def _flash_kernels():
     for fn, n_ptr in zip(fns, (5, 8, 8)):
         fn.argtypes = [p] * n_ptr + tail
         fn.restype = ctypes.c_int
-    return fns
+    lib.flash_attention_design.argtypes = [i, i]
+    lib.flash_attention_design.restype = ctypes.c_int
+    return fns + (lib.flash_attention_design,)
+
+
+def flash_design(dtype, head_dim: int) -> str:
+    """Which kernels K1 and K3 run on the card for (dtype, head_dim), as
+    the CUDA source decides: "tensor cores (mma.sync bf16)" or "CUDA
+    cores (f32)".  K2 always runs on the CUDA cores in f32.  Builds the
+    library on first use."""
+    tc = _flash_kernels()[3](_KERNEL_DTYPES[dtype], head_dim)
+    if tc < 0:
+        raise ValueError(f"no flash kernel takes {dtype} at head dim "
+                         f"{head_dim}")
+    return "tensor cores (mma.sync bf16)" if tc else "CUDA cores (f32)"
 
 
 def _check_flash_args(name, causal, tensors, lens) -> None:
