@@ -9,23 +9,31 @@ run with a nonzero exit code and no result line:
   device   the card (nvidia-smi name and power limit), torch/CUDA versions,
            then every kernel of the port built from csrc/ with nvcc, one
            nvcc per source, all started together.
-  kernels  the paged-decode kernel (K4) against its plain PyTorch version
+  kernels  the paged-decode kernel (K4, split-context: one partial per
+           context split, then a merge) against its plain PyTorch version
            on the same inputs at the serving path's shapes (gpt2-small
            decode: 32 lanes, 12 heads of 64, block 16, ragged contexts up
-           to 1024; bf16 and f32) and GQA shapes, then timed with CUDA
-           events (median over launches, L2 flushed before each) beside
-           its bound, its plain version and one PyTorch library call.
+           to 1024; bf16 and f32), at 4 lanes of that shape, and at GQA
+           shapes (q_per_kv 2, 4, 7, 8 and 12), then timed with CUDA
+           events (median over launches, L2 flushed and the device held
+           busy by a spin before each, so the host's launch is not timed)
+           beside its bound, its plain version and one PyTorch library
+           call; and once more without the spin, the host's enqueue
+           included (ms_with_launch).  Each case names its split count
+           and split length.
   flash    the flash-attention kernels K1 (forward), K2 (dq) and K3
            (dk, dv) against their plain versions at the train shape
            (B 24, L 1024, 12 heads of 64, causal; bf16 and f32), at D 128
            and 256, non-causal with q_len != kv_len, and at a length that
            is no multiple of a tile; then timed the same way, beside
            scaled_dot_product_attention's forward (K1) and backward (K2
-           and K3 together).  Each case names the design K1 and K3 ran
-           (bf16 at D 64/128: the tensor cores, with P and dS rounded to
-           bf16, held to TENSOR_CORE_TOLERANCE, 2**-7 of each row's
-           largest value + 2**-7 relative).  Two faults planted on late
-           rows of the train shape's plain outputs must break that limit.
+           and K3 together).  Each case names the design K1-K3 ran (bf16
+           at D 64/128: the tensor cores, with P and dS rounded to bf16,
+           held to TENSOR_CORE_TOLERANCE, 2**-7 of each row's largest
+           value + 2**-7 relative, and for dq an absolute floor).
+           Three faults planted on late rows of the train shape's plain
+           outputs (K1's O, K2's dq, K3's dk and dv) must break that
+           limit.
   serve    the serving path: InferenceEngine("gpt", "gpt2-small") at full
            width, random bf16 weights from a seed, 32 lanes, answering 24
            streamed requests (greedy and seeded, a shared prefix).  The
@@ -109,8 +117,17 @@ def _decode_case(gen, *, b, kh, q_per_kv, d, bs, max_ctx, dtype):
                 ctx_lens=ctx.to(torch.int32).cuda())
 
 
-def _time_ms(fn, reps: int = 40) -> float:
-    """Median device time of one call, L2 flushed before each."""
+# About a millisecond of device time at the H100's clock: queued before
+# each timed call, it keeps the device busy while the host enqueues the
+# call, so the events time the device's work and not the host's launch.
+SPIN_CYCLES = 2_000_000
+
+
+def _time_ms(fn, reps: int = 40, spin: bool = True) -> float:
+    """Median time of one call, L2 flushed before each.  With `spin`
+    the device time; without it the events also take in the host's
+    enqueue of the call, wherever that is longer than the device's
+    work."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
@@ -118,6 +135,8 @@ def _time_ms(fn, reps: int = 40) -> float:
     events = []
     for _ in range(reps):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -176,9 +195,23 @@ def phase_kernels(report: dict) -> None:
                                 max_ctx=1024, dtype=torch.bfloat16),
         "gpt2-small-f32": dict(b=32, kh=12, q_per_kv=1, d=64, bs=16,
                                max_ctx=1024, dtype=torch.float32),
+        # Few lanes: one block per (lane, kv head) would be 48 blocks on
+        # 132 SMs; the splits fill the card.
+        "4-lane-bf16": dict(b=4, kh=12, q_per_kv=1, d=64, bs=16,
+                            max_ctx=1024, dtype=torch.bfloat16),
         "gqa4-d128-bf16": dict(b=16, kh=8, q_per_kv=4, d=128, bs=16,
                                max_ctx=1024, dtype=torch.bfloat16),
-        # 50 KB of shared memory: the opt-in above 48 KB.
+        # q_per_kv 2: one block of two query heads per kv head.
+        "gqa2-d128-bf16": dict(b=8, kh=4, q_per_kv=2, d=128, bs=16,
+                               max_ctx=1024, dtype=torch.bfloat16),
+        # q_per_kv 7 (Qwen2-7B: 28 query heads over 4): seven blocks of
+        # one query head each per kv head.
+        "gqa7-d128-bf16": dict(b=8, kh=4, q_per_kv=7, d=128, bs=16,
+                               max_ctx=1024, dtype=torch.bfloat16),
+        # q_per_kv 12: three blocks of four query heads per kv head.
+        "gqa12-d64-f32": dict(b=4, kh=2, q_per_kv=12, d=64, bs=16,
+                              max_ctx=512, dtype=torch.float32),
+        # A 1 KB row: one warp per position, two 16-byte loads a thread.
         "gqa8-d256-f32": dict(b=4, kh=2, q_per_kv=8, d=256, bs=32,
                               max_ctx=256, dtype=torch.float32),
     }
@@ -201,11 +234,15 @@ def phase_kernels(report: dict) -> None:
         results[name] = dict(
             max_abs_err=float(err.max()), atol=atol, rtol=rtol,
             ms=_time_ms(lambda: A.paged_decode_attention(**c)),
+            ms_with_launch=_time_ms(lambda: A.paged_decode_attention(**c),
+                                    spin=False),
             plain_ms=_time_ms(lambda: A.paged_decode_attention_plain(**c)),
             library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
                 sdpa[0], sdpa[1], sdpa[2], attn_mask=sdpa[3])),
             bound_ms=bound_ms, bound_by=bound_by,
-            ctx_tokens=int(c["ctx_lens"].long().sum()))
+            ctx_tokens=int(c["ctx_lens"].long().sum()),
+            q_per_kv=spec["q_per_kv"], split_len=A.DECODE_SPLIT_LEN,
+            splits=A.decode_splits(c["block_tables"].shape[1], spec["bs"]))
     emit("kernels", cases=results)
     main = results["gpt2-small-bf16"]
     report["paged_decode_attention"] = dict(
@@ -213,18 +250,19 @@ def phase_kernels(report: dict) -> None:
         source="ray_tpu_torch/ops/csrc/paged_decode.cu",
         replaces="ray_tpu/ops/attention.py:291",
         max_abs_err=main["max_abs_err"], ms=main["ms"],
-        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-        bound_by=main["bound_by"], library_ms=main["library_ms"])
+        ms_with_launch=main["ms_with_launch"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"])
 
 
 # ------------------------------------------------------------------ flash
 
 # Flash kernels vs plain on the same inputs, as (atol, rtol).  f32: both
 # sides compute in f32 and sum up to L * D products in another order.
-# bf16 dq (K2): both compute in f32 (P is never rounded to bf16) and round
-# once, so they may differ by one bf16 ulp (2**-7 relative at most).  LSE
-# and delta are f32 for either input type.  O (K1) and dk, dv (K3) from
-# the tensor-core kernels are held to ops.attention.tensor_core_limit
+# bf16 on the f32 kernels (D 256): both compute in f32 and round once, so
+# they may differ by one bf16 ulp (2**-7 relative at most).  LSE and
+# delta are f32 for either input type.  O (K1), dq (K2) and dk, dv (K3)
+# from the tensor-core kernels are held to ops.attention.tensor_core_limit
 # instead: there P and dS are rounded to bf16 before the products that
 # take them.
 FLASH_TOLERANCE = {torch.float32: (1e-4, 1e-4),
@@ -273,12 +311,12 @@ def _flash_bounds(c) -> dict:
     return out
 
 
-def _flash_errors(name, dtype, pairs, tensor_cores=False) -> tuple:
-    """Check each (what, kernel, plain) pair: O, dk and dv from the
+def _flash_errors(name, dtype, pairs, tensor_cores) -> tuple:
+    """Check each (what, kernel, plain) pair: O, dq, dk and dv from the
     tensor-core kernels against ops.attention.tensor_core_limit, anything
     else against FLASH_TOLERANCE for its dtype.  Returns the largest abs
     error and the largest share of its limit that an entry used."""
-    from ray_tpu_torch.ops.attention import tensor_core_limit
+    from ray_tpu_torch.ops import attention as A
 
     worst, used = 0.0, 0.0
     for what, got, want in pairs:
@@ -286,10 +324,10 @@ def _flash_errors(name, dtype, pairs, tensor_cores=False) -> tuple:
         got, want = got.float(), want.float()
         check(bool(torch.isfinite(got).all()), f"{name} {what}: not finite")
         err = (got - want).abs()
-        if tensor_cores and what in ("O", "dk", "dv"):
-            limit = tensor_core_limit(want)
+        if tensor_cores and what in ("O", "dq", "dk", "dv"):
+            limit = A.tensor_core_limit(want, what)
             rule = "TENSOR_CORE_TOLERANCE (2**-7 of the row's max|plain| " \
-                   "+ 2**-7 * |plain|)"
+                   "+ 2**-7 * |plain|, for dq + 2**-14 * max|plain|)"
         else:
             atol, rtol = FLASH_TOLERANCE[torch.float32 if out_dtype ==
                                          torch.float32 else dtype]
@@ -308,12 +346,15 @@ def _share(err, limit) -> float:
     return float((err / limit.clamp_min(1e-30)).max())
 
 
-def _planted_faults(q, k, v, do, lse, delta, po, pdk, pdv, scale) -> dict:
-    """The share of tensor_core_limit that two faults limited to late
+def _planted_faults(q, k, v, do, lse, delta, po, pdq, pdk, pdv,
+                    scale) -> dict:
+    """The share of tensor_core_limit that three faults limited to late
     rows would use at the train shape, built from the plain outputs: K1
     skipping kv tile 0 for q tiles >= 8 (O rows 512+ lose those keys
-    from both sums), and K3 skipping q tile 15 for kv tiles 8-14 (dk and
-    dv rows 512-959 lose that tile's terms).  Each must exceed 1."""
+    from both sums), K2 skipping the same tile (dq rows 512+ lose
+    scale * sum_{j<64} dS_ij k_j), and K3 skipping q tile 15 for kv tiles
+    8-14 (dk and dv rows 512-959 lose that tile's terms).  Each must
+    exceed 1."""
     from ray_tpu_torch.ops.attention import tensor_core_limit
 
     f = lambda x: x.float()  # noqa: E731
@@ -327,7 +368,14 @@ def _planted_faults(q, k, v, do, lse, delta, po, pdk, pdv, scale) -> dict:
     o = f(po).clone()
     o[:, 512:] = (o[:, 512:] - part) / kept
     o = o.to(po.dtype).float()
-    out["O"] = _share((o - f(po)).abs(), tensor_core_limit(po))
+    out["O"] = _share((o - f(po)).abs(), tensor_core_limit(po, "O"))
+    # K2: dq_i -= scale * sum_{j<64} dS_ij k_j over q rows 512+.
+    ds = p * (torch.einsum("bihd,bjhd->bhij", f(do[:, 512:]), f(v[:, :64]))
+              - delta[:, :, 512:, None])
+    dq = f(pdq).clone()
+    dq[:, 512:] -= torch.einsum("bhij,bjhd->bihd", ds, f(k[:, :64])) * scale
+    dq = dq.to(pdq.dtype).float()
+    out["dq"] = _share((dq - f(pdq)).abs(), tensor_core_limit(pdq, "dq"))
     # K3: dv_j -= sum_i p_ij dO_i, dk_j -= scale * sum_i dS_ij q_i over
     # q rows 960-1023 and kv rows 512-959.
     qi, doi, kj, vj = f(q[:, 960:]), f(do[:, 960:]), f(k[:, 512:960]), \
@@ -342,7 +390,7 @@ def _planted_faults(q, k, v, do, lse, delta, po, pdk, pdv, scale) -> dict:
         got = f(plain).clone()
         got[:, 512:960] -= drop
         got = got.to(plain.dtype).float()
-        out[what] = _share((got - f(plain)).abs(), tensor_core_limit(plain))
+        out[what] = _share((got - f(plain)).abs(), tensor_core_limit(plain, what))
     for what, share in out.items():
         check(share > 1.0, f"a planted late-row fault in {what} used only "
                            f"{share} of TENSOR_CORE_TOLERANCE")
@@ -379,13 +427,14 @@ def phase_flash(report: dict) -> None:
             "K1": _flash_errors(name, c["dtype"], [("O", o, po),
                                                    ("LSE", lse, plse)], tc),
             "K2": _flash_errors(name, c["dtype"], [("dq", dq, pdq),
-                                                   ("delta", delta, pdelta)]),
+                                                   ("delta", delta, pdelta)],
+                                tc),
             "K3": _flash_errors(name, c["dtype"], [("dk", dk, pdk),
                                                    ("dv", dv, pdv)], tc),
         }
         if name == "train-bf16":
-            faults = _planted_faults(q, k, v, do, plse, pdelta, po, pdk, pdv,
-                                     scale)
+            faults = _planted_faults(q, k, v, do, plse, pdelta, po, pdq, pdk,
+                                     pdv, scale)
         del po, plse, pdq, pdelta, pdk, pdv
         # The library yardstick: SDPA on [B, H, L, D] views (never called
         # by the port); its backward is K2 and K3 together.
@@ -417,7 +466,7 @@ def phase_flash(report: dict) -> None:
         }
         results[name] = {
             kern: dict(max_abs_err=err[kern][0], tolerance_used=err[kern][1],
-                       design="CUDA cores (f32)" if kern == "K2" else design,
+                       design=design,
                        ms=_time_ms(fn, reps=20),
                        plain_ms=_time_ms(plain, reps=5), library_ms=lib,
                        bound_ms=bounds[kern][0], bound_by=bounds[kern][1])

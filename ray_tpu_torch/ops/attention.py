@@ -3,20 +3,21 @@
 Training: `flash_attention` is a `torch.autograd.Function` whose forward
 runs K1 (`csrc/flash_attention.cu`) and saves (O, LSE), and whose
 backward runs K2 (dq, and delta = rowsum(dO * O)) then K3 (dk, dv).
-bf16 calls at head dim 64 and 128 run K1 and K3 on the tensor cores,
+bf16 calls at head dim 64 and 128 run all three on the tensor cores,
 with P and dS rounded to bf16 before the products that take them (as
-`reference_attention` rounds P); f32 calls, bf16 at head dim 256, and K2
-always run f32 kernels (`flash_design`).  Calls the kernels do not take
-go to `reference_attention` and its autograd, as the reference sends
-them to its XLA path.
+`reference_attention` rounds P); f32 calls and bf16 at head dim 256 run
+the f32 kernels (`flash_design`).  Calls the kernels do not take go to
+`reference_attention` and its autograd, as the reference sends them to
+its XLA path.
 
 Serving: the KV cache lives in a preallocated block pool [num_blocks,
 block_size, kv_heads, head_dim]; each sequence owns a row of a block
 table mapping its logical context positions onto pool blocks
 (inference/kv_cache.py).  The decode step asks: one query per lane
 attends over that lane's block table.  That step runs the hand-written
-Hopper kernel `csrc/paged_decode.cu` on CUDA tensors; multi-token
-prefill chunks run the masked-dense `paged_attention_reference`.
+Hopper kernel `csrc/paged_decode.cu` (split-context: partials per
+context split, then a merge) on CUDA tensors; multi-token prefill
+chunks run the masked-dense `paged_attention_reference`.
 
 Dispatch follows the tensor, never the environment: a CPU tensor takes
 the kernel's plain PyTorch version, a CUDA tensor launches the kernel or
@@ -40,28 +41,41 @@ NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (64, 128, 256)
 
-# A bf16 output of K1 (O) or K3 (dk, dv) on the tensor cores against its
-# plain version, entry by entry: |kernel - plain| <= a * rowmax|plain| +
-# r * |plain|, as (a, r), where rowmax is the largest |plain| in the
-# entry's own row (a q row of O, a kv row of dk or dv: the last dim).  P
-# (and, for dk, dS) is rounded to bf16 (unit roundoff 2**-8) before the
-# product that takes it.  A row's sums have terms of mixed sign, so that
-# error scales with the row's magnitude rather than with each entry's.
-# Both sides round their output to bf16, which may leave them one ulp
-# apart (up to 2**-7 of |plain|).  Scaling by the row, not by the
-# tensor, keeps the limit tight on late causal rows, whose values are
-# small: a kv or q tile skipped there moves a row by far more than 2**-7
-# of its own largest entry.  LSE keeps the f32 tolerance (l is summed
-# from the f32 P); K2 and every f32 call keep the f32 kernels'.
+# A bf16 output of K1 (O), K2 (dq) or K3 (dk, dv) on the tensor cores
+# against its plain version, entry by entry: |kernel - plain| <=
+# a * rowmax|plain| + r * |plain|, as (a, r), where rowmax is the largest
+# |plain| in the entry's own row (a q row of O or dq, a kv row of dk or
+# dv: the last dim).  P (for O and dv) or dS (for dq and dk) is rounded
+# to bf16 (unit roundoff 2**-8) before the product that takes it.  A
+# row's sums have terms of mixed sign, so that error scales with the
+# row's magnitude rather than with each entry's.  Both sides round their
+# output to bf16, which may leave them one ulp apart (up to 2**-7 of
+# |plain|).  Scaling by the row, not by the tensor, keeps the limit tight
+# on late causal rows, whose values are small: a kv or q tile skipped
+# there moves a row by far more than 2**-7 of its own largest entry.  LSE
+# and delta keep the f32 tolerance (l is summed from the f32 P, delta
+# from the inputs in f32); every f32 call keeps the f32 kernels'.
 TENSOR_CORE_TOLERANCE = (2 ** -7, 2 ** -7)
+# dq alone also gets an absolute floor, this share of the tensor's largest
+# |dq|.  A dq row is a sum whose weights cancel (sum_j dS_ij = 0): the
+# first causal row sees one key, so its exact dq is 0 and each side
+# returns the f32 rounding noise of dP - delta, about 1e-7 of the largest
+# |dq|, which no share of the row's own (noise) size covers.  2**-14 is
+# one bf16 ulp of one bf16 ulp, far below any other row's magnitude.
+TENSOR_CORE_DQ_FLOOR = 2 ** -14
 
 
-def tensor_core_limit(plain: torch.Tensor) -> torch.Tensor:
+def tensor_core_limit(plain: torch.Tensor, what: str) -> torch.Tensor:
     """The largest |kernel - plain| that TENSOR_CORE_TOLERANCE allows at
-    each entry of a bf16 O, dk or dv ([..., D] f32, like `plain`)."""
+    each entry of a bf16 output `what` ("O", "dq", "dk" or "dv"; [..., D]
+    f32, like `plain`), with TENSOR_CORE_DQ_FLOOR of the largest |plain|
+    added for dq."""
+    if what not in ("O", "dq", "dk", "dv"):
+        raise ValueError(f"no tensor-core limit for {what!r}")
     a, r = TENSOR_CORE_TOLERANCE
+    floor = TENSOR_CORE_DQ_FLOOR if what == "dq" else 0.0
     mag = plain.float().abs()
-    return a * mag.amax(dim=-1, keepdim=True) + r * mag
+    return a * mag.amax(dim=-1, keepdim=True) + r * mag + floor * mag.max()
 
 
 # ---------------------------------------------------------------------------
@@ -187,10 +201,10 @@ def _flash_kernels():
 
 
 def flash_design(dtype, head_dim: int) -> str:
-    """Which kernels K1 and K3 run on the card for (dtype, head_dim), as
-    the CUDA source decides: "tensor cores (mma.sync bf16)" or "CUDA
-    cores (f32)".  K2 always runs on the CUDA cores in f32.  Builds the
-    library on first use."""
+    """Which kernels K1, K2 and K3 run on the card for (dtype, head_dim),
+    as the CUDA source decides: "tensor cores (mma.sync bf16)" or "CUDA
+    cores (f32)"; the three always share one design.  Builds the library
+    on first use."""
     tc = _flash_kernels()[3](_KERNEL_DTYPES[dtype], head_dim)
     if tc < 0:
         raise ValueError(f"no flash kernel takes {dtype} at head dim "
@@ -416,6 +430,18 @@ def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, ctx_lens,
     return out[:, 0]
 
 
+# Context positions per split of the decode kernel.  The split count,
+# ceil(max_blocks * block_size / DECODE_SPLIT_LEN), follows the table's
+# width and never ctx_lens, so launching needs no host sync.
+DECODE_SPLIT_LEN = 128
+
+
+def decode_splits(max_blocks: int, block_size: int) -> int:
+    """How many context splits the decode kernel runs per (lane, head)
+    over a table of max_blocks blocks of block_size positions."""
+    return -(-max_blocks * block_size // DECODE_SPLIT_LEN)
+
+
 @functools.cache
 def _kernel():
     """The kernel's C entry point, built and bound on first use."""
@@ -423,7 +449,7 @@ def _kernel():
 
     fn = load_library("paged_decode").paged_decode_attention
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+    fn.argtypes = [p] * 8 + [i] * 8 + [ctypes.c_float, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -468,6 +494,9 @@ def _check_kernel_args(q, k_pool, v_pool, block_tables, ctx_lens) -> None:
         if not t.is_contiguous():
             raise ValueError(f"paged_decode_attention: {name} must be "
                              f"contiguous")
+        if name in ("q", "k_pool", "v_pool") and t.data_ptr() % 16:
+            raise ValueError(f"paged_decode_attention: {name} must be "
+                             f"16-byte aligned")
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
@@ -481,7 +510,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
     {64, 128, 256}, any q_per_kv) on the current stream, or raises; it
     never falls back.  A lane with ctx_len = 0 comes out as zeros on the
     kernel path (see the plain version).  `paged_decode_attention.launches`
-    counts kernel launches."""
+    counts calls that launched the kernel (its split and merge passes
+    count as one)."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             ctx_lens, scale=scale)
@@ -489,21 +519,37 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
         raise ValueError(f"paged_decode_attention: no kernel for device "
                          f"{q.device}")
     _check_kernel_args(q, k_pool, v_pool, block_tables, ctx_lens)
+    out = _decode_launch(q, k_pool, v_pool, block_tables, ctx_lens, scale)
+    paged_decode_attention.launches += 1
+    return out
+
+
+def _decode_launch(q, k_pool, v_pool, block_tables, ctx_lens, scale):
+    """Launch the decode kernel on checked CUDA operands, its f32
+    partials allocated here.  They are freed on return, before the kernel
+    runs: the caching allocator hands them out again only to work queued
+    after it on the same stream."""
     b, h, d = q.shape
     _nb, bs, kh, _ = k_pool.shape
+    mb = block_tables.shape[1]
+    n_splits = decode_splits(mb, bs)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
-    fn = _kernel()
+    part_ml = torch.empty(b, h, n_splits, 2, dtype=torch.float32,
+                          device=q.device)
+    part_acc = torch.empty(b, h, n_splits, d, dtype=torch.float32,
+                           device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 block_tables.data_ptr(), ctx_lens.data_ptr(),
-                 out.data_ptr(), b, h, kh, d, bs, block_tables.shape[1],
-                 float(scale), _KERNEL_DTYPES[q.dtype], stream)
+        err = _kernel()(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
+            part_ml.data_ptr(), part_acc.data_ptr(), b, h, kh, d, bs, mb,
+            DECODE_SPLIT_LEN, n_splits, float(scale), _KERNEL_DTYPES[q.dtype],
+            stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention: kernel launch failed "
                            f"with cudaError_t {err}")
-    paged_decode_attention.launches += 1
     return out
 
 

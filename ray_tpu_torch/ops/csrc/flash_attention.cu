@@ -1,13 +1,14 @@
 // Flash attention forward and backward for Hopper (sm_90a).
 //
 //   K1 replaces ray_tpu/ops/attention.py:_flash_kernel
-//        bf16, D 64/128: flash_fwd_mma_kernel (tensor cores)
-//        f32, and bf16 at D 256: flash_fwd_kernel (CUDA cores, f32)
-//   K2 flash_dq_kernel replaces ray_tpu/ops/attention.py:_flash_dq_kernel
-//        (CUDA cores, f32, every dtype and D)
+//   K2 replaces ray_tpu/ops/attention.py:_flash_dq_kernel
 //   K3 replaces ray_tpu/ops/attention.py:_flash_dkv_kernel
-//        bf16, D 64/128: flash_dkv_mma_kernel (tensor cores)
-//        f32, and bf16 at D 256: flash_dkv_kernel (CUDA cores, f32)
+// Each has two designs, chosen by (dtype, D) alike for all three
+// (`use_mma`):
+//   bf16, D 64/128: flash_fwd_mma_kernel, flash_dq_mma_kernel and
+//     flash_dkv_mma_kernel on the tensor cores;
+//   f32, and bf16 at D 256: flash_fwd_kernel, flash_dq_kernel and
+//     flash_dkv_kernel on the CUDA cores, in f32.
 // `flash_attention_design` tells the caller which one a call runs; a
 // launch that fails returns its error and is never retried on the other.
 //
@@ -18,53 +19,6 @@
 // [B, H, Lq], LSE in natural log.  bf16 or f32 in; outputs in the input
 // dtype.
 //
-// ---- K1 and K3 on the tensor cores (bf16, D 64 and 128) ----
-//
-// Bound at the GPT-2 train shape (B 24, L 1024, H 12, D 64, causal):
-// K1 moves 151 MB (0.045 ms at 3.35 TB/s) and does 38.7 GFLOP over the
-// visible pairs (0.039 ms at 989 TFLOP/s): bound by bytes.  K3 moves
-// 229 MB (0.068 ms) and does 77.4 GFLOP (0.078 ms): bound by operations.
-// The f32 kernels below do every product on the CUDA cores (67 TFLOP/s
-// peak) and ran 37-41x above those bounds; these two use bf16 mma.
-//
-// Design (FlashAttention-2 form, mma.sync m16n8k16 bf16 -> f32):
-//   128 threads = 4 warps per block, each warp owning 16 rows of the
-//   block's 64-row tile (K1: q rows; K3: kv rows).  Operands come from
-//   shared memory through ldmatrix (.trans for the B operand of P V,
-//   P^T dO and dS^T Q).  Tiles sit in shared memory as bf16 rows whose
-//   16-byte chunks are XOR-swizzled by (row & 7), so the 8 rows an
-//   ldmatrix reads fall in 8 different bank groups.  The streamed tiles
-//   (K1: K and V; K3: Q, dO, LSE and delta) fill a two-stage ring with
-//   cp.async (16 bytes a thread, zero-filled past a length) while the
-//   other stage computes.
-//   K1: Q is loaded once into registers as A fragments.  S = Q K^T
-//     accumulates in f32; the online softmax runs on the accumulator
-//     fragments (row max and sum over a quad, two __shfl_xor_sync), with
-//     scale * log2(e) folded into one multiply and exp2f.  l sums the f32
-//     P; the A operand of P V is P rounded to bf16, built in registers:
-//     the m16n8 accumulators of two neighbouring n-tiles are the A
-//     fragment of one k16 step, so P never goes through shared memory.
-//   K3: one block per (64 kv rows, batch*head) walks the q tiles from the
-//     diagonal on.  K and V are A fragments (held in registers at D 64,
-//     read from shared memory at D 128 to keep the registers for the dK
-//     and dV sums).  S^T = K Q^T and dP^T = V dO^T; P^T = exp(S^T scale -
-//     LSE) in f32, indexed by column; dS^T = P^T (dP^T - delta); then
-//     dV += P^T dO and dK += dS^T Q with P^T and dS^T rounded to bf16 in
-//     registers; dk is scaled once at the end.  Each block writes its own
-//     dk and dv rows once: no atomics, deterministic.
-//   The causal and ragged masks apply only on the diagonal tile and on a
-//   tile that crosses a length; a masked entry gets P = 0 exactly.
-// Precision: P (K1, K3) and dS (K3) are rounded to bf16 (unit roundoff
-// 2^-9) before the products that take them, as the JAX package's
-// reference_attention rounds its probabilities to v's dtype before P V;
-// sums, m, l and LSE stay f32.  The outputs then differ from the f32
-// plain versions by up to about one bf16 ulp of each row's largest
-// value (TENSOR_CORE_TOLERANCE in ops/attention.py).
-//
-// ---- The f32 kernels (K2 always; K1 and K3 for f32 and bf16 D 256) ----
-//
-// All arithmetic in f32 (as the Pallas kernels upcast every block).
-//
 // Semantics (those of the Pallas kernels):
 //   s = (q * scale) . k, masked to NEG_INF = -1e30 where kv >= Lk or, when
 //   causal, where the q position < the kv position (top-left alignment:
@@ -73,36 +27,84 @@
 //   K2: delta = rowsum(dO * O) (written out for K3), P = exp(s - LSE),
 //       dS = P * (dO . V - delta), dq = dS K * scale;
 //   K3: dv = P^T dO, dk = dS^T Q * scale.
-// A masked entry gets P = 0 exactly, as exp(-1e30 - m) is in f32.
-//
-// Design.  The TPU grid (bh, q_block, kv_block) runs in order on one core
-// and carries m/l/acc in VMEM from step to step.  Here blocks run in
-// parallel in no order, so each block owns its output tile and loops over
-// the other axis itself:
+// A masked entry gets P = 0 exactly.  Every kernel owns its output tile
+// and loops over the other axis itself, so no output needs atomics and
+// the result is deterministic, as the TPU's split into a dq pass and a
+// dk/dv pass is:
 //   K1, K2: one block per (q tile of 64 rows, batch*head); the loop walks
 //     kv tiles, only up to the diagonal when causal.  The grid's x index
 //     runs from the last q tile down, so the longest causal blocks start
 //     first and the short ones fill the tail.
 //   K3: one block per (kv tile, batch*head); the loop walks q tiles from
-//     the diagonal on, accumulating dk and dv in registers, each written
-//     once.  No atomics anywhere: the result is deterministic, as the
-//     TPU's split into a dq pass and a dk/dv pass is.
-// 256 threads form a 16 x 16 grid: thread (ty, tx) owns rows ty + 16 i of
-// the block's tile and columns tx + 16 j, so a row's 16 owners are one
-// half-warp and row max and row sum are four xor shuffles.  Tiles are
-// staged in shared memory as f32 with rows padded to D + 1 floats, so the
-// 16 different rows a half-warp reads at one column fall in 16 banks.  A
-// ragged last tile is zero-filled and masked; rows past a length are
+//     the diagonal on.
+// A ragged last tile is zero-filled and masked; rows past a length are
 // never written, so no length has to be a multiple of a tile.
+//
+// Bound at the GPT-2 train shape (B 24, L 1024, H 12, D 64, causal, bf16),
+// counting each operand once and the visible pairs only: K1 moves 151 MB
+// (0.045 ms at 3.35 TB/s) and does 38.7 GFLOP (0.039 ms at 989 TFLOP/s);
+// K2 moves 229 MB (0.068 ms; it reads O and dO) and does 58 GFLOP (0.059
+// ms); K3 moves 229 MB (0.068 ms) and does 77.4 GFLOP (0.078 ms).  K1 and
+// K2 are bound by bytes, K3 by operations.  The CUDA cores' f32 peak (67
+// TFLOP/s) is a fifteenth of the bf16 tensor cores', which is why bf16
+// runs the mma kernels.
+//
+// ---- The tensor-core kernels (bf16, D 64 and 128) ----
+//
+// FlashAttention-2 form, mma.sync m16n8k16 bf16 -> f32:
+//   128 threads = 4 warps per block, each warp owning 16 rows of the
+//   block's 64-row tile (K1, K2: q rows; K3: kv rows).  Operands come from
+//   shared memory through ldmatrix (.trans for the B operand of P V,
+//   dS K, P^T dO and dS^T Q).  Tiles sit in shared memory as bf16 rows
+//   whose 16-byte chunks are XOR-swizzled by (row & 7), so the 8 rows an
+//   ldmatrix reads fall in 8 different bank groups.  The streamed tiles
+//   (K1, K2: K and V; K3: Q, dO, LSE and delta) fill a two-stage ring
+//   with cp.async (16 bytes a thread, zero-filled past a length) while
+//   the other stage computes.
+//   K1: Q is loaded once into registers as A fragments.  S = Q K^T
+//     accumulates in f32; the online softmax runs on the accumulator
+//     fragments (row max and sum over a quad, two __shfl_xor_sync), with
+//     scale * log2(e) folded into one multiply and exp2f.  l sums the f32
+//     P; the A operand of P V is P rounded to bf16, built in registers:
+//     the m16n8 accumulators of two neighbouring n-tiles are the A
+//     fragment of one k16 step, so P never goes through shared memory.
+//   K2: the same walk as K1, with Q and dO as the A operands (held in
+//     registers at D 64, read from shared memory at D 128 to keep the
+//     registers for the 64 dQ sums).  Before the loop, while Q, dO and
+//     the first K/V tile land, each quad sums delta = rowsum(dO * O) for
+//     its two rows from global memory and writes it once.  Per kv tile:
+//     S = Q K^T and dP = dO V^T; P = exp2(S scale log2(e) - LSE log2(e))
+//     and dS = P (dP - delta) in f32 on the fragments; dQ += dS K with dS
+//     rounded to bf16 in registers and K the B operand through
+//     ldmatrix.trans, as K1 reads V.  dq is scaled once at the end.
+//   K3: one block per (64 kv rows, batch*head) walks the q tiles from the
+//     diagonal on.  K and V are A fragments (held in registers at D 64,
+//     read from shared memory at D 128 to keep the registers for the dK
+//     and dV sums).  S^T = K Q^T and dP^T = V dO^T; P^T = exp(S^T scale -
+//     LSE) in f32, indexed by column; dS^T = P^T (dP^T - delta); then
+//     dV += P^T dO and dK += dS^T Q with P^T and dS^T rounded to bf16 in
+//     registers; dk is scaled once at the end.
+//   The causal and ragged masks apply only on the diagonal tile and on a
+//   tile that crosses a length.
+// Precision: P (K1, K3) and dS (K2, K3) are rounded to bf16 (unit
+// roundoff 2^-9) before the products that take them, as the JAX package's
+// reference_attention rounds its probabilities to v's dtype before P V;
+// sums, m, l, LSE and delta stay f32.  The outputs then differ from the
+// f32 plain versions by up to about one bf16 ulp of each row's largest
+// value (TENSOR_CORE_TOLERANCE in ops/attention.py).
+//
+// ---- The f32 kernels (f32 calls; bf16 at D 256) ----
+//
+// All arithmetic in f32 (as the Pallas kernels upcast every block), which
+// keeps them within f32 rounding of their plain versions, as the f32
+// calls need.  256 threads form a 16 x 16 grid: thread (ty, tx) owns rows
+// ty + 16 i of the block's tile and columns tx + 16 j, so a row's 16
+// owners are one half-warp and row max and row sum are four xor shuffles.
+// Tiles are staged in shared memory as f32 with rows padded to D + 1
+// floats, so the 16 different rows a half-warp reads at one column fall
+// in 16 banks; every product is an fmaf loop (2 FMAs per shared load).
 // Shared memory per block, 66-206 KB by kernel and D, always takes the
 // opt-in above 48 KB (cudaFuncSetAttribute).
-//
-// Bound.  At the GPT-2 train shape K2 reads and writes 229 MB (0.068 ms
-// at 3.35 TB/s) and does 58 GFLOP: bound by bytes.  These kernels do
-// their products on the CUDA cores in f32 (67 TFLOP/s peak, 2 FMAs per
-// shared load), so they are bound by operations on the CUDA cores
-// instead.  Keeping P in f32 keeps them within f32 rounding of their
-// plain versions, which the f32 calls need.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -843,6 +845,154 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(
   }
 }
 
+// ------------------------------------------------------------ K2 (mma)
+
+// The f32 sum of the products of two rows' 8 bf16 elements (16 bytes).
+__device__ __forceinline__ float dot8(const uint4& a, const uint4& b) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    s = fmaf(__uint_as_float(x[i] << 16), __uint_as_float(y[i] << 16), s);
+    s = fmaf(__uint_as_float(x[i] & 0xffff0000u),
+             __uint_as_float(y[i] & 0xffff0000u), s);
+  }
+  return s;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads) flash_dq_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ out,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    bf16* __restrict__ dq, float* __restrict__ delta, int heads, int q_len,
+    int kv_len, float scale, int causal) {
+  constexpr int KD = D / 16;     // k16 steps over the head dim
+  constexpr int NS = kTile / 8;  // n-tiles of S and dP (kv columns)
+  constexpr int NO = D / 8;      // n-tiles of dQ (head-dim columns)
+  constexpr int TILE = kTile * D;
+  constexpr bool kQRegs = D <= 64;  // Q, dO fragments held in registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [TILE]
+  bf16* dos = qs + TILE;                         // [TILE]
+  bf16* ks = dos + TILE;                         // [2][TILE] ring
+  bf16* vs = ks + 2 * TILE;                      // [2][TILE] ring
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row_w = warp * 16;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // longest first
+  const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
+  const int stride = heads * D;
+  const size_t q_base = ((size_t)b * q_len * heads + h) * D;
+  const size_t kv_base = ((size_t)b * kv_len * heads + h) * D;
+  const int kv_end = causal ? min(kv_len, q0 + kTile) : kv_len;
+  const int n_tiles = (kv_end + kTile - 1) / kTile;
+  const float sl2 = scale * kLog2e;
+
+  load_tile<D>(qs, q + q_base, q0, q_len, stride);
+  load_tile<D>(dos, dout + q_base, q0, q_len, stride);
+  cp_async_commit();
+  load_tile<D>(ks, k + kv_base, 0, kv_len, stride);
+  load_tile<D>(vs, v + kv_base, 0, kv_len, stride);
+  cp_async_commit();
+
+  // While those land: delta = rowsum(dO * O) and LSE * log2(e) for the
+  // thread's rows g and g + 8, a row's 4 owners (one quad) taking every
+  // fourth 16-byte chunk of it.  delta is written once, for K3.
+  float lse_l2[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = q0 + row_w + g + 8 * r;
+    const bool in = qp < q_len;
+    float part = 0.f;
+    if (in) {
+      const size_t row = q_base + (size_t)qp * stride;
+#pragma unroll
+      for (int c = t; c < D / 8; c += 4)
+        part += dot8(*reinterpret_cast<const uint4*>(out + row + 8 * c),
+                     *reinterpret_cast<const uint4*>(dout + row + 8 * c));
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    delta_r[r] = part;
+    lse_l2[r] = in ? lse[(size_t)bh * q_len + qp] * kLog2e : 0.f;
+    if (in && t == 0) delta[(size_t)bh * q_len + qp] = part;
+  }
+
+  cp_async_wait<1>();  // Q and dO have landed; K/V tile 0 may be in flight
+  __syncthreads();
+  uint32_t qf[kQRegs ? KD : 1][4], dof[kQRegs ? KD : 1][4];
+  if constexpr (kQRegs) {
+#pragma unroll
+    for (int j = 0; j < KD; ++j) {
+      ldsm_x4(qf[j], a_frag<D>(qs, row_w, 16 * j, lane));
+      ldsm_x4(dof[j], a_frag<D>(dos, row_w, 16 * j, lane));
+    }
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kTile, st = it & 1;
+    if (it + 1 < n_tiles) {
+      load_tile<D>(ks + (st ^ 1) * TILE, k + kv_base, k0 + kTile, kv_len,
+                   stride);
+      load_tile<D>(vs + (st ^ 1) * TILE, v + kv_base, k0 + kTile, kv_len,
+                   stride);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* kt = ks + st * TILE;
+    const bf16* vt = vs + st * TILE;
+
+    // P = exp(S * scale - LSE), S = Q K^T for the warp's 16 q rows x 64 kv
+    // columns; element e of n-tile n is (q row g + 8 (e >> 1), kv col
+    // 8 n + 2 t + (e & 1)).
+    float s[NS][4];
+    gemm_abt<D, kQRegs>(s, qf, qs, kt, row_w, lane);
+    const bool masked = (causal && k0 + kTile > q0) || k0 + kTile > kv_len;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[n][e], sl2, -lse_l2[e >> 1]));
+        if (masked) {
+          const int qp = q0 + row_w + g + (e >> 1) * 8;
+          const int kp = k0 + 8 * n + 2 * t + (e & 1);
+          if (kp >= kv_len || (causal && kp > qp)) p = 0.f;
+        }
+        s[n][e] = p;
+      }
+
+    // dS = P (dP - delta), dP = dO V^T; then dQ += dS K.
+    float dp[NS][4];
+    gemm_abt<D, kQRegs>(dp, dof, dos, vt, row_w, lane);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= dp[n][e] - delta_r[e >> 1];
+    gemm_acc<D>(acc, s, kt, lane);  // dS rounded to bf16
+    __syncthreads();  // every warp is done with stage st before its refill
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = q0 + row_w + g + 8 * r;
+    if (qp >= q_len) continue;
+    bf16* row = dq + q_base + (size_t)qp * stride + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          pack_bf16(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+  }
+}
+
 // ------------------------------------------------------------ K3 (mma)
 
 template <int D>
@@ -997,9 +1147,9 @@ cudaError_t opt_in(Kernel kernel, size_t smem) {
 template <int D>
 constexpr int tile() { return D == 256 ? 32 : 64; }
 
-// K1 and K3 run on the tensor cores for bf16 at D 64 and 128.  At D 256
-// the dK and dV sums alone would take 256 registers a thread at 64-row
-// tiles, so bf16 there keeps the f32 kernels.
+// K1, K2 and K3 run on the tensor cores for bf16 at D 64 and 128.  At
+// D 256 K3's dK and dV sums alone would take 256 registers a thread at
+// 64-row tiles, so bf16 there keeps the f32 kernels, all three alike.
 template <typename T, int D>
 constexpr bool use_mma() {
   return std::is_same<T, bf16>::value && D <= 128;
@@ -1044,21 +1194,35 @@ struct Dq {
   static cudaError_t run(const Shape& p, const void* q, const void* k,
                          const void* v, const void* out, const void* dout,
                          const void* lse, void* dq, void* delta) {
-    constexpr int BK = tile<D>();
-    const size_t smem =
-        sizeof(float) * ((size_t)(2 * kBQ + 2 * BK) * (D + 1) +
-                         (size_t)kBQ * (BK + 1));
-    auto kernel = flash_dq_kernel<T, D, BK>;
-    cudaError_t err = opt_in(kernel, smem);
-    if (err != cudaSuccess) return err;
     dim3 grid((p.q_len + kBQ - 1) / kBQ, p.batch * p.heads);
-    kernel<<<grid, kThreads, smem, p.stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(out),
-        static_cast<const T*>(dout), static_cast<const float*>(lse),
-        static_cast<T*>(dq), static_cast<float*>(delta), p.heads, p.q_len,
-        p.kv_len, p.scale, p.causal);
-    return cudaGetLastError();
+    if constexpr (use_mma<T, D>()) {
+      const size_t smem = sizeof(bf16) * 6 * kTile * D;
+      auto kernel = flash_dq_mma_kernel<D>;
+      cudaError_t err = opt_in(kernel, smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, kMmaThreads, smem, p.stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(out),
+          static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+          static_cast<bf16*>(dq), static_cast<float*>(delta), p.heads,
+          p.q_len, p.kv_len, p.scale, p.causal);
+      return cudaGetLastError();
+    } else {
+      constexpr int BK = tile<D>();
+      const size_t smem =
+          sizeof(float) * ((size_t)(2 * kBQ + 2 * BK) * (D + 1) +
+                           (size_t)kBQ * (BK + 1));
+      auto kernel = flash_dq_kernel<T, D, BK>;
+      cudaError_t err = opt_in(kernel, smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, kThreads, smem, p.stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(out),
+          static_cast<const T*>(dout), static_cast<const float*>(lse),
+          static_cast<T*>(dq), static_cast<float*>(delta), p.heads, p.q_len,
+          p.kv_len, p.scale, p.causal);
+      return cudaGetLastError();
+    }
   }
 };
 
@@ -1170,9 +1334,9 @@ extern "C" int flash_attention_dkv(
   return dispatch<Dkv>(dtype, head_dim, p, q, k, v, dout, lse, delta, dk, dv);
 }
 
-// Which design K1 and K3 run for (dtype, head_dim): 1 = the tensor-core
-// kernels (bf16 mma.sync), 0 = the f32 CUDA-core kernels, -1 = no kernel
-// takes the pair.  K2 is always the f32 kernel.
+// Which design K1, K2 and K3 run for (dtype, head_dim): 1 = the
+// tensor-core kernels (bf16 mma.sync), 0 = the f32 CUDA-core kernels,
+// -1 = no kernel takes the pair.  The three always share one design.
 extern "C" int flash_attention_design(int dtype, int head_dim) {
   int tensor_cores = 0;
   return by_type<Design>(dtype, head_dim, &tensor_cores) == cudaSuccess

@@ -9,8 +9,10 @@ ends in its one device->host transfer), and a torch.profiler trace of
 another 16 steps giving the device time by kernel.  The device's busy
 share is the device time per step over the untraced step: the profiler
 about doubles a step's host time, so the traced window is no measure of
-the step.  Runs greedy and with every lane sampling (temperature > 0).
-Prints one JSON line per mode, then the card's nvidia-smi line.
+the step.  The decode kernel's two passes (split and merge) are also
+summed on their own.  Runs greedy and with every lane sampling
+(temperature > 0).  Prints one JSON line per mode, then the card's
+nvidia-smi line.
 """
 
 from __future__ import annotations
@@ -60,6 +62,8 @@ def measure(temperature: float) -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type.name == "CUDA"]
     device_us = sum(e.self_device_time_total for e in kernels)
+    k4_us = sum(e.self_device_time_total for e in kernels
+                if "paged_decode_" in e.key and "_kernel" in e.key)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     eng.shutdown()
     device_ms = device_us / STEPS / 1e3
@@ -68,6 +72,7 @@ def measure(temperature: float) -> dict:
         "steps": STEPS, "step_ms": host_ms, "traced_step_ms": traced_ms,
         "device_ms_per_step": device_ms,
         "device_busy_share": device_ms / host_ms,
+        "paged_decode_ms_per_step": k4_us / STEPS / 1e3,
         "kernel_launches_per_step": sum(e.count for e in kernels) / STEPS,
         "top_kernels": [{"name": e.key[:80],
                          "ms_per_step": e.self_device_time_total / STEPS

@@ -182,6 +182,9 @@ def _kernel_args(**over):
     (dict(block_tables=torch.zeros(2, 4, dtype=torch.int64)), TypeError),
     (dict(ctx_lens=torch.ones(3, dtype=torch.int32)), ValueError),
     (dict(q=torch.zeros(2, 64, 4).transpose(1, 2)), ValueError),
+    # Contiguous, but 4 bytes off the 16-byte alignment of its loads.
+    (dict(k_pool=torch.zeros(8 * 16 * 2 * 64 + 1)[1:].view(8, 16, 2, 64)),
+     ValueError),
 ])
 def test_kernel_argument_checks(bad, err):
     """What the CUDA kernel does not take is refused before any launch."""
