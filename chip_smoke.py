@@ -11,10 +11,12 @@ run with a nonzero exit code and no result line:
            nvcc per source, all started together.
   kernels  the paged-decode kernel (K4, split-context: one partial per
            context split, then a merge) against its plain PyTorch version
-           on the same inputs at the serving path's shapes (gpt2-small
+           on the same inputs at the serving paths' shapes (gpt2-small
            decode: 32 lanes, 12 heads of 64, block 16, ragged contexts up
-           to 1024; bf16 and f32), at 4 lanes of that shape, and at GQA
-           shapes (q_per_kv 2, 4, 7, 8 and 12), then timed with CUDA
+           to 1024, bf16 and f32; llama-1b decode: 32 lanes, 4 kv heads x
+           q_per_kv 8 of 64, ragged contexts up to 2048, bf16), at 4
+           lanes of the gpt2 shape, and at GQA shapes (q_per_kv 2, 4, 7,
+           8 and 12), then timed with CUDA
            events (median over launches, L2 flushed and the device held
            busy by a spin before each, so the host's launch is not timed)
            beside its bound, its plain version and one PyTorch library
@@ -23,9 +25,11 @@ run with a nonzero exit code and no result line:
            and split length.
   flash    the flash-attention kernels K1 (forward), K2 (dq) and K3
            (dk, dv) against their plain versions at the train shape
-           (B 24, L 1024, 12 heads of 64, causal; bf16 and f32), at D 128
-           and 256, non-causal with q_len != kv_len, and at a length that
-           is no multiple of a tile; then timed the same way, beside
+           (B 24, L 1024, 12 heads of 64, causal; bf16 and f32), at the
+           llama-1b train shape (B 4, L 2048, 32 heads of 64, causal,
+           bf16), at D 128 and 256, non-causal with q_len != kv_len, and
+           at a length that is no multiple of a tile; then timed the same
+           way, beside
            scaled_dot_product_attention's forward (K1) and backward (K2
            and K3 together).  Each case names the design K1-K3 ran (bf16
            at D 64/128: the tensor cores, with P and dS rounded to bf16,
@@ -53,15 +57,34 @@ run with a nonzero exit code and no result line:
   train_parity  gpt2-small widths in float32 at 2 layers, batch 2 x 256:
            one train step on the card and one on the CPU from the same
            weights and tokens; the losses and every gradient must agree.
+  serve_llama  the Llama serving path: InferenceEngine("llama",
+           "llama-1b") at full width and depth (22 layers, 32 query heads
+           over 4 kv heads of 64), random bf16 weights drawn on the card
+           from a seed, 32 lanes, 24 streamed requests as in serve; K4
+           must have run once per layer per decode step, at q_per_kv 8.
+  train_llama  llama.make_train_step(llama-1b, adamw(1e-4)) at full width
+           and depth on one repeated batch of 4 x 2048 random tokens: 2
+           warm-up steps, then 6 timed steps; K1, K2 and K3 (over the
+           repeated kv heads) must each have run 22 times per timed step,
+           the losses must be finite and falling, each within 0.02 of the
+           trajectory recorded on the first run.
+  llama_parity  llama-1b widths in float32 at 2 layers: the same greedy
+           requests through the engine on the card and on the CPU (K4 at
+           q_per_kv 8 in f32) must give the same tokens; one train step on
+           2 x 128 tokens must give the same loss and gradients; and
+           llama-tiny (head dim 16, whose decode step takes the
+           masked-dense route) must give the same greedy tokens.
 
-Then, on lines of their own: the kernels' JSON record, the card's name
-and power limit, and last {"ok": true, "device": {...}}.  Exits nonzero
-without a card, and when the ray_tpu_torch package is not beside it.
+Each phase's wall seconds follow it on a line of their own.  Then, on
+lines of their own: the kernels' JSON record, the card's name and power
+limit, and last {"ok": true, "device": {...}}.  Exits nonzero without a
+card, and when the ray_tpu_torch package is not beside it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -214,6 +237,10 @@ def phase_kernels(report: dict) -> None:
         # A 1 KB row: one warp per position, two 16-byte loads a thread.
         "gqa8-d256-f32": dict(b=4, kh=2, q_per_kv=8, d=256, bs=32,
                               max_ctx=256, dtype=torch.float32),
+        # The llama-1b decode step: 32 query heads over 4 kv heads, one
+        # block of eight query heads per kv head.
+        "llama-1b-bf16": dict(b=32, kh=4, q_per_kv=8, d=64, bs=16,
+                              max_ctx=2048, dtype=torch.bfloat16),
     }
     results = {}
     for name, spec in cases.items():
@@ -244,15 +271,14 @@ def phase_kernels(report: dict) -> None:
             q_per_kv=spec["q_per_kv"], split_len=A.DECODE_SPLIT_LEN,
             splits=A.decode_splits(c["block_tables"].shape[1], spec["bs"]))
     emit("kernels", cases=results)
-    main = results["gpt2-small-bf16"]
+    keys = ("max_abs_err", "ms", "ms_with_launch", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     report["paged_decode_attention"] = dict(
         name="paged_decode_attention", route="cuda",
         source="ray_tpu_torch/ops/csrc/paged_decode.cu",
         replaces="ray_tpu/ops/attention.py:291",
-        max_abs_err=main["max_abs_err"], ms=main["ms"],
-        ms_with_launch=main["ms_with_launch"], plain_ms=main["plain_ms"],
-        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-        library_ms=main["library_ms"])
+        **{k: results["gpt2-small-bf16"][k] for k in keys},
+        llama_1b={k: results["llama-1b-bf16"][k] for k in keys})
 
 
 # ------------------------------------------------------------------ flash
@@ -272,6 +298,9 @@ FLASH_CASES = {
                        dtype=torch.bfloat16),
     "train-f32": dict(b=24, lq=1024, lk=1024, h=12, d=64, causal=True,
                       dtype=torch.float32),
+    # The llama-1b train step: 32 query heads over the repeated kv heads.
+    "llama-1b-train-bf16": dict(b=4, lq=2048, lk=2048, h=32, d=64,
+                                causal=True, dtype=torch.bfloat16),
     "d128-bf16": dict(b=4, lq=1024, lk=1024, h=8, d=128, causal=True,
                       dtype=torch.bfloat16),
     "d256-f32": dict(b=2, lq=512, lk=512, h=4, d=256, causal=True,
@@ -478,13 +507,14 @@ def phase_flash(report: dict) -> None:
     emit("flash", tolerance_atol_rtol=atol,
          tensor_core_tolerance_of_rowmax_and_rel=A.TENSOR_CORE_TOLERANCE,
          planted_late_row_faults_tolerance_used=faults, cases=results)
-    train = results["train-bf16"]
+    train, llama_train = results["train-bf16"], results["llama-1b-train-bf16"]
     for kern, fn, line in (("K1", "flash_forward", 53),
                            ("K2", "flash_dq", 414), ("K3", "flash_dkv", 457)):
         report[fn] = dict(
             name=fn, route="cuda",
             source="ray_tpu_torch/ops/csrc/flash_attention.cu",
-            replaces=f"ray_tpu/ops/attention.py:{line}", **train[kern])
+            replaces=f"ray_tpu/ops/attention.py:{line}", **train[kern],
+            llama_1b=dict(llama_train[kern]))
         if kern != "K1":
             report[fn]["library_note"] = (
                 "scaled_dot_product_attention backward: dq, dk and dv "
@@ -493,24 +523,24 @@ def phase_flash(report: dict) -> None:
 
 # ------------------------------------------------------------------ serve
 
-def _serve_requests(rng_seed: int = 0):
+def _serve_requests(vocab: int, rng_seed: int = 0):
     import numpy as np
 
     rng = np.random.default_rng(rng_seed)
-    shared = rng.integers(0, 50304, 64).tolist()           # four blocks
+    shared = rng.integers(0, vocab, 64).tolist()           # four blocks
 
     def req(prompt, i):
         kw = dict(max_new_tokens=int(rng.integers(32, 65)))
         if i % 2:
             kw.update(temperature=0.8, seed=1000 + i)
         if i % 7 == 3:
-            kw.update(eos_id=int(rng.integers(0, 50304)))
+            kw.update(eos_id=int(rng.integers(0, vocab)))
         return prompt, kw
 
-    first = [req(shared + rng.integers(0, 50304, 8).tolist(), 0)]
-    first += [req(rng.integers(0, 50304, int(rng.integers(16, 161))).tolist(),
+    first = [req(shared + rng.integers(0, vocab, 8).tolist(), 0)]
+    first += [req(rng.integers(0, vocab, int(rng.integers(16, 161))).tolist(),
                   i) for i in range(1, 16)]
-    second = [req(shared + rng.integers(0, 50304,
+    second = [req(shared + rng.integers(0, vocab,
                                         int(rng.integers(1, 40))).tolist(), i)
               for i in range(16, 24)]
     return first, second
@@ -535,20 +565,26 @@ class _Consumer(threading.Thread):
         self.first.set()
 
 
-def phase_serve(report: dict) -> None:
+def _serve(family: str, config_name: str, params=None) -> dict:
+    """Serve the 24 requests of `_serve_requests` through
+    InferenceEngine(family, config_name) at 32 lanes, block 16, with the
+    decode kernel's count set to 0 just before and read just after;
+    check every stream and the count (once per layer per decode step).
+    Returns the phase's metrics."""
     from ray_tpu_torch.inference import InferenceEngine
     from ray_tpu_torch.ops import attention as A
 
-    n_layers = 12
     t0 = time.perf_counter()
-    eng = InferenceEngine("gpt", "gpt2-small", device="cuda", seed=1234,
-                          max_lanes=32, block_size=16)
+    eng = InferenceEngine(family, config_name, params=params, device="cuda",
+                          seed=1234, max_lanes=32, block_size=16)
+    n_layers, vocab = eng.config.n_layers, eng.config.vocab_size
     try:
+        torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         eng.generate(list(range(40)), max_new_tokens=4)         # warm-up
         torch.cuda.synchronize()
         before = eng.stats()
-        first, second = _serve_requests()
+        first, second = _serve_requests(vocab)
 
         A.paged_decode_attention.launches = 0
         t_start = time.perf_counter()
@@ -583,7 +619,7 @@ def phase_serve(report: dict) -> None:
         check(reason in ("length", "eos"), f"finish_reason {reason!r}")
         check(len(c.tokens) == kw["max_new_tokens"] or reason == "eos",
               "a request stopped short")
-        check(all(0 <= t < 50304 for t in c.tokens), "token out of range")
+        check(all(0 <= t < vocab for t in c.tokens), "token out of range")
     check(launches == decode_steps * n_layers,
           f"decode kernel launched {launches} times for {decode_steps} "
           f"decode steps x {n_layers} layers")
@@ -592,56 +628,98 @@ def phase_serve(report: dict) -> None:
     generated = sum(len(c.tokens) for _, c in streams)
     ttfts = sorted(c.ttft for _, c in streams)
     decode_tokens = generated - len(streams)     # first tokens: prefill
-    report["paged_decode_attention"]["launches"] = launches
-    emit("serve", requests=len(streams), generated_tokens=generated,
-         wall_s=wall, engine_setup_s=setup_s,
-         output_tokens_per_s=generated / wall,
-         decode_tokens_per_s=decode_tokens / decode_s,
-         decode_steps=decode_steps,
-         decode_step_ms=decode_s / decode_steps * 1e3,
-         prefill_steps=after["prefill_steps"] - before["prefill_steps"],
-         ttft_p50_ms=statistics.median(ttfts) * 1e3,
-         ttft_max_ms=ttfts[-1] * 1e3,
-         prefix_hits=hits,
-         prefix_hit_tokens=(after["prefix_hit_tokens"]
-                            - before["prefix_hit_tokens"]),
-         finish_reasons={r: sum(c.handle.finish_reason == r
-                                for _, c in streams)
-                         for r in ("length", "eos")},
-         decode_kernel_launches=launches)
+    return dict(
+        config=config_name, requests=len(streams),
+        generated_tokens=generated,
+        wall_s=wall, engine_setup_s=setup_s,
+        output_tokens_per_s=generated / wall,
+        decode_tokens_per_s=decode_tokens / decode_s,
+        decode_steps=decode_steps,
+        decode_step_ms=decode_s / decode_steps * 1e3,
+        prefill_steps=after["prefill_steps"] - before["prefill_steps"],
+        ttft_p50_ms=statistics.median(ttfts) * 1e3,
+        ttft_max_ms=ttfts[-1] * 1e3,
+        prefix_hits=hits,
+        prefix_hit_tokens=(after["prefix_hit_tokens"]
+                           - before["prefix_hit_tokens"]),
+        finish_reasons={r: sum(c.handle.finish_reason == r
+                               for _, c in streams)
+                        for r in ("length", "eos")},
+        decode_kernel_launches=launches)
+
+
+def phase_serve(report: dict) -> None:
+    out = _serve("gpt", "gpt2-small")
+    report["paged_decode_attention"]["launches"] = \
+        out["decode_kernel_launches"]
+    emit("serve", **out)
+
+
+def phase_serve_llama(report: dict) -> None:
+    """llama-1b at full width and depth; the 1.1B random weights are
+    drawn on the card (a CPU draw costs seconds), and the engine is shut
+    down and freed before training."""
+    from ray_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        llama.CONFIGS["llama-1b"],
+        torch.Generator(device="cuda").manual_seed(1234), device="cuda")
+    torch.cuda.synchronize()
+    params_s = time.perf_counter() - t0
+    out = _serve("llama", "llama-1b", params)
+    del params
+    report["paged_decode_attention"]["llama_1b"]["launches"] = \
+        out["decode_kernel_launches"]
+    emit("serve_llama", params_s=params_s,
+         q_per_kv=llama.CONFIGS["llama-1b"].q_per_kv, **out)
 
 
 # ----------------------------------------------------------------- parity
 
-def phase_parity() -> None:
-    from ray_tpu_torch.inference import InferenceEngine
-    from ray_tpu_torch.models import gpt
-
+def _f32_exact() -> None:
+    """Plain f32 products on the card (TF32 off), as on the CPU."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    config = dataclasses.replace(gpt.CONFIGS["gpt2-small"],
-                                 dtype=torch.float32)
-    params = gpt.init_params(config, torch.Generator().manual_seed(7),
-                             device="cpu")
-    prompts = [[(37 * i + 11 * j) % 50304 for j in range(n)]
+
+
+def _greedy_parity(phase: str, family: str, config, params, label: str,
+                   **engine_kw) -> None:
+    """The same 4 greedy requests through the engine on the card and on
+    the CPU, from the same weights, must give the same tokens."""
+    from ray_tpu_torch.inference import InferenceEngine
+
+    vocab = config.vocab_size
+    prompts = [[(37 * i + 11 * j) % vocab for j in range(n)]
                for i, n in enumerate((5, 17, 33, 48))]
     outs = {}
     for device in ("cuda", "cpu"):
-        eng = InferenceEngine("gpt", config, params=params, device=device,
+        eng = InferenceEngine(family, config, params=params, device=device,
                               max_lanes=4, block_size=16, max_seq_len=128,
-                              auto_start=False)
+                              auto_start=False, **engine_kw)
         handles = [eng.submit(p, max_new_tokens=16) for p in prompts]
         while eng.step():
             pass
         outs[device] = [h.tokens(timeout=60) for h in handles]
     same = outs["cuda"] == outs["cpu"]
-    emit("parity", config="gpt2-small float32", requests=len(prompts),
-         new_tokens=16, tokens_equal=same,
+    emit(phase, config=label, requests=len(prompts), new_tokens=16,
+         tokens_equal=same,
          mismatched=[i for i, (a, b) in enumerate(zip(outs["cuda"],
                                                       outs["cpu"]))
                      if a != b])
-    check(same, "CUDA and CPU greedy tokens differ")
+    check(same, f"{label}: CUDA and CPU greedy tokens differ")
+
+
+def phase_parity() -> None:
+    from ray_tpu_torch.models import gpt
+
+    _f32_exact()
+    config = dataclasses.replace(gpt.CONFIGS["gpt2-small"],
+                                 dtype=torch.float32)
+    params = gpt.init_params(config, torch.Generator().manual_seed(7),
+                             device="cpu")
+    _greedy_parity("parity", "gpt", config, params, "gpt2-small float32")
 
 
 # ------------------------------------------------------------------ train
@@ -653,24 +731,34 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 6
 # stay within LOSS_DRIFT of them.
 F32_FLASH_LOSSES = (10.974, 10.857, 10.749, 10.684, 10.628, 10.557, 10.431,
                     10.359)
+# llama-1b's 8 losses (train_llama: 4 x 2048, weights drawn on the card
+# from seed 0, tokens from seed 1) as recorded on their first run.
+LLAMA_1B_LOSSES = (10.888, 10.359, 10.130, 9.796, 9.691, 9.395, 9.594,
+                   9.142)
 LOSS_DRIFT = 0.02
 
 
-def phase_train(report: dict) -> None:
-    from ray_tpu_torch.models import gpt
+def _train(model, config, batch: int, seq: int, key) -> dict:
+    """TRAIN_WARMUP + TRAIN_STEPS AdamW(1e-4) steps of
+    `model.make_train_step(config)` on one repeated batch of random
+    tokens (seed 1), the flash kernels' counts set to 0 just before the
+    timed steps and read just after.  `key` seeds the weights (a torch
+    Generator draws them on its own device).  Checks the losses are
+    finite and falling and that K1, K2 and K3 each ran once per layer
+    per timed step."""
     from ray_tpu_torch.models._functional import adamw
     from ray_tpu_torch.ops import attention as A
 
-    config = gpt.CONFIGS["gpt2-small"]
-    batch, seq = 24, 1024
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    init_state, train_step = gpt.make_train_step(config, adamw(1e-4),
-                                                 device="cuda")
-    state = init_state(0)
+    init_state, train_step = model.make_train_step(config, adamw(1e-4),
+                                                   device="cuda")
+    state = init_state(key)
     tokens = torch.randint(0, config.vocab_size, (batch, seq),
                            generator=torch.Generator().manual_seed(1)).cuda()
+    torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     losses = []
     for _ in range(TRAIN_WARMUP):
@@ -687,30 +775,59 @@ def phase_train(report: dict) -> None:
         losses.append(metrics["loss"])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = [fn.launches for fn in kernels]
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state
 
     losses = [float(x) for x in losses]
     check(all(math.isfinite(x) for x in losses), f"train loss {losses}")
     check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
-    drift = max(abs(a - b) for a, b in zip(losses, F32_FLASH_LOSSES))
-    check(drift <= LOSS_DRIFT, f"train losses {losses} drift {drift} from "
-                               f"{F32_FLASH_LOSSES}")
     want = TRAIN_STEPS * config.n_layers
-    for fn, n in zip(kernels, launches):
-        check(n == want, f"{fn.__name__} launched {n} times for "
-                         f"{TRAIN_STEPS} steps x {config.n_layers} layers")
-        report[fn.__name__]["launches"] = n
+    for name, n in launches.items():
+        check(n == want, f"{name} launched {n} times for {TRAIN_STEPS} "
+                         f"steps x {config.n_layers} layers")
     tokens_per_s = batch * seq * TRAIN_STEPS / dt
-    n_params = gpt.num_params(config)
-    emit("train", config="gpt2-small", batch=batch, seq=seq,
-         params=n_params, setup_s=setup_s, warmup_steps=TRAIN_WARMUP,
-         steps=TRAIN_STEPS, step_ms=dt / TRAIN_STEPS * 1e3,
-         gpt2_125m_train_tokens_per_sec_per_chip=tokens_per_s,
-         mfu=6 * n_params * tokens_per_s / PEAK_FLOPS[torch.bfloat16],
-         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-         losses=losses, f32_flash_losses=F32_FLASH_LOSSES,
-         max_loss_diff=drift, kernel_launches=dict(
-             zip((fn.__name__ for fn in kernels), launches)))
+    n_params = model.num_params(config)
+    return dict(batch=batch, seq=seq, params=n_params, setup_s=setup_s,
+                warmup_steps=TRAIN_WARMUP, steps=TRAIN_STEPS,
+                step_ms=dt / TRAIN_STEPS * 1e3, tokens_per_s=tokens_per_s,
+                mfu=6 * n_params * tokens_per_s / PEAK_FLOPS[torch.bfloat16],
+                peak_memory_gib=peak, losses=losses,
+                kernel_launches=launches)
+
+
+def _check_drift(label: str, losses, recorded) -> float:
+    drift = max(abs(a - b) for a, b in zip(losses, recorded))
+    check(drift <= LOSS_DRIFT, f"{label} losses {losses} drift {drift} from "
+                               f"{recorded}")
+    return drift
+
+
+def phase_train(report: dict) -> None:
+    from ray_tpu_torch.models import gpt
+
+    out = _train(gpt, gpt.CONFIGS["gpt2-small"], 24, 1024, 0)
+    drift = _check_drift("gpt2-small", out["losses"], F32_FLASH_LOSSES)
+    for name, n in out["kernel_launches"].items():
+        report[name]["launches"] = n
+    emit("train", config="gpt2-small",
+         gpt2_125m_train_tokens_per_sec_per_chip=out.pop("tokens_per_s"),
+         f32_flash_losses=F32_FLASH_LOSSES, max_loss_diff=drift, **out)
+
+
+def phase_train_llama(report: dict) -> None:
+    """llama-1b at full width and depth, remat off as in the reference
+    config; the weights are drawn on the card."""
+    from ray_tpu_torch.models import llama
+
+    out = _train(llama, llama.CONFIGS["llama-1b"], 4, 2048,
+                 torch.Generator(device="cuda").manual_seed(0))
+    drift = _check_drift("llama-1b", out["losses"], LLAMA_1B_LOSSES)
+    for name, n in out["kernel_launches"].items():
+        report[name]["llama_1b"]["launches"] = n
+    emit("train_llama", config="llama-1b",
+         llama_1b_train_tokens_per_sec_per_chip=out.pop("tokens_per_s"),
+         recorded_losses=LLAMA_1B_LOSSES, max_loss_diff=drift, **out)
 
 
 # Per leaf, max |g_cuda - g_cpu| / max |g_cpu|.  Both sides compute in
@@ -721,27 +838,22 @@ def phase_train(report: dict) -> None:
 GRAD_TOLERANCE = 2e-4
 
 
-def phase_train_parity() -> None:
-    from ray_tpu_torch.models import gpt
+def _train_parity(phase: str, model, config, params, tokens,
+                  label: str) -> None:
+    """One train step on the card and one on the CPU from the same
+    weights and tokens: the losses within 1e-4 relative, every gradient
+    within GRAD_TOLERANCE of its leaf's largest."""
     from ray_tpu_torch.models._functional import adamw
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    config = dataclasses.replace(gpt.CONFIGS["gpt2-small"], n_layers=2,
-                                 dtype=torch.float32)
-    params = gpt.init_params(config, torch.Generator().manual_seed(5),
-                             device="cpu")
-    tokens = torch.randint(0, config.vocab_size, (2, 256),
-                           generator=torch.Generator().manual_seed(6))
     out = {}
     for device in ("cuda", "cpu"):
-        init_state, train_step = gpt.make_train_step(config, adamw(1e-4),
-                                                     device=device)
+        init_state, train_step = model.make_train_step(config, adamw(1e-4),
+                                                       device=device)
         state, metrics = train_step(init_state(params=params),
                                     {"tokens": tokens})
-        grads = gpt._map(state["params"], lambda t: t.grad.cpu())
+        grads = model._map(state["params"], lambda t: t.grad.cpu())
         out[device] = (float(metrics["loss"]), grads)
+        del state
     loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
     worst, worst_leaf = 0.0, None
 
@@ -757,14 +869,52 @@ def phase_train_parity() -> None:
                 worst, worst_leaf = rel, path + key
 
     compare(out["cuda"][1], out["cpu"][1], "")
-    emit("train_parity", config="gpt2-small widths, 2 layers, float32",
-         batch=[2, 256], loss_cuda=out["cuda"][0], loss_cpu=out["cpu"][0],
+    emit(phase, config=label, batch=list(tokens.shape),
+         loss_cuda=out["cuda"][0], loss_cpu=out["cpu"][0],
          loss_rel_err=loss_rel, max_grad_rel_err=worst,
          worst_leaf=worst_leaf, grad_tolerance=GRAD_TOLERANCE)
-    check(loss_rel <= 1e-4, f"train loss CUDA {out['cuda'][0]} vs CPU "
-                            f"{out['cpu'][0]}")
-    check(worst <= GRAD_TOLERANCE, f"gradient {worst_leaf}: CUDA vs CPU "
-                                   f"relative error {worst}")
+    check(loss_rel <= 1e-4, f"{label}: train loss CUDA {out['cuda'][0]} vs "
+                            f"CPU {out['cpu'][0]}")
+    check(worst <= GRAD_TOLERANCE, f"{label}: gradient {worst_leaf}: CUDA "
+                                   f"vs CPU relative error {worst}")
+
+
+def phase_train_parity() -> None:
+    from ray_tpu_torch.models import gpt
+
+    _f32_exact()
+    config = dataclasses.replace(gpt.CONFIGS["gpt2-small"], n_layers=2,
+                                 dtype=torch.float32)
+    params = gpt.init_params(config, torch.Generator().manual_seed(5),
+                             device="cpu")
+    tokens = torch.randint(0, config.vocab_size, (2, 256),
+                           generator=torch.Generator().manual_seed(6))
+    _train_parity("train_parity", gpt, config, params, tokens,
+                  "gpt2-small widths, 2 layers, float32")
+
+
+def phase_llama_parity() -> None:
+    """llama-1b widths at 2 layers in f32: greedy tokens (K4 at q_per_kv
+    8 in f32 on the card) and one train step (K1-K3 over the repeated kv
+    heads); then llama-tiny's greedy tokens, whose head dim 16 takes the
+    masked-dense decode route on the card as in the reference."""
+    from ray_tpu_torch.models import llama
+
+    _f32_exact()
+    config = dataclasses.replace(llama.CONFIGS["llama-1b"], n_layers=2,
+                                 dtype=torch.float32)
+    params = llama.init_params(config, torch.Generator().manual_seed(7),
+                               device="cpu")
+    label = "llama-1b widths, 2 layers, float32"
+    _greedy_parity("llama_parity", "llama", config, params, label)
+    tokens = torch.randint(0, config.vocab_size, (2, 128),
+                           generator=torch.Generator().manual_seed(6))
+    _train_parity("llama_train_parity", llama, config, params, tokens, label)
+    tiny = llama.CONFIGS["llama-tiny"]
+    _greedy_parity("llama_tiny_parity", "llama", tiny,
+                   llama.init_params(tiny, torch.Generator().manual_seed(8),
+                                     device="cpu"),
+                   "llama-tiny (head dim 16), float32")
 
 
 def main() -> int:
@@ -782,12 +932,17 @@ def main() -> int:
          count=torch.cuda.device_count(),
          built=[p.name for p in built], build_s=time.perf_counter() - t0)
     report: dict = {}
-    phase_kernels(report)
-    phase_flash(report)
-    phase_serve(report)
-    phase_train(report)
-    phase_parity()
-    phase_train_parity()
+    phases = (("kernels", phase_kernels), ("flash", phase_flash),
+              ("serve", phase_serve), ("train", phase_train),
+              ("parity", lambda _: phase_parity()),
+              ("train_parity", lambda _: phase_train_parity()),
+              ("serve_llama", phase_serve_llama),
+              ("train_llama", phase_train_llama),
+              ("llama_parity", lambda _: phase_llama_parity()))
+    for name, phase in phases:
+        t0 = time.perf_counter()
+        phase(report)
+        emit("wall", of=name, seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": list(report.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

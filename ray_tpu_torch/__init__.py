@@ -9,14 +9,16 @@ Hopper (`ops/csrc/`), built with nvcc at first use.
 
 Ported so far — the serving path: the paged-KV cache, the
 continuous-batching engine with in-step sampling (token-exact with the
-reference's threefry draws), the cached GPT forward, and the
-single-query paged-decode attention kernel; and the single-device GPT
-training path: the training forward and loss, flash attention forward
-and backward kernels, the fused chunked cross-entropy and AdamW
-(`models.gpt.make_train_step`).
+reference's threefry draws), the cached forward of the GPT and Llama
+families, and the single-query paged-decode attention kernel (GQA
+included); and the single-device training path of both families: the
+training forward and loss, flash attention forward and backward
+kernels, the fused chunked cross-entropy and AdamW
+(`models.gpt.make_train_step`, `models.llama.make_train_step`).
 
 Every entry point takes `device=None`, which means CUDA; without a card
 it raises unless the caller passes `device="cpu"`.
 """
 
 from ray_tpu_torch._device import resolve_device  # noqa: F401
+from ray_tpu_torch.models import gpt, llama  # noqa: F401

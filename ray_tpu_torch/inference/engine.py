@@ -133,9 +133,11 @@ def _resolve_model(model):
     if isinstance(model, str):
         if model == "gpt":
             from ray_tpu_torch.models import gpt as mod
+        elif model == "llama":
+            from ray_tpu_torch.models import llama as mod
         else:
             raise ValueError(f"unknown model family {model!r} (the port "
-                             f"serves 'gpt' so far)")
+                             f"serves 'gpt' and 'llama')")
         return mod
     return model  # a module implementing forward_cached/lm_head/CONFIGS
 
@@ -143,6 +145,9 @@ def _resolve_model(model):
 class InferenceEngine:
     """max_lanes concurrent sequences over one shared paged KV pool.
 
+    `model` is "gpt", "llama" or a module with the same cached-forward
+    contract (`forward_cached`, `lm_head`, `working_params`, `CONFIGS`);
+    `config` a name in its `CONFIGS` or a config object.
     `auto_start=True` (default) runs the scheduler on a daemon thread —
     submit() returns a streaming GenerationHandle immediately.  With
     auto_start=False the caller drives `step()`.  `prefix_cache=False`

@@ -1,2 +1,4 @@
-"""Models of the port: the GPT family's training forward and loss, its
-train step, and its cached (serving) forward."""
+"""Models of the port: the GPT and Llama families' training forward and
+loss, their train step, and their cached (serving) forward."""
+
+from ray_tpu_torch.models import gpt, llama  # noqa: F401

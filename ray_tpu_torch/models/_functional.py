@@ -1,5 +1,7 @@
 """Shared train-step factory for the functional LM families (port of
-ray_tpu/models/_functional.py, single device).
+ray_tpu/models/_functional.py, single device), and what the families'
+modules share besides: the engine's working copy of the params and the
+single-device check.
 
 The reference's contract: `init_state` gives {"params", "opt_state",
 "step"} and `train_step(state, batch)` gives (state, {"loss"}).  JAX's
@@ -53,6 +55,37 @@ def _leaves(tree: dict) -> list:
 def _map(tree: dict, fn) -> dict:
     return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
+
+
+def working_params(params: dict, dtype: torch.dtype, matmul_keys,
+                   device: DeviceLike = None) -> dict:
+    """The serving engine's copy of `params` on `device`, with every leaf
+    named in `matmul_keys` (weights the forward only uses cast to the
+    activation dtype: matmul weights and embedding tables) cast to
+    `dtype` ONCE here, and every other leaf (the norms' scales and
+    biases, which the forward mixes in at fp32) kept as it is.
+
+    Casting fp32 -> bf16 once gives the same bits as the per-call
+    `.to(h.dtype)` in the forward (which is then a no-op), so the numbers
+    do not change."""
+    device = resolve_device(device)
+    return {k: working_params(v, dtype, matmul_keys, device)
+            if isinstance(v, dict) else
+            v.to(device=device, dtype=dtype if k in matmul_keys else v.dtype)
+            for k, v in params.items()}
+
+
+MULTI_DEVICE = "the multi-device slice of the port (ROADMAP A8)"
+
+
+def check_single_device(mesh) -> None:
+    """The port runs one device: a mesh with any axis above 1 raises.
+    `mesh` is None or anything with a `.shape` mapping of axis sizes (a
+    one-device mesh is accepted)."""
+    if mesh is not None and any(s > 1 for s in dict(mesh.shape).values()):
+        raise NotImplementedError(f"a mesh with an axis above 1 waits for "
+                                  f"{MULTI_DEVICE}")
+
 
 
 def make_train_step(config, optimizer: AdamW, *, init_params, loss_fn,

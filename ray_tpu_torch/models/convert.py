@@ -2,7 +2,7 @@
 
 The reference initialises with `jax.random`, whose draws no torch
 generator reproduces, so the two packages compute the same thing only on
-weights moved across: take the reference's GPT params as numpy
+weights moved across: take the reference's GPT or Llama params as numpy
 (`jax.tree.map(np.asarray, params)`) and turn them into the port's
 params — same keys, same stacked layouts, same dtypes.  `params_to_numpy`
 goes the other way, so the reference can be handed the port's weights
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.models import gpt
+from ray_tpu_torch.models import gpt, llama
 
 
 def _tensor(arr) -> torch.Tensor:
@@ -25,12 +25,19 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def params_from_numpy(tree: dict, config: gpt.GPTConfig,
-                      device: DeviceLike = None) -> dict:
-    """The reference's GPT param tree (numpy leaves) as the port's params
-    on `device`.  Raises if a key or a shape differs from
-    `gpt.param_shapes(config)`."""
+_SHAPES = {gpt.GPTConfig: gpt.param_shapes,
+           llama.LlamaConfig: llama.param_shapes}
+
+
+def params_from_numpy(tree: dict, config, device: DeviceLike = None) -> dict:
+    """The reference's param tree (numpy leaves) of the family that
+    `config` names (a `gpt.GPTConfig` or a `llama.LlamaConfig`) as the
+    port's params on `device`.  Raises if a key or a shape differs from
+    that family's `param_shapes(config)`."""
     device = resolve_device(device)
+    if type(config) not in _SHAPES:
+        raise TypeError(f"params_from_numpy: no model family for config "
+                        f"{type(config).__name__}")
 
     def convert(sub, shapes, path):
         if set(sub) != set(shapes):
@@ -48,7 +55,7 @@ def params_from_numpy(tree: dict, config: gpt.GPTConfig,
             out[key] = t.to(device)
         return out
 
-    return convert(tree, gpt.param_shapes(config), "")
+    return convert(tree, _SHAPES[type(config)](config), "")
 
 
 def params_to_numpy(params: dict) -> dict:

@@ -70,8 +70,8 @@ CONFIGS = {
 }
 
 # Leaves that the forward only ever uses cast to the activation dtype.
-_MATMUL_BLOCK_KEYS = ("wq", "wk", "wv", "wo", "w_up", "w_down")
-_MATMUL_TOP_KEYS = ("tok_embed", "pos_embed", "lm_head")
+_MATMUL_KEYS = ("wq", "wk", "wv", "wo", "w_up", "w_down", "tok_embed",
+                "pos_embed", "lm_head")
 
 
 def param_shapes(config: GPTConfig) -> dict:
@@ -160,24 +160,11 @@ def num_params(config: GPTConfig) -> int:
 
 def working_params(params: dict, config: GPTConfig,
                    device: DeviceLike = None) -> dict:
-    """The serving engine's copy of `params` on `device`, with every
-    weight that the forward only uses cast to `config.dtype` (matmul
-    weights and the embedding tables) cast ONCE here.
-
-    Casting fp32 -> bf16 once gives the same bits as the per-call
-    `.to(h.dtype)` in `_block_cached`/`lm_head` (which is then a no-op),
-    so the numbers do not change.  LayerNorm scales and biases stay
-    fp32: `_layernorm` mixes them in at fp32."""
-    device = resolve_device(device)
-
-    def cast(key, t):
-        dtype = config.dtype if key in _MATMUL_TOP_KEYS + _MATMUL_BLOCK_KEYS \
-            else t.dtype
-        return t.to(device=device, dtype=dtype)
-
-    out = {k: cast(k, v) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = {k: cast(k, v) for k, v in params["blocks"].items()}
-    return out
+    """The serving engine's copy of `params` on `device`: matmul weights
+    and the embedding tables cast to `config.dtype` once, LayerNorm
+    scales and biases kept fp32 (`_functional.working_params`)."""
+    return _functional.working_params(params, config.dtype, _MATMUL_KEYS,
+                                      device)
 
 
 def _layernorm(x, scale, bias, eps=1e-5):
@@ -195,19 +182,13 @@ def lm_head(params: dict, x: torch.Tensor, config: GPTConfig) -> torch.Tensor:
     return x @ head
 
 
-_MULTI_DEVICE = "the multi-device slice of the port (ROADMAP A8)"
-
-
 def _check_single_device(config: GPTConfig, mesh) -> None:
     """The port runs one device: MoE and a mesh with any axis above 1
-    raise.  `mesh` is None or anything with a `.shape` mapping of axis
-    sizes (a one-device mesh is accepted)."""
+    raise (`_functional.check_single_device`)."""
     if config.n_experts:
         raise NotImplementedError(f"the Switch MoE MLP waits for "
-                                  f"{_MULTI_DEVICE}")
-    if mesh is not None and any(s > 1 for s in dict(mesh.shape).values()):
-        raise NotImplementedError(f"a mesh with an axis above 1 waits for "
-                                  f"{_MULTI_DEVICE}")
+                                  f"{_functional.MULTI_DEVICE}")
+    _functional.check_single_device(mesh)
 
 
 def _block(x, p, config: GPTConfig):

@@ -14,10 +14,11 @@ Serving: the KV cache lives in a preallocated block pool [num_blocks,
 block_size, kv_heads, head_dim]; each sequence owns a row of a block
 table mapping its logical context positions onto pool blocks
 (inference/kv_cache.py).  The decode step asks: one query per lane
-attends over that lane's block table.  That step runs the hand-written
-Hopper kernel `csrc/paged_decode.cu` (split-context: partials per
-context split, then a merge) on CUDA tensors; multi-token prefill
-chunks run the masked-dense `paged_attention_reference`.
+attends over that lane's block table.  At head dims 64, 128 and 256
+that step runs the hand-written Hopper kernel `csrc/paged_decode.cu`
+(split-context: partials per context split, then a merge) on CUDA
+tensors; other head dims and multi-token prefill chunks run the
+masked-dense `paged_attention_reference`, as in the reference.
 
 Dispatch follows the tensor, never the environment: a CPU tensor takes
 the kernel's plain PyTorch version, a CUDA tensor launches the kernel or
@@ -556,14 +557,25 @@ def _decode_launch(q, k_pool, v_pool, block_tables, ctx_lens, scale):
 paged_decode_attention.launches = 0
 
 
+def _use_paged_kernel(d: int) -> bool:
+    """The reference's rule for the decode kernel: head dims 64, 128 and
+    256.  A route by shape, as `_use_kernel` is for flash: other head
+    dims take the masked-dense path, on any device."""
+    return d in _KERNEL_HEAD_DIMS
+
+
 def paged_attention(q, k_pool, v_pool, block_tables, ctx_lens, q_positions,
                     *, scale: Optional[float] = None):
     """Dispatch paged attention for a [B, T, H, D] query slice: the T=1
-    decode step rides the single-query kernel path, multi-token prefill
-    chunks ride the masked-dense path."""
+    decode step rides the single-query kernel path where the head dim
+    allows (`_use_paged_kernel`), the masked-dense path at the query's
+    position ctx_len - 1 elsewhere, as the reference routes it;
+    multi-token prefill chunks ride the masked-dense path."""
     if q.shape[1] == 1:
-        return paged_decode_attention(
-            q[:, 0], k_pool, v_pool, block_tables, ctx_lens,
-            scale=scale)[:, None]
+        if _use_paged_kernel(q.shape[-1]):
+            return paged_decode_attention(
+                q[:, 0], k_pool, v_pool, block_tables, ctx_lens,
+                scale=scale)[:, None]
+        q_positions = (ctx_lens - 1)[:, None]
     return paged_attention_reference(q, k_pool, v_pool, block_tables,
                                      ctx_lens, q_positions, scale=scale)

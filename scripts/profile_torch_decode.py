@@ -1,9 +1,11 @@
 """Where the port's decode step spends its time, on one CUDA card.
 
-    python3 scripts/profile_torch_decode.py
+    python3 scripts/profile_torch_decode.py                  # gpt2-small
+    python3 scripts/profile_torch_decode.py llama llama-1b
 
-Builds ray_tpu_torch's InferenceEngine at gpt2-small (bf16, random
-weights from a seed), fills all 32 lanes with a prompt of 512 tokens,
+Builds ray_tpu_torch's InferenceEngine for a model family and config
+(default gpt2-small; bf16, random weights from a seed drawn on the
+card), fills all 32 lanes with a prompt of 512 tokens,
 then times 16 decode steps two ways: the host clock per step (each step
 ends in its one device->host transfer), and a torch.profiler trace of
 another 16 steps giving the device time by kernel.  The device's busy
@@ -33,17 +35,24 @@ LANES, CTX, STEPS = 32, 512, 16
 
 def _fill(eng, temperature):
     """Admit one request per lane and run its whole prompt's prefill."""
+    vocab = eng.config.vocab_size
     for i in range(LANES):
-        eng.submit([(7 * i + j) % 50304 for j in range(CTX)],
+        eng.submit([(7 * i + j) % vocab for j in range(CTX)],
                    max_new_tokens=256, temperature=temperature, seed=i)
     for _ in range(-(-CTX // eng.prefill_chunk)):
         eng.step()
 
 
-def measure(temperature: float) -> dict:
+def measure(family: str, name: str, temperature: float) -> dict:
+    import importlib
+
     from ray_tpu_torch.inference import InferenceEngine
 
-    eng = InferenceEngine("gpt", "gpt2-small", device="cuda", seed=0,
+    model = importlib.import_module(f"ray_tpu_torch.models.{family}")
+    params = model.init_params(model.CONFIGS[name],
+                               torch.Generator(device="cuda").manual_seed(0),
+                               device="cuda")
+    eng = InferenceEngine(family, name, params=params, device="cuda",
                           max_lanes=LANES, block_size=16, auto_start=False)
     _fill(eng, temperature)
     for _ in range(4):                                  # warm-up
@@ -68,7 +77,7 @@ def measure(temperature: float) -> dict:
     eng.shutdown()
     device_ms = device_us / STEPS / 1e3
     return {
-        "lanes": LANES, "ctx": CTX, "temperature": temperature,
+        "config": name, "lanes": LANES, "ctx": CTX, "temperature": temperature,
         "steps": STEPS, "step_ms": host_ms, "traced_step_ms": traced_ms,
         "device_ms_per_step": device_ms,
         "device_busy_share": device_ms / host_ms,
@@ -85,8 +94,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_decode: needs a CUDA device", file=sys.stderr)
         return 1
+    family, name = (sys.argv[1:3] if len(sys.argv) > 2
+                    else ("gpt", "gpt2-small"))
     for temperature in (0.0, 0.8):
-        print(json.dumps(measure(temperature)), flush=True)
+        print(json.dumps(measure(family, name, temperature)), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())

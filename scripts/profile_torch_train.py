@@ -1,10 +1,13 @@
-"""Where the port's GPT-2 train step spends its time, on one CUDA card.
+"""Where the port's train step spends its time, on one CUDA card.
 
-    python3 scripts/profile_torch_train.py
+    python3 scripts/profile_torch_train.py                   # gpt2-small
+    python3 scripts/profile_torch_train.py llama llama-1b    # 4 x 2048
 
-Builds ray_tpu_torch's train step at gpt2-small (bf16 activations, fp32
-params, random weights from a seed, AdamW) on one repeated batch of
-24 x 1024 random tokens, as bench.py drives the reference; runs 2
+Builds ray_tpu_torch's train step for a model family and config
+(default gpt2-small; bf16 activations, fp32 params, random weights from
+a seed drawn on the card, AdamW) on one repeated batch of random tokens
+(gpt2-small 24 x 1024, as bench.py drives the reference; llama-1b
+4 x 2048, as chip_smoke.py's train_llama phase); runs 2
 warm-up steps, times 4 steps on the host clock (ending in a
 synchronise), then traces 3 more with torch.profiler for the device
 time by kernel.  The device's busy share is the device time per step
@@ -26,18 +29,23 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-BATCH, SEQ, WARMUP, STEPS, TRACED = 24, 1024, 2, 4, 3
+WARMUP, STEPS, TRACED = 2, 4, 3
+# (batch, seq) per config; the default takes the config's max_seq_len.
+SHAPES = {"gpt2-small": (24, 1024), "llama-1b": (4, 2048)}
 
 
-def measure() -> dict:
-    from ray_tpu_torch.models import gpt
+def measure(family: str, name: str) -> dict:
+    import importlib
+
     from ray_tpu_torch.models._functional import adamw
 
-    config = gpt.CONFIGS["gpt2-small"]
-    init_state, train_step = gpt.make_train_step(config, adamw(1e-4),
-                                                 device="cuda")
-    state = init_state(0)
-    tokens = torch.randint(0, config.vocab_size, (BATCH, SEQ),
+    model = importlib.import_module(f"ray_tpu_torch.models.{family}")
+    config = model.CONFIGS[name]
+    n_seqs, seq = SHAPES.get(name, (4, config.max_seq_len))
+    init_state, train_step = model.make_train_step(config, adamw(1e-4),
+                                                   device="cuda")
+    state = init_state(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, config.vocab_size, (n_seqs, seq),
                            generator=torch.Generator().manual_seed(1)).cuda()
     batch = {"tokens": tokens}
     for _ in range(WARMUP):
@@ -60,7 +68,7 @@ def measure() -> dict:
                    if "flash_" in e.key and "_kernel" in e.key) / TRACED / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
     return {
-        "config": "gpt2-small", "batch": BATCH, "seq": SEQ, "steps": STEPS,
+        "config": name, "batch": n_seqs, "seq": seq, "steps": STEPS,
         "step_ms": host_ms, "device_ms_per_step": device_ms,
         "device_busy_share": device_ms / host_ms,
         "flash_kernels_ms_per_step": flash_ms,
@@ -76,7 +84,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_train: needs a CUDA device", file=sys.stderr)
         return 1
-    print(json.dumps(measure()), flush=True)
+    family, name = (sys.argv[1:3] if len(sys.argv) > 2
+                    else ("gpt", "gpt2-small"))
+    print(json.dumps(measure(family, name)), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())

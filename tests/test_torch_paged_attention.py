@@ -119,7 +119,7 @@ def test_paged_attention_matches_reference(t, q_per_kv):
 
 
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("q_per_kv", [1, 4])
+@pytest.mark.parametrize("q_per_kv", [1, 4, 8])
 def test_decode_plain_matches_pallas_kernel(q_per_kv, d):
     c = _case(2, q_per_kv=q_per_kv, d=d)
     q = c["q"][:, 0]
@@ -137,6 +137,42 @@ def test_decode_plain_matches_pallas_kernel(q_per_kv, d):
     np.testing.assert_array_equal(tattn.paged_decode_attention(*args).numpy(),
                                   plain.numpy())
     assert tattn.paged_decode_attention.launches == before
+
+
+def test_decode_route_follows_the_head_dim(monkeypatch):
+    """Known divergence, repaired: the reference sends a T=1 call to its
+    kernel only at head dims 64, 128 and 256 (`_use_paged_kernel`) and
+    every other head dim to the masked-dense path at position
+    ctx_len - 1.  The port routes by the same rule, so a decode step at
+    head dim 16 (nano, llama-tiny) never reaches the CUDA kernel, which
+    refuses it."""
+    assert [d for d in (16, 32, 64, 96, 128, 256, 512)
+            if tattn._use_paged_kernel(d)] == [64, 128, 256]
+    assert [d for d in (16, 32, 64, 96, 128, 256, 512)
+            if jattn._use_paged_kernel(d)] == [64, 128, 256]
+    kernel_calls = []
+    wrapper = tattn.paged_decode_attention
+    monkeypatch.setattr(tattn, "paged_decode_attention",
+                        lambda *a, **kw: kernel_calls.append(1) or
+                        wrapper(*a, **kw))
+    ctx_lens = np.asarray([5, 17, 32], np.int32)
+    q_pos = np.zeros((3, 1), np.int32)    # unused by the T=1 route
+    for d in (16, 64):
+        c = _case(4, q_per_kv=2, d=d)
+        want = jattn.paged_attention(c["q"], c["k_pool"], c["v_pool"],
+                                     c["tables"], ctx_lens, q_pos)
+        got = tattn.paged_attention(_t(c["q"]), _t(c["k_pool"]),
+                                    _t(c["v_pool"]), _t(c["tables"]),
+                                    _t(ctx_lens), _t(q_pos))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                                   rtol=1e-5)
+        assert len(kernel_calls) == (d == 64), d
+    # The kernel itself still refuses head dim 16.
+    c = _case(4, q_per_kv=2, d=16)
+    with pytest.raises(ValueError, match="head dim"):
+        tattn._check_kernel_args(
+            _t(c["q"][:, 0]), _t(c["k_pool"]), _t(c["v_pool"]),
+            _t(c["tables"]), _t(ctx_lens))
 
 
 def test_all_masked_rows_are_finite():

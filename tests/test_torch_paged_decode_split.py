@@ -79,7 +79,7 @@ def _pallas(c, ctx_lens):
 
 
 @pytest.mark.parametrize("split_len", [16, tattn.DECODE_SPLIT_LEN])
-@pytest.mark.parametrize("q_per_kv", [1, 4])
+@pytest.mark.parametrize("q_per_kv", [1, 4, 8])
 def test_split_merge_matches_plain_and_pallas(q_per_kv, split_len):
     c = _case(20 + q_per_kv, q_per_kv)
     ctx_lens = np.asarray(CTX, np.int32)
