@@ -97,6 +97,32 @@ run with a nonzero exit code and no result line:
            log-prob against log_softmax of a plain forward over the same
            tokens at the same temperature: gpt2-small in float32 within
            1e-4, llama-1b in bf16 within 2 x 2e-2 x max|logit| / temp.
+  serve_disagg  disaggregated serving at llama-1b (bf16, full width, the
+           weights of serve_llama): a PrefillLLMDeployment and a
+           DecodeLLMDeployment, 32 lanes each, serve's 24 requests from
+           concurrent client threads (prefill hop -> KV frame -> decode
+           hop).  Every frame must be a v2 bf16 frame of 360,448 bytes of
+           K/V per block; the decode side must import each distinct chain
+           link once and hit >= 16 tokens per imported block; K4 must have
+           run 22 times per decode step of the decode replica and never
+           for the prefill replica; each stream must equal serve_llama's
+           for the request or part from it at a near-tie (for a sampled
+           stream, of logits / temp + its Gumbel noise).  Prints frame
+           bytes, export + encode and decode + import ms, TTFT (end to end
+           and of the decode hop) beside serve_llama's, decode tokens/s.
+  disagg_parity  f32 on the card, gpt2-small and llama-1b widths at 2
+           layers: prefill replica -> v1 frame -> a fresh decode replica,
+           greedy and seeded, token-exact against a monolithic
+           LLMDeployment; a second import installs nothing; a bf16 pool's
+           v2 frame, installed and exported again, is bit-exact.
+  kv_tier  llama-1b bf16 with kv_tier=True, 8 lanes, a pool of 1.5x one
+           round's worst case, 16 host blocks (the rest spills to files):
+           three rounds of 8 distinct 160-token prompts, then round one
+           again.  Blocks must spill and restore, the restored chains
+           must hold the bits exported before eviction, the repeat's
+           streams must equal a tier-less engine's (or part at a
+           near-tie), K4 must have run 22 times per decode step; ms per
+           spilled and per restored block are printed.
 
 Each phase's wall seconds follow it on a line of their own.  Then, on
 lines of their own: the kernels' JSON record, the card's name and power
@@ -110,6 +136,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -627,13 +654,14 @@ class _Consumer(threading.Thread):
 
 
 def _serve(family: str, config_name: str, params=None, extra=(),
-           **engine_kw) -> dict:
+           **engine_kw) -> tuple:
     """Serve the 24 requests of `_serve_requests` (and `extra` ones in the
     first wave) through InferenceEngine(family, config_name, **engine_kw)
     at 32 lanes, block 16, with the decode kernel's count set to 0 just
     before and read just after; check every stream and the count (once
     per layer per T=1 decode step: speculative verify steps take the
-    masked-dense path).  Returns the phase's metrics."""
+    masked-dense path).  Returns the phase's metrics and each request's
+    tokens (first wave, `extra`, second wave)."""
     from ray_tpu_torch.inference import InferenceEngine
     from ray_tpu_torch.ops import attention as A
 
@@ -703,7 +731,9 @@ def _serve(family: str, config_name: str, params=None, extra=(),
         decode_tokens_per_s=decode_tokens / (decode_s + verify_s),
         decode_steps=decode_steps,
         decode_step_ms=decode_s / decode_steps * 1e3,
-        prefill_steps=after["prefill_steps"] - before["prefill_steps"],
+        prefill_steps=delta("prefill_steps"),
+        prefill_step_ms=delta("prefill_seconds") / delta("prefill_steps")
+        * 1e3,
         ttft_p50_ms=statistics.median(ttfts) * 1e3,
         ttft_max_ms=ttfts[-1] * 1e3,
         prefix_hits=hits,
@@ -721,14 +751,18 @@ def _serve(family: str, config_name: str, params=None, extra=(),
                        "spec_drafted_tokens", "spec_accepted_tokens",
                        "spec_emitted_tokens", "spec_steps")},
                    spec_accepted_per_step=after["spec_accepted_per_step"])
-    return out
+    return out, [c.tokens for _, c in streams]
 
 
 def phase_serve(report: dict) -> None:
-    out = _serve("gpt", "gpt2-small")
+    out, _ = _serve("gpt", "gpt2-small")
     report["paged_decode_attention"]["launches"] = \
         out["decode_kernel_launches"]
     emit("serve", **out)
+
+
+# serve_llama's streams and latencies, which serve_disagg is held to.
+SERVE_LLAMA: dict = {}
 
 
 def phase_serve_llama(report: dict) -> None:
@@ -741,8 +775,11 @@ def phase_serve_llama(report: dict) -> None:
     params = _llama_1b_params()
     torch.cuda.synchronize()
     params_s = time.perf_counter() - t0
-    out = _serve("llama", "llama-1b", params)
+    out, SERVE_LLAMA["streams"] = _serve("llama", "llama-1b", params)
     del params
+    SERVE_LLAMA.update({k: out[k] for k in (
+        "ttft_p50_ms", "ttft_max_ms", "decode_tokens_per_s", "decode_step_ms",
+        "prefill_step_ms")})
     report["paged_decode_attention"]["llama_1b"]["launches"] = \
         out["decode_kernel_launches"]
     emit("serve_llama", params_s=params_s,
@@ -1074,17 +1111,32 @@ def _logits(model, config, wparams, tokens) -> torch.Tensor:
     return (out[0] if isinstance(out, tuple) else out)[0].float()
 
 
-def _near_tie(label, model, config, wparams, prompt, want, got) -> dict:
+def _near_tie(label, model, config, wparams, prompt, want, got,
+              temperature: float = 0.0, seed=None) -> dict:
     """Where `got` first differs from the plain stream `want`, the plain
     path's logits there (a plain forward over the prompt and the common
-    prefix) must have a top-2 margin <= NEAR_TIE * max|logit|."""
+    prefix) must have a top-2 margin <= NEAR_TIE * max|logit|.  For a
+    sampled stream (`temperature` > 0) the margin is that of the scores
+    the draw took the argmax of, logits / temperature + the request's
+    Gumbel noise at that position, against NEAR_TIE * max|logit| /
+    temperature: a logit moved by eps moves its score by eps /
+    temperature."""
+    from ray_tpu_torch.inference import sampling
+
     n = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
     if n is None:
         check(len(want) == len(got), f"{label}: streams of other lengths")
         return dict(diverged_at=None)
     row = _logits(model, config, wparams, list(prompt) + want[:n])[-1]
+    limit = NEAR_TIE * float(row.abs().max())
+    if temperature > 0:
+        key = sampling.fold_in(
+            sampling.key(torch.tensor(seed, device=row.device)),
+            torch.tensor(n, device=row.device))
+        row = row / temperature + sampling.gumbel(key, row.shape[-1])
+        limit /= temperature
     top2 = row.topk(2).values
-    margin, limit = float(top2[0] - top2[1]), NEAR_TIE * float(row.abs().max())
+    margin = float(top2[0] - top2[1])
     check(margin <= limit, f"{label}: streams differ at token {n}, where the "
                            f"plain logits' top-2 margin {margin} exceeds "
                            f"{NEAR_TIE} x max|logit| = {limit}")
@@ -1108,8 +1160,8 @@ def phase_serve_spec(report: dict) -> None:
     vocab = llama.CONFIGS["llama-1b"].vocab_size
     extra = [(rng.integers(0, vocab, 16).tolist() * 4,
               dict(max_new_tokens=48)) for _ in range(8)]
-    out = _serve("llama", "llama-1b", params, extra=extra, spec_k=SPEC_K,
-                 draft_proposer="ngram")
+    out, _ = _serve("llama", "llama-1b", params, extra=extra, spec_k=SPEC_K,
+                    draft_proposer="ngram")
     del params
     check(out["spec_drafted_tokens"] > 0, "the n-gram proposer never drafted")
     check(out["spec_steps"] > 0, "no verify step ran")
@@ -1373,6 +1425,407 @@ def phase_logp() -> None:
          verify_steps=st["verify_steps"], **out)
 
 
+# --------------------------------------------------------- disaggregation
+
+# The K/V of one llama-1b block in bf16: 22 layers x 16 positions x 4 kv
+# heads x 64 dims x 2 bytes, for K and for V.
+LLAMA_1B_BLOCK_BYTES = 22 * 16 * 4 * 64 * 2 * 2
+
+
+def _span_timer():
+    """An Observer that keeps the milliseconds of each span by (thread,
+    plane/kind): a request's export and import run in its own client
+    thread.  Every other hook records nothing."""
+    from ray_tpu_torch.util.observe import Observer
+
+    class SpanTimer(Observer):
+        def __init__(self):
+            self.ms: dict = {}
+
+        def begin(self, plane, kind, **fields):
+            return (threading.get_ident(), f"{plane}/{kind}",
+                    time.perf_counter())
+
+        def end(self, token, **fields):
+            if token is not None:
+                self.ms[token[:2]] = (time.perf_counter() - token[2]) * 1e3
+
+    return SpanTimer()
+
+
+class _DisaggClient(threading.Thread):
+    """One request through the disaggregated path, as DisaggLLMHandle
+    drives it: the prefill hop returns a frame, then the decode hop
+    streams tokens from it.  Keeps the frame, the tokens, the prefill
+    hop's seconds, TTFT from the prefill call and from the decode call,
+    and any error."""
+
+    def __init__(self, prefill, decode, prompt, kw):
+        super().__init__(daemon=True)
+        self.prefill, self.decode, self.prompt, self.kw = (prefill, decode,
+                                                           prompt, kw)
+        self.first = threading.Event()
+        self.frame, self.tokens, self.error = None, [], None
+        self.ttft = self.ttft_decode = self.prefill_hop = None
+
+    def run(self):
+        try:
+            t0 = time.perf_counter()
+            self.frame = self.prefill.prefill(self.prompt,
+                                              seed=self.kw.get("seed"))
+            t1 = time.perf_counter()
+            self.prefill_hop = t1 - t0
+            for tok in self.decode.generate(self.prompt,
+                                            kv_handoff=self.frame, **self.kw):
+                if self.ttft is None:
+                    now = time.perf_counter()
+                    self.ttft, self.ttft_decode = now - t0, now - t1
+                    self.first.set()
+                self.tokens.append(tok)
+        except Exception as exc:     # re-raised by the phase's check
+            self.error = exc
+        finally:
+            self.first.set()
+
+
+def _chain_keys(chain) -> list:
+    """The content-addressed chain keys of a frame's token blocks."""
+    keys, parent = [], 0
+    for blk in chain:
+        keys.append((parent, tuple(int(t) for t in blk)))
+        parent = hash(keys[-1])
+    return keys
+
+
+def _ms_stats(values) -> dict:
+    return dict(p50=statistics.median(values), max=max(values))
+
+
+def phase_serve_disagg(report: dict) -> None:
+    """llama-1b, bf16, full width, one card: a PrefillLLMDeployment and a
+    DecodeLLMDeployment on one set of weights, 32 lanes, block 16,
+    serving serve's 24 requests from concurrent client threads (prefill
+    hop, frame, decode hop).  Every frame is v2 bf16 and decodes; the
+    decode side imports each distinct chain link once and hits >= 16
+    tokens per imported block; K4 ran 22 times per decode step of the
+    decode engine and never for the prefill engine; each stream equals
+    serve_llama's for the request or parts from it at a near-tie."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.serve import (DecodeLLMDeployment, KVBlockCodec,
+                                     PrefillLLMDeployment)
+
+    config = llama.CONFIGS["llama-1b"]
+    params = _llama_1b_params()
+    kw = dict(max_lanes=32, block_size=16, seed=1234)
+    timers = {"prefill": _span_timer(), "decode": _span_timer()}
+    prefill = PrefillLLMDeployment("llama", "llama-1b", params,
+                                   observer=timers["prefill"], **kw)
+    decode = DecodeLLMDeployment("llama", "llama-1b", params,
+                                 observer=timers["decode"], **kw)
+    replicas = {"prefill": prefill, "decode": decode}
+    try:
+        warm = list(range(40))
+        decode(warm, 4, kv_handoff=prefill.prefill(warm))        # warm-up
+        torch.cuda.synchronize()
+        before = {r: d.stats() for r, d in replicas.items()}
+        first, second = _serve_requests(config.vocab_size)
+
+        A.paged_decode_attention.launches = 0
+        t_start = time.perf_counter()
+        clients = [_DisaggClient(prefill, decode, p, k) for p, k in first]
+        for c in clients:
+            c.start()
+        # Wave two shares wave one's first prompt's prefix.
+        check(clients[0].first.wait(timeout=300),
+              "first request produced no token")
+        wave2 = [_DisaggClient(prefill, decode, p, k) for p, k in second]
+        for c in wave2:
+            c.start()
+        clients += wave2
+        for c in clients:
+            c.join(timeout=600)
+            check(not c.is_alive(), "a request did not finish")
+            check(c.error is None, f"a request failed: {c.error!r}")
+        wall = time.perf_counter() - t_start
+        launches = A.paged_decode_attention.launches
+        after = {r: d.stats() for r, d in replicas.items()}
+
+        def delta(role, key):
+            return after[role][key] - before[role][key]
+
+        reqs = first + second
+        for (prompt, k), c in zip(reqs, clients):
+            check(len(c.tokens) == k["max_new_tokens"]
+                  or c.tokens[-1] == k.get("eos_id"),
+                  "a request stopped short")
+        # The frames: v2 bf16, decoded, timed through the codec.
+        links, blocks, frame_bytes, enc_ms, dec_ms = set(), 0, 0, [], []
+        handoff = []            # (export + encode, decode + import) ms
+        for c in clients:
+            if c.frame is None:
+                continue        # prompt shorter than one full block + 1
+            t0 = time.perf_counter()
+            payload = KVBlockCodec.try_decode(c.frame)
+            t1 = time.perf_counter()
+            check(payload is not None and payload["v"] == 2
+                  and payload["dtype"] == "bfloat16",
+                  "a frame is not a v2 bf16 frame")
+            KVBlockCodec.encode(payload)
+            t2 = time.perf_counter()
+            n = len(payload["chain"])
+            check(payload["k"].nbytes + payload["v_pool"].nbytes
+                  == n * LLAMA_1B_BLOCK_BYTES, "frame K/V bytes per block")
+            links.update(_chain_keys(payload["chain"]))
+            blocks += n
+            frame_bytes += len(c.frame)
+            export = timers["prefill"].ms[(c.ident, "kv/export")]
+            imp = timers["decode"].ms[(c.ident, "kv/import")]
+            handoff.append((export + (t2 - t1) * 1e3,
+                            (t1 - t0) * 1e3 + imp))
+        imported = delta("decode", "imported_blocks")
+        hit_tokens = delta("decode", "prefix_hit_tokens")
+        decode_steps = delta("decode", "decode_steps")
+        check(imported == len(links),
+              f"decode side imported {imported} blocks for {len(links)} "
+              f"distinct chain links shipped")
+        check(hit_tokens >= 16 * imported,
+              f"prefix_hit_tokens {hit_tokens} < 16 x {imported}")
+        check(delta("prefill", "decode_steps") == 0
+              and delta("prefill", "verify_steps") == 0,
+              "the prefill replica ran a decode step")
+        check(launches == decode_steps * config.n_layers,
+              f"K4 launched {launches} times for {decode_steps} decode "
+              f"steps x {config.n_layers} layers")
+        check(launches > 0, "K4 never ran on the decode side")
+        # Each stream against serve_llama's stream of the same request.
+        wparams = decode._engine._work_params
+        ties = [_near_tie(f"serve_disagg request {i}", llama, config,
+                          wparams, prompt, want, c.tokens,
+                          k.get("temperature", 0.0), k.get("seed"))
+                for i, ((prompt, k), want, c) in enumerate(
+                    zip(reqs, SERVE_LLAMA["streams"], clients))]
+    finally:
+        for d in replicas.values():
+            d._engine.shutdown()
+    del prefill, decode, replicas, params, wparams
+    torch.cuda.empty_cache()
+    report["paged_decode_attention"]["llama_1b"]["serve_disagg"] = dict(
+        launches=launches)
+    generated = sum(len(c.tokens) for c in clients)
+    ttfts = sorted(c.ttft for c in clients)
+    ttfts_decode = sorted(c.ttft_decode for c in clients)
+    emit("serve_disagg", config="llama-1b", requests=len(clients),
+         generated_tokens=generated, wall_s=wall,
+         frames=len(handoff), frame_blocks=blocks, frame_bytes=frame_bytes,
+         frame_bytes_per_block=frame_bytes / blocks,
+         kv_bytes_per_block=LLAMA_1B_BLOCK_BYTES,
+         distinct_links=len(links), imported_blocks=imported,
+         prefix_hit_tokens=hit_tokens,
+         export_encode_ms=_ms_stats([h[0] for h in handoff]),
+         decode_import_ms=_ms_stats([h[1] for h in handoff]),
+         prefill_hop_ms=_ms_stats([c.prefill_hop * 1e3 for c in clients]),
+         ttft_p50_ms=statistics.median(ttfts) * 1e3,
+         ttft_max_ms=ttfts[-1] * 1e3,
+         ttft_decode_hop_p50_ms=statistics.median(ttfts_decode) * 1e3,
+         ttft_decode_hop_max_ms=ttfts_decode[-1] * 1e3,
+         decode_tokens_per_s=(generated - len(clients))
+         / delta("decode", "decode_seconds"),
+         decode_steps=decode_steps,
+         decode_step_ms=delta("decode", "decode_seconds") / decode_steps
+         * 1e3,
+         **{f"{role}_side_{key}": value for role in ("prefill", "decode")
+            for key, value in (
+                ("prefill_steps", delta(role, "prefill_steps")),
+                ("prefill_step_ms", delta(role, "prefill_seconds")
+                 / delta(role, "prefill_steps") * 1e3))},
+         decode_kernel_launches=launches,
+         serve_llama={k: v for k, v in SERVE_LLAMA.items()
+                      if k != "streams"},
+         diverged=[t["diverged_at"] for t in ties],
+         near_ties=[t for t in ties if t["diverged_at"] is not None])
+
+
+def phase_disagg_parity() -> None:
+    """f32 on the card: gpt2-small and llama-1b widths at 2 layers.  Each
+    request is prefilled by a PrefillLLMDeployment (a v1 frame) and
+    decoded from the frame by a fresh DecodeLLMDeployment; greedy and
+    seeded T 0.8 must be token-exact against a monolithic LLMDeployment,
+    and a second import of a frame installs nothing.  Then a bf16 pool's
+    v2 frame, installed and exported again, gives the same bits."""
+    from ray_tpu_torch.models import gpt, llama
+    from ray_tpu_torch.serve import (DecodeLLMDeployment, KVBlockCodec,
+                                     LLMDeployment, PrefillLLMDeployment)
+
+    _f32_exact()
+    kw = dict(max_lanes=4, block_size=16, max_seq_len=256)
+    models = (
+        ("gpt2-small float32", "gpt",
+         dataclasses.replace(gpt.CONFIGS["gpt2-small"], dtype=torch.float32),
+         gpt),
+        ("llama-1b widths, 2 layers, float32", "llama",
+         dataclasses.replace(llama.CONFIGS["llama-1b"], n_layers=2,
+                             dtype=torch.float32), llama))
+    for label, family, config, module in models:
+        params = module.init_params(config, torch.Generator().manual_seed(7),
+                                    device="cpu")
+        vocab = config.vocab_size
+        reqs = [([(29 * i + 13 * j + 5) % vocab for j in range(n)],
+                 dict(max_new_tokens=16, **(dict(temperature=0.8, seed=600 + i)
+                                            if i % 2 else {})))
+                for i, n in enumerate((40, 57, 70, 33))]
+        replicas = [cls(family, config, params, **kw) for cls in (
+            PrefillLLMDeployment, DecodeLLMDeployment, LLMDeployment)]
+        pre, dec, mono = replicas
+        try:
+            same, blocks = [], 0
+            for prompt, rkw in reqs:
+                frame = pre.prefill(prompt, seed=rkw.get("seed"))
+                payload = KVBlockCodec.decode(frame)
+                check(payload["v"] == 1 and payload["k"].dtype.name
+                      == "float32", f"{label}: not a v1 float32 frame")
+                n0 = dec.stats()["imported_blocks"]
+                got = dec(prompt, kv_handoff=frame, **rkw)
+                check(dec.stats()["imported_blocks"] - n0
+                      == len(payload["chain"]), f"{label}: import count")
+                check(dec._engine.import_prefix(payload) == 0,
+                      f"{label}: a second import installed blocks")
+                same.append(got == mono(prompt, **rkw))
+                blocks += len(payload["chain"])
+        finally:
+            for r in replicas:
+                r._engine.shutdown()
+        emit("disagg_parity", config=label, requests=len(reqs),
+             imported_blocks=blocks, tokens_equal=same)
+        check(all(same), f"{label}: disaggregated and monolithic tokens "
+                         f"differ")
+        del replicas, pre, dec, mono, params
+
+    bconfig = dataclasses.replace(llama.CONFIGS["llama-1b"], n_layers=2)
+    params = llama.init_params(bconfig, torch.Generator().manual_seed(7),
+                               device="cpu")
+    prompt = [(31 * j + 2) % bconfig.vocab_size for j in range(70)]
+    pre = PrefillLLMDeployment("llama", bconfig, params, **kw)
+    dec = DecodeLLMDeployment("llama", bconfig, params, **kw)
+    try:
+        frame = pre.prefill(prompt)
+        payload = KVBlockCodec.decode(frame)
+        check(payload["v"] == 2 and payload["k"].dtype.name == "uint16",
+              "bf16 pool: not a v2 frame of uint16 bits")
+        check(dec._engine.import_prefix(payload) == len(payload["chain"]),
+              "bf16 pool: import count")
+        again = dec._engine.export_prefix(prompt)
+        exact = all(bool((again[n] == payload[n]).all())
+                    for n in ("k", "v_pool"))
+    finally:
+        pre._engine.shutdown()
+        dec._engine.shutdown()
+    emit("disagg_parity_bf16", config="llama-1b widths, 2 layers, bf16",
+         frame_bytes=len(frame), blocks=len(payload["chain"]),
+         bit_exact=exact)
+    check(exact, "bf16 frame round trip is not bit-exact on the card")
+    del pre, dec, params
+    torch.cuda.empty_cache()
+
+
+def phase_kv_tier(report: dict) -> None:
+    """llama-1b bf16 with kv_tier=True, 8 lanes, a pool of 1.5x one
+    round's worst case and 16 host blocks (so the overflow reaches the
+    spill files): three rounds of 8 distinct 160-token prompts, then
+    round one again.  Blocks spill and restore; the restored chains hold
+    the bits exported before their eviction; the repeat's streams equal a
+    tier-less engine's or part at a near-tie; K4 ran 22 times per decode
+    step.  Times each spill (the device -> host copy inside `alloc`) and
+    each restoring admission."""
+    import tempfile
+
+    import numpy as np
+
+    from ray_tpu_torch.inference import InferenceEngine
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import attention as A
+
+    config = llama.CONFIGS["llama-1b"]
+    params = _llama_1b_params()
+    lanes, plen, new, bs = 8, 160, 16, 16
+    rng = np.random.default_rng(5)
+    rounds = [[(rng.integers(0, config.vocab_size, plen).tolist(),
+                dict(max_new_tokens=new, **(dict(temperature=0.8,
+                                                 seed=700 + 10 * r + i)
+                                            if i % 2 else {})))
+               for i in range(lanes)] for r in range(3)]
+    num_blocks = lanes * -(-(plen + new) // bs) * 3 // 2
+    kw = dict(device="cuda", max_lanes=lanes, block_size=bs, seed=1234,
+              auto_start=False)
+    with tempfile.TemporaryDirectory() as spill_dir:
+        eng = InferenceEngine("llama", config, params, num_blocks=num_blocks,
+                              kv_tier=True, kv_tier_host_blocks=16,
+                              spill_dir=spill_dir, **kw)
+        cache = eng.cache
+        spill_s, restore_s = [], []
+        evict, adopt = cache.allocator.on_evict, cache.adopt_prefix
+
+        def timed_evict(block):
+            t0 = time.perf_counter()
+            evict(block)
+            spill_s.append(time.perf_counter() - t0)
+
+        def timed_adopt(lane, tokens):
+            n0, t0 = cache.stats["restored_blocks"], time.perf_counter()
+            out = adopt(lane, tokens)
+            torch.cuda.synchronize()
+            if cache.stats["restored_blocks"] > n0:
+                restore_s.append(time.perf_counter() - t0)
+            return out
+
+        cache.allocator.on_evict, cache.adopt_prefix = timed_evict, timed_adopt
+        A.paged_decode_attention.launches = 0
+        steps0 = eng.stats()["decode_steps"]
+        streams = [[h.tokens(timeout=60) for h in _drain(eng, rounds[0])]]
+        snapshot = [eng.export_prefix(p) for p, _ in rounds[0]]
+        for r in rounds[1:]:
+            streams.append([h.tokens(timeout=60) for h in _drain(eng, r)])
+        repeat = [h.tokens(timeout=60) for h in _drain(eng, rounds[0])]
+        restored = [eng.export_prefix(p) for p, _ in rounds[0]]
+        st = eng.stats()
+        launches = A.paged_decode_attention.launches
+        spill_files = len(os.listdir(spill_dir))
+        eng.shutdown()
+        del eng, cache
+    exact = all(a["chain"] == b["chain"] and all(
+        bool((a[n] == b[n]).all()) for n in ("k", "v_pool"))
+        for a, b in zip(snapshot, restored))
+    check(exact, "restored blocks differ from their contents before "
+                 "eviction")
+    check(launches == (st["decode_steps"] - steps0) * config.n_layers,
+          f"K4 launched {launches} times for {st['decode_steps'] - steps0} "
+          f"decode steps")
+    check(st["kv_tier_spilled_blocks"] > 0 and st["restored_blocks"] > 0
+          and st["kv_tier_dropped_blocks"] >= 0, f"tier counters {st}")
+    plain = InferenceEngine("llama", config, params, **kw)
+    want = [h.tokens(timeout=60) for h in _drain(plain, rounds[0])]
+    wparams = plain._work_params
+    ties = [_near_tie(f"kv_tier request {i}", llama, config, wparams,
+                      prompt, w, g, k.get("temperature", 0.0), k.get("seed"))
+            for i, ((prompt, k), w, g) in enumerate(zip(rounds[0], want,
+                                                        repeat))]
+    del plain, wparams, params
+    torch.cuda.empty_cache()
+    emit("kv_tier", config="llama-1b", lanes=lanes, num_blocks=num_blocks,
+         host_blocks=16, prompt_tokens=plen, rounds=len(rounds) + 1,
+         spilled_blocks=st["kv_tier_spilled_blocks"],
+         restored_blocks=st["restored_blocks"],
+         tier_restored_blocks=st["kv_tier_restored_blocks"],
+         dropped_blocks=st["kv_tier_dropped_blocks"],
+         blocks_evicted=st["blocks_evicted"], spill_files_left=spill_files,
+         spill_ms_per_block=sum(spill_s) / len(spill_s) * 1e3,
+         restore_ms_per_block=sum(restore_s) * 1e3 / st["restored_blocks"],
+         restoring_admissions=len(restore_s), restored_bit_exact=exact,
+         repeat_equals_round_one=repeat == streams[0],
+         diverged=[t["diverged_at"] for t in ties],
+         decode_kernel_launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1398,7 +1851,10 @@ def main() -> int:
               ("serve_spec", phase_serve_spec),
               ("spec_parity", lambda _: phase_spec_parity()),
               ("spec_model_draft", phase_spec_model_draft),
-              ("logp", lambda _: phase_logp()))
+              ("logp", lambda _: phase_logp()),
+              ("serve_disagg", phase_serve_disagg),
+              ("disagg_parity", lambda _: phase_disagg_parity()),
+              ("kv_tier", phase_kv_tier))
     for name, phase in phases:
         t0 = time.perf_counter()
         phase(report)

@@ -14,7 +14,11 @@ families, and the single-query paged-decode attention kernel (GQA
 included); and the single-device training path of both families: the
 training forward and loss, flash attention forward and backward
 kernels, the fused chunked cross-entropy and AdamW
-(`models.gpt.make_train_step`, `models.llama.make_train_step`).
+(`models.gpt.make_train_step`, `models.llama.make_train_step`).  On the
+serving side also speculative decoding, behaviour log-probs, the KV
+spill tier, prefix export and import with their frame codec, and the
+serve deployments (`ray_tpu_torch.serve`: plain classes that a caller
+binds with the reference's serve plane).
 
 Every entry point takes `device=None`, which means CUDA; without a card
 it raises unless the caller passes `device="cpu"`.

@@ -40,10 +40,19 @@ fan-out are Python; the model math is one plain Python step function
 per dispatched population (there is no jit), and it writes the new K/V
 into the cache's pools IN PLACE (`index_copy_` in paged_kv_update).
 
-Not ported yet: the KV spill tier (`kv_tier=True`) with prefill-only
-requests and prefix export/import (the disaggregated-serving slice), and
-the metrics/events/spans hooks; `stats()` reports the engine's own
-counters.
+Disaggregated serving: `prefill()` runs a prefill-only request (its
+blocks sealed, no token sampled or streamed), `export_prefix` snapshots
+the sealed chain for a decode engine, whose `import_prefix` installs it;
+`kv_tier=True` spills evicted sealed blocks to host memory, then an
+injected store or disk, and restores them on a prefix hit.  A step's
+K/V writes land in place while the lock is released, so a lane that
+finishes mid-step (cancel, deadline) frees its blocks only once that
+step is done: an import may then allocate them without racing the
+step's writes.
+
+Observability goes through an injected `Observer` (util/observe.py)
+with the reference's metric names and (plane, kind) pairs; the port
+imports nothing of `ray_tpu.util`.
 """
 
 from __future__ import annotations
@@ -64,6 +73,7 @@ from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.inference import sampling
 from ray_tpu_torch.inference.kv_cache import PagedKVCache
 from ray_tpu_torch.inference.speculative import resolve_draft_proposer
+from ray_tpu_torch.util.observe import NOOP, Observer
 
 _DONE = object()
 
@@ -82,6 +92,15 @@ class _Request:
     # fold_in(seed, OVERALL position) to stay seed-consistent.
     sample_offset: int = 0
     deadline: Optional[float] = None   # monotonic; lane evicted past it
+    # Observer bookkeeping: the trace context is captured at submit()
+    # time because every later hop (scheduler thread, _commit) runs
+    # outside the submitter's context.
+    trace: Optional[tuple] = None
+    submitted: float = 0.0             # wall time of submit()
+    last_emit: float = 0.0             # wall time of the previous token
+    # Open span for TRACED requests only: prefill (submit -> first
+    # token) until produced == 1, then the current inter-token span.
+    span_tok: object = None
     fed: int = 0            # prompt tokens in the cache (prefilled OR reused)
     produced: int = 0
     last_token: int = 0
@@ -94,6 +113,10 @@ class _Request:
     # Per-token behaviour log-probs (capture_logp engines only), parallel
     # to `emitted`.
     logps: List[float] = field(default_factory=list)
+    # Disaggregated prefill: run chunked prefill + seal the prompt's
+    # blocks, then finish WITHOUT sampling — the sealed chain is the
+    # product (export_prefix ships it to a decode engine).
+    prefill_only: bool = False
 
     @property
     def prefilling(self) -> bool:
@@ -191,6 +214,13 @@ class InferenceEngine:
     draft length off when its acceptance is low (and grows it back on
     full acceptance).  `capture_logp=True` records each committed
     token's behaviour log-prob (`GenerationHandle.logps`).
+
+    `kv_tier=True` (off when None, as in the reference config) attaches
+    a spill tier of `kv_tier_host_blocks` host blocks and
+    `kv_tier_store_blocks` store blocks: the store is `kv_store`, a
+    `(put, get)` pair over bytes, or files under `spill_dir` without one.
+    `observer` (util/observe.Observer) receives the reference's metrics,
+    events and spans; None records nothing.
     """
 
     def __init__(self, model="gpt", config="nano", params=None, *,
@@ -201,12 +231,13 @@ class InferenceEngine:
                  prefix_cache: bool = True, auto_start: bool = True,
                  spec_k: int = 0, draft_proposer="ngram",
                  spec_adaptive: bool = True, kv_tier: Optional[bool] = None,
-                 capture_logp: bool = False, device: DeviceLike = None):
-        if kv_tier:
-            raise NotImplementedError(
-                "kv_tier=True is not ported yet: it comes with the "
-                "disaggregated-serving slice")
+                 kv_tier_host_blocks: int = 256,
+                 kv_tier_store_blocks: int = 1024,
+                 spill_dir: Optional[str] = None, kv_store=None,
+                 capture_logp: bool = False, device: DeviceLike = None,
+                 observer: Optional[Observer] = None):
         self.device = resolve_device(device)
+        self._obs = observer or NOOP
         self.model = models.family(model)
         self.config = (self.model.CONFIGS[config] if isinstance(config, str)
                        else config)
@@ -226,6 +257,13 @@ class InferenceEngine:
             block_size=block_size, max_lanes=max_lanes,
             max_seq_len=max_seq_len, prefix_cache=prefix_cache,
             device=self.device)
+        if kv_tier and prefix_cache:
+            # Runtime import: the tier lives with the serving package,
+            # whose deployments import this module.
+            from ray_tpu_torch.serve.kv_tier.tier import KVTierCache
+            self.cache.attach_tier(KVTierCache(
+                kv_tier_host_blocks, kv_tier_store_blocks,
+                spill_dir=spill_dir, store=kv_store, observer=self._obs))
         self.spec_k = int(spec_k)
         self._spec_adaptive = bool(spec_adaptive)
         self._proposer = (resolve_draft_proposer(draft_proposer)
@@ -240,6 +278,12 @@ class InferenceEngine:
         self._steps = {"decode_steps": 0, "decode_seconds": 0.0,
                        "verify_steps": 0, "verify_seconds": 0.0,
                        "prefill_steps": 0, "prefill_seconds": 0.0}
+        self._evictions_reported = 0
+        # Lanes of the dispatch in flight, and those of them finished
+        # (cancel, deadline) while it ran: their blocks are freed when
+        # the step commits, after its last write into them.
+        self._stepping: set = set()
+        self._free_after_step: List[int] = []
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
         self._thread: Optional[threading.Thread] = None
@@ -258,7 +302,8 @@ class InferenceEngine:
     def submit(self, prompt, max_new_tokens: int = 16, *,
                temperature: float = 0.0, eos_id: Optional[int] = None,
                seed: Optional[int] = None, sample_offset: int = 0,
-               deadline_s: Optional[float] = None) -> GenerationHandle:
+               deadline_s: Optional[float] = None,
+               prefill_only: bool = False) -> GenerationHandle:
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
@@ -281,7 +326,15 @@ class InferenceEngine:
                        sample_offset=int(sample_offset),
                        deadline=(None if deadline_s is None
                                  else time.monotonic() + deadline_s),
-                       spec_k=self.spec_k)
+                       trace=self._obs.context(), submitted=time.time(),
+                       spec_k=self.spec_k, prefill_only=prefill_only)
+        self._obs.record("engine", "submit", trace=req.trace, rid=rid,
+                         prompt_len=len(prompt), max_new=max_new_tokens)
+        if req.trace is not None:
+            # Prefill span: submit -> first emitted token (TTFT, queue
+            # wait included); _commit swaps it for per-token spans.
+            req.span_tok = self._obs.begin("engine", "prefill", ctx=req.trace,
+                                           rid=rid, prompt_len=len(prompt))
         with self._work:
             if self._stopped:
                 raise RuntimeError("engine is shut down")
@@ -311,8 +364,56 @@ class InferenceEngine:
             self._set_params(params)
             self.policy_version = (int(version) if version is not None
                                    else self.policy_version + 1)
+            self._obs.record("engine", "weights_swap",
+                             version=self.policy_version,
+                             live_lanes=self.num_active)
             self._work.notify()
             return self.policy_version
+
+    # -------- disaggregated prefill/decode (serve/kv_tier) --------
+
+    def prefill(self, prompt, *, seed: Optional[int] = None,
+                deadline_s: Optional[float] = None) -> GenerationHandle:
+        """Run chunked prefill for `prompt` and seal its KV blocks into
+        the prefix index WITHOUT sampling a token (finish_reason
+        "prefill").  The handle drains empty; the product is the sealed
+        chain, which `export_prefix` snapshots for a decode engine."""
+        h = self.submit(prompt, 1, seed=seed, deadline_s=deadline_s,
+                        prefill_only=True)
+        if not self._auto:
+            while self.step():
+                pass
+        return h
+
+    def export_prefix(self, tokens) -> Optional[dict]:
+        """Snapshot the longest device-cached chain covering `tokens`
+        (see PagedKVCache.export_prefix) under the engine lock, so the
+        scheduler can't reshuffle blocks mid-gather."""
+        tokens = [int(t) for t in tokens]
+        with self._lock:
+            tok = self._obs.begin("kv", "export", tokens=len(tokens))
+            try:
+                return self.cache.export_prefix(tokens)
+            finally:
+                self._obs.end(tok)
+
+    def import_prefix(self, payload: dict) -> int:
+        """Adopt a foreign sealed chain (the prefill→decode handoff)
+        under the engine lock; returns blocks installed.  Idempotent —
+        see PagedKVCache.install_prefix."""
+        with self._lock:
+            tok = self._obs.begin("kv", "import")
+            try:
+                return self.cache.install_prefix(payload)
+            finally:
+                self._obs.end(tok)
+
+    def prefix_summary(self, limit: Optional[int] = None) -> dict:
+        """Routing summary of this engine's cached chains (device index
+        + spill tier), bounded by `limit` (256 when None, the reference
+        config's `serve_prefix_summary_size`)."""
+        with self._lock:
+            return self.cache.prefix_summary(256 if limit is None else limit)
 
     def cancel(self, req: _Request) -> bool:
         """Abort one request: dequeue it if still waiting, or evict its
@@ -325,23 +426,32 @@ class InferenceEngine:
             except ValueError:
                 pass
             else:
-                self._finish(None, req, "cancelled")
+                self._finish(None, req, "cancelled", ok=False)
                 return True
             for lane, r in enumerate(self._lanes):
                 if r is req:
-                    self._finish(lane, req, "cancelled")
+                    self._finish(lane, req, "cancelled", ok=False)
+                    self._obs.record("engine", "lane_evict", trace=req.trace,
+                                     rid=req.rid, lane=lane,
+                                     reason="cancelled")
                     return True
         return False
 
-    def _finish(self, lane: Optional[int], req: _Request,
-                reason: str) -> None:
-        """End a request's stream and free its lane (caller holds the
-        lock)."""
+    def _finish(self, lane: Optional[int], req: _Request, reason: str,
+                **span_end) -> None:
+        """End a request's stream, close its open span with `span_end`
+        and free its lane — once the step in flight, if it runs this
+        lane, has committed (caller holds the lock)."""
         req.finish_reason = reason
         req.out.put(_DONE)
+        self._obs.end(req.span_tok, **span_end)
+        req.span_tok = None
         if lane is not None:
-            self.cache.free_lane(lane)
             self._lanes[lane] = None
+            if lane in self._stepping:
+                self._free_after_step.append(lane)
+            else:
+                self.cache.free_lane(lane)
 
     def _expire_deadlines(self) -> None:
         """Evict every lane (and drop every queued request) whose
@@ -350,11 +460,16 @@ class InferenceEngine:
         for lane, req in enumerate(self._lanes):
             if req is not None and req.deadline is not None \
                     and now > req.deadline:
-                self._finish(lane, req, "deadline")
+                self._finish(lane, req, "deadline", ok=False)
+                self._obs.record("engine", "deadline_kill", trace=req.trace,
+                                 rid=req.rid, lane=lane,
+                                 produced=req.produced)
         for req in [r for r in self._waiting
                     if r.deadline is not None and now > r.deadline]:
             self._waiting.remove(req)
-            self._finish(None, req, "deadline")
+            self._finish(None, req, "deadline", ok=False)
+            self._obs.record("engine", "deadline_kill", trace=req.trace,
+                             rid=req.rid, lane=None, produced=0)
 
     def shutdown(self) -> None:
         with self._work:
@@ -397,6 +512,10 @@ class InferenceEngine:
             "prefix_hit_tokens": cs["hit_tokens"],
             "prefix_miss_tokens": cs["miss_tokens"],
             "blocks_evicted": self.cache.allocator.evictions,
+            "imported_blocks": cs["imported_blocks"],
+            "restored_blocks": cs["restored_blocks"],
+            **(self.cache.tier.counters if self.cache.tier is not None
+               else {}),
             "policy_version": self.policy_version,
             "spec_k": self.spec_k,
             "spec_drafted_tokens": st["drafted"],
@@ -452,6 +571,7 @@ class InferenceEngine:
         block-level: a request enters only when its worst-case final
         length fits alongside every live lane's worst case, counting
         cached prefix blocks as references, not allocations."""
+        obs = self._obs
         for lane in range(self.max_lanes):
             if self._lanes[lane] is not None or not self._waiting:
                 continue
@@ -462,9 +582,24 @@ class InferenceEngine:
                     req.prompt,
                     headroom_blocks=self._growth_reserve() + growth):
                 break  # FIFO: don't starve the head with later requests
-            req.fed = self.cache.adopt_prefix(lane, req.prompt)
+            reused = self.cache.adopt_prefix(lane, req.prompt)
             self._waiting.popleft()
+            req.fed = reused
             self._lanes[lane] = req
+            obs.inc("inference_prefix_hit_tokens", reused)
+            obs.inc("inference_prefix_miss_tokens", len(req.prompt) - reused)
+            obs.inc("inference_prefix_hits" if reused
+                    else "inference_prefix_misses")
+            obs.record("engine", "prefix_hit" if reused else "prefix_miss",
+                       trace=req.trace, rid=req.rid, lane=lane,
+                       reused_tokens=reused, prompt_len=len(req.prompt))
+        obs.set("inference_waiting_requests", len(self._waiting))
+        evictions = self.cache.allocator.evictions
+        if evictions > self._evictions_reported:
+            n = evictions - self._evictions_reported
+            obs.inc("inference_kv_blocks_evicted", n)
+            obs.record("engine", "blocks_evicted", n=n)
+            self._evictions_reported = evictions
 
     def _propose(self, lane: int, req: _Request) -> tuple:
         """Draft for one decode lane: ask the proposer for up to the
@@ -502,14 +637,18 @@ class InferenceEngine:
                     if r is not None]
             if not live:
                 return False
+            obs = self._obs
             plans = []
             decode = [(i, r) for i, r in live if not r.prefilling]
             if decode:
                 spec = False
                 if self._proposer is not None:
+                    dtok = obs.begin("engine", "spec_draft")
                     for lane, req in decode:
                         req.draft = self._propose(lane, req)
                     spec = any(r.draft for _, r in decode)
+                    obs.end(dtok, lanes=len(decode),
+                            drafted=sum(len(r.draft) for _, r in decode))
                 t = 1 + max(len(r.draft) for _, r in decode) if spec else 1
                 plans.append(("verify" if spec else "decode", decode,
                               self._build_batch(decode, t)))
@@ -518,21 +657,34 @@ class InferenceEngine:
                 plans.append(("prefill", prefill,
                               self._build_batch(prefill,
                                                 self.prefill_chunk)))
+            obs.record("engine", "step", decode=len(decode),
+                       prefill=len(prefill), waiting=len(self._waiting))
             params = self._work_params
+            self._stepping = {lane for lane, _ in live}
         done = []
         for kind, lanes, (batch, chunks) in plans:
             t0 = time.perf_counter()
+            vtok = obs.begin("engine", "spec_verify") if kind == "verify" \
+                else None
             toks, lps = self._run_step(params, *batch,
                                        spec=kind == "verify")
             toks = toks.cpu().numpy().reshape(self.max_lanes, -1)
             if lps is not None:
                 lps = lps.cpu().numpy().reshape(self.max_lanes, -1)
+            obs.end(vtok, lanes=len(lanes))
             self._steps[f"{kind}_steps"] += 1
             self._steps[f"{kind}_seconds"] += time.perf_counter() - t0
             if kind == "verify":
                 self._spec_stats["steps"] += 1
+                obs.inc("inference_spec_steps")
             done.append((lanes, chunks, toks, lps))
         with self._work:
+            # The step's writes are done (its tokens came back to the
+            # host): lanes finished meanwhile may give up their blocks.
+            self._stepping = set()
+            for lane in self._free_after_step:
+                self.cache.free_lane(lane)
+            self._free_after_step = []
             for lanes, chunks, toks, lps in done:
                 self._commit(lanes, chunks, toks, lps)
             self._work.notify()
@@ -619,6 +771,7 @@ class InferenceEngine:
         `toks` is [max_lanes, T]: T=1 rows for prefill/plain decode, the
         per-position verify samples for a speculative dispatch; `lps`
         (capture_logp) is position-parallel with it."""
+        obs = self._obs
         for lane, req in live:
             if self._lanes[lane] is not req:
                 continue  # shutdown()/cancel() cleared the lane mid-step
@@ -632,6 +785,16 @@ class InferenceEngine:
                 self.cache.seal_full_blocks(lane, req.prompt)
                 if req.prefilling:
                     continue  # more prompt to go; nothing sampled yet
+                if req.prefill_only:
+                    # Disaggregated prefill: the prompt's K/V is sealed
+                    # (it survives the lane free as evictable blocks); no
+                    # token is sampled or streamed and `produced` stays 0.
+                    # The sampled row is discarded — the decode engine
+                    # draws it with the same fold_in keys.
+                    self._finish(lane, req, "prefill", tokens=0)
+                    obs.record("engine", "finish", trace=req.trace,
+                               rid=req.rid, reason="prefill", produced=0)
+                    continue
                 burst = [int(row[0])]
                 accepted = 0
             else:
@@ -669,6 +832,16 @@ class InferenceEngine:
                         lane, int(self.cache.seq_lens[lane]))
                 self.cache.seal_full_blocks(
                     lane, req.prompt + req.emitted + emit)
+            # SLO latency accounting: the first emit is TTFT (queue wait
+            # and prefill included); a later burst of m tokens closes m
+            # TBT gaps of the mean inter-token time this step achieved.
+            now = time.time()
+            if req.produced == 0:
+                obs.observe("inference_ttft_s", now - req.submitted)
+            elif req.last_emit:
+                for _ in range(m):
+                    obs.observe("inference_tbt_s", (now - req.last_emit) / m)
+            req.last_emit = now
             req.last_token = emit[-1]
             req.emitted.extend(emit)
             if lps is not None:
@@ -677,9 +850,15 @@ class InferenceEngine:
             if self._proposer is not None and not was_prefill:
                 self._spec_stats["emitted"] += m
                 self._spec_stats["bursts"] += 1
+                obs.observe("inference_spec_tokens_per_step", m)
             if draft:
                 self._spec_stats["drafted"] += len(draft)
                 self._spec_stats["accepted"] += accepted
+                obs.inc("inference_spec_drafted_tokens", len(draft))
+                obs.inc("inference_spec_accepted_tokens", accepted)
+                obs.record("engine", "spec_accept", trace=req.trace,
+                           rid=req.rid, lane=lane, drafted=len(draft),
+                           accepted=accepted, emitted=m)
                 if self._spec_adaptive:
                     # Per-lane draft length: grow on full acceptance,
                     # halve on total rejection, otherwise track what
@@ -697,5 +876,16 @@ class InferenceEngine:
             if reason is None \
                     and int(self.cache.seq_lens[lane]) >= self.cache.max_seq_len:
                 reason = "max_seq_len"
+            if req.trace is not None:
+                # Close the span ending at this emit (prefill for the
+                # first token, the previous decode gap otherwise) and
+                # open the next decode span unless the request is done.
+                obs.end(req.span_tok, tokens=req.produced)
+                req.span_tok = (
+                    None if reason is not None else
+                    obs.begin("engine", "decode", ctx=req.trace,
+                              rid=req.rid, t=req.produced))
             if reason is not None:
                 self._finish(lane, req, reason)
+                obs.record("engine", "finish", trace=req.trace, rid=req.rid,
+                           reason=reason, produced=req.produced)

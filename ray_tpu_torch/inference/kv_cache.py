@@ -22,9 +22,16 @@ copy-on-write comes for free.  A finished sequence's sealed blocks stay
 in the index at refcount 0 on an LRU list and are evicted only when the
 allocator needs the space.
 
-Not ported yet: the spill tier and the export/install of prefixes
-(disaggregated serving).  `self.tier` stays None so that the chain walk
-reads as in the reference.
+With a spill tier attached (`attach_tier`, serve/kv_tier/tier.py) an
+evicted sealed block moves to host memory (then an injected store or
+disk) instead of being destroyed, and the match / adopt path restores it
+on a hit.  `export_prefix` / `install_prefix` ship a sealed chain from a
+prefill engine to a decode engine (disaggregated serving), and
+`prefix_summary` gives a router the chain hashes this cache can serve.
+Restore and install write, in place, only into blocks they have just
+allocated.  Host copies of a bf16 pool are its uint16 bits (numpy has no
+bf16), so spills and frames round-trip bit-exactly; a float32 pool's
+export is the reference's v1 payload.
 """
 
 from __future__ import annotations
@@ -40,6 +47,25 @@ from ray_tpu_torch._device import DeviceLike, resolve_device
 
 # Root of every hash chain (a block with no parent).
 _ROOT_HASH = 0
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A copy of pool contents on the host: a bf16 tensor as its uint16
+    bits (numpy has no bf16), anything else in its own dtype.  Never a
+    view of the pool, which later steps overwrite."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).to("cpu", copy=True).numpy().view(
+            np.uint16)
+    return t.to("cpu", copy=True).numpy()
+
+
+def _from_host(arr: np.ndarray, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    """The inverse of `_to_host`, on `device`."""
+    arr = np.ascontiguousarray(arr)
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(arr.view(np.int16)).view(dtype).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def chain_hashes(tokens: Sequence[int], block_size: int) -> List[int]:
@@ -182,8 +208,17 @@ class PagedKVCache:
         self._lane_sealed = [0] * max_lanes     # sealed block count per lane
         self._lane_parent = [_ROOT_HASH] * max_lanes   # chain hash cursor
         self.stats = {"hit_tokens": 0, "miss_tokens": 0, "hits": 0,
-                      "misses": 0, "sealed_blocks": 0}
+                      "misses": 0, "sealed_blocks": 0, "imported_blocks": 0,
+                      "restored_blocks": 0}
+        # Optional spill tier: evicted sealed blocks move here instead of
+        # being destroyed, and match / adopt restore them on a hit.
         self.tier = None
+
+    def attach_tier(self, tier) -> None:
+        """Attach a spill tier (duck-typed: contains/put/pop/discard/
+        summary_hashes/__len__).  Evictions start spilling immediately;
+        match/adopt start seeing spilled chains."""
+        self.tier = tier
 
     @classmethod
     def for_model(cls, model, config, **kw) -> "PagedKVCache":
@@ -236,8 +271,10 @@ class PagedKVCache:
 
     def _match_chain(self, tokens: Sequence[int]) -> List[Tuple]:
         """Longest cached chain covering a block-aligned prefix of
-        `tokens`: ("dev", key, block) per device-resident sealed block
-        (("tier", key, None) for a spilled one once a tier exists)."""
+        `tokens`, walking THROUGH the spill tier: ("dev", key, block) for
+        a device-resident sealed block, ("tier", key, None) for a spilled
+        one (restorable on adopt).  A device child behind a spilled
+        parent is reachable again: the chain is content-addressed."""
         if not self.prefix_cache_enabled:
             return []
         bs = self.block_size
@@ -257,10 +294,13 @@ class PagedKVCache:
 
     def can_admit_prefix(self, tokens: Sequence[int],
                          headroom_blocks: int = 0) -> bool:
-        """Admission check that accounts for reuse: matched blocks are
-        referenced (not allocated), but matched blocks currently parked
-        evictable stop counting as free capacity once taken."""
-        dev = self.match_prefix(tokens)
+        """Admission check that accounts for reuse: device-matched blocks
+        are referenced (not allocated), but matched blocks currently
+        parked evictable stop counting as free capacity once taken.
+        Spilled matches still cost an allocation (they restore into
+        fresh blocks), so they stay inside `need`."""
+        dev = [b for kind, _k, b in self._match_chain(tokens)
+               if kind == "dev"]
         need = (self.blocks_needed(len(tokens)) - len(dev)
                 + headroom_blocks)
         free_after = (self.allocator.num_free
@@ -269,28 +309,66 @@ class PagedKVCache:
 
     def adopt_prefix(self, lane: int, tokens: Sequence[int]) -> int:
         """Sequence start with prefix reuse: take shares of the longest
-        cached prefix chain, allocate fresh blocks for the rest of the
-        prompt, and report how many context tokens came from the cache
-        (the engine skips prefilling them)."""
+        cached prefix chain (restoring any spilled links from the tier),
+        allocate fresh blocks for the rest of the prompt, and report how
+        many context tokens came from the cache (the engine skips
+        prefilling them)."""
         if self._lane_blocks[lane]:
             raise ValueError(f"lane {lane} already allocated")
         if len(tokens) > self.max_seq_len:
             raise ValueError(f"prompt of {len(tokens)} exceeds max_seq_len "
                              f"{self.max_seq_len}")
-        cached = self.match_prefix(tokens)
-        # Take the shares FIRST so the fresh allocation below can never
-        # evict a block this very request is about to reuse.
-        for b in cached:
+        entries = self._match_chain(tokens)
+        # Pop spilled payloads out of the tier FIRST: once held here, the
+        # allocations below can spill other blocks into the tier without
+        # LRU pressure dropping the very chain being restored.  A pop that
+        # misses (aged out since the match) truncates the usable chain at
+        # the hole — later links have no K/V under them.
+        restores = []       # (key, (k_host, v_host)) in chain order
+        for pos, (kind, key, _b) in enumerate(entries):
+            if kind != "tier":
+                continue
+            payload = self.tier.pop(key)
+            if payload is None:
+                entries = entries[:pos]
+                break
+            restores.append((key, payload))
+        dev_blocks = [b for kind, _k, b in entries if kind == "dev"]
+        # Take the device shares FIRST so the fresh allocation below can
+        # never evict a block this very request is about to reuse.
+        for b in dev_blocks:
             self.allocator.incref(b)
         try:
             fresh = self.allocator.alloc(
-                self.blocks_needed(len(tokens)) - len(cached))
+                self.blocks_needed(len(tokens)) - len(dev_blocks))
         except RuntimeError:
-            for b in cached:
+            for b in dev_blocks:
                 self.allocator.decref(b)
+            for key, (k_host, v_host) in restores:
+                self.tier.put(key, k_host, v_host)      # undo the pops
             raise
+        # The lane's blocks in chain order: device hits keep their
+        # blocks, spilled hits take fresh ones (their contents are
+        # written in below), the prompt tail takes the rest.
+        fresh_iter = iter(fresh)
+        cached = [b if kind == "dev" else next(fresh_iter)
+                  for kind, _k, b in entries]
+        tail = list(fresh_iter)
+        if restores:
+            restored = [b for b, (kind, _k, _b) in zip(cached, entries)
+                        if kind == "tier"]
+            self._write_blocks(restored,
+                               np.stack([p[0] for _k, p in restores], 1),
+                               np.stack([p[1] for _k, p in restores], 1))
+            for nb, (key, _p) in zip(restored, restores):
+                # Restored blocks re-enter the device index (live now,
+                # evictable again once the lane lets go).
+                self._index[key] = nb
+                self._block_key[nb] = key
+                self.allocator.mark_cached(nb)
+                self.stats["restored_blocks"] += 1
         cached_len = len(cached) * self.block_size
-        self._install_lane(lane, cached + fresh, cached_len)
+        self._install_lane(lane, cached + tail, cached_len)
         if cached:
             # Rebuild the chain cursor at the sealed boundary so blocks
             # sealed later extend the same chain.
@@ -326,21 +404,156 @@ class PagedKVCache:
                 self._block_key[block] = key
                 self.allocator.mark_cached(block)
                 self.stats["sealed_blocks"] += 1
+                if self.tier is not None:
+                    # Re-sealed on device: the spilled copy is stale
+                    # freight now (content-addressed, so identical).
+                    self.tier.discard(key)
             self._lane_parent[lane] = hash(key)
             self._lane_sealed[lane] += 1
 
     def _on_evict(self, block: int) -> None:
-        """Allocator reclaimed a cached block: drop its index entry.
-        Children of the evicted chain node stay indexed but unreachable
-        until an identical parent is re-sealed — at which point they are
-        valid again by construction (content-addressed)."""
+        """Allocator reclaimed a cached block: drop its index entry —
+        spilling the content into the attached tier first, so the chain
+        link survives eviction in SPILLED state.  The copy to the host is
+        synchronous and happens inside `alloc`, before the block is handed
+        out, so no later write to the block can overtake it.  Without a
+        tier, children of the evicted chain node stay indexed but
+        unreachable until an identical parent is re-sealed — at which
+        point they are valid again by construction (content-addressed)."""
         key = self._block_key.pop(block, None)
         if key is not None and self._index.get(key) == block:
             del self._index[key]
+            if self.tier is not None:
+                self.tier.put(key, _to_host(self.k[:, block]),
+                              _to_host(self.v[:, block]))
 
     @property
     def num_indexed_blocks(self) -> int:
         return len(self._index)
+
+    def _write_blocks(self, blocks: List[int], k_host: np.ndarray,
+                      v_host: np.ndarray) -> None:
+        """Write host K/V [n_layers, len(blocks), ...] into pool blocks,
+        in place.  Callers pass only blocks they have just allocated,
+        which no live lane's step reads or writes."""
+        idx = torch.tensor(blocks, dtype=torch.int64, device=self.device)
+        for pool, arr in ((self.k, k_host), (self.v, v_host)):
+            pool.index_copy_(1, idx, _from_host(arr, pool.dtype, self.device))
+
+    # ---------------- disaggregated handoff / summaries ----------------
+
+    def export_prefix(self, tokens: Sequence[int]) -> Optional[dict]:
+        """Snapshot the longest DEVICE-cached chain covering a
+        block-aligned prefix of `tokens` as a codec payload: chain
+        token-blocks plus gathered K/V contents, enough for a foreign
+        cache to rebuild the same content-addressed links.  A float32
+        pool gives the reference's v1 payload; a bf16 pool a v2 payload
+        (`dtype` "bfloat16", K/V as uint16 bits).  None when nothing is
+        cached."""
+        entries = []
+        for kind, key, block in self._match_chain(tokens):
+            if kind != "dev":
+                break           # spilled links don't ship (restore is local)
+            entries.append((key, block))
+        if not entries:
+            return None
+        idx = torch.tensor([b for _k, b in entries], dtype=torch.int64,
+                           device=self.device)
+        payload = {
+            "v": 1,
+            "block_size": self.block_size,
+            "chain": [list(key[1]) for key, _b in entries],
+            "k": _to_host(self.k.index_select(1, idx)),
+            "v_pool": _to_host(self.v.index_select(1, idx)),
+        }
+        if self.k.dtype == torch.bfloat16:
+            payload = {"v": 2, "dtype": "bfloat16",
+                       **{n: payload[n] for n in ("block_size", "chain", "k",
+                                                  "v_pool")}}
+        return payload
+
+    def _frame_fits(self, payload: dict) -> bool:
+        """The payload's version, dtype and shapes are this pool's: a v2
+        payload of uint16 bits for a bf16 pool, a v1 payload of the pool's
+        own numpy dtype otherwise.  Stricter than the reference, whose
+        install checks shapes only and would cast another dtype."""
+        k_arr, v_arr = payload["k"], payload["v_pool"]
+        if self.k.dtype == torch.bfloat16:
+            ok = (payload.get("v") == 2 and payload.get("dtype") == "bfloat16"
+                  and k_arr.dtype == v_arr.dtype == np.uint16)
+        else:
+            want = torch.empty(0, dtype=self.k.dtype).numpy().dtype
+            ok = payload.get("v") == 1 and k_arr.dtype == v_arr.dtype == want
+        return (ok and payload.get("block_size") == self.block_size
+                and k_arr.shape == v_arr.shape
+                and k_arr.shape[0] == self.k.shape[0]
+                and tuple(k_arr.shape[2:]) == tuple(self.k.shape[2:]))
+
+    def install_prefix(self, payload: dict) -> int:
+        """Adopt foreign sealed blocks (the prefill→decode handoff): for
+        each shipped chain node not already present locally, allocate a
+        block, write the shipped K/V into it, and index it at refcount 0
+        (evictable) — a subsequent adopt_prefix on the same prompt then
+        takes shares exactly as if the blocks had been sealed here.
+        Content-addressed and idempotent: repeating the import after a
+        failover is a no-op for links already present.  A payload of
+        another version, dtype, block size or model shape installs
+        nothing.  Returns how many blocks were installed."""
+        if not self.prefix_cache_enabled or not payload:
+            return 0
+        if not self._frame_fits(payload):
+            return 0
+        parent = _ROOT_HASH
+        new = []                # (chain_pos, key, block)
+        for i, blk_tokens in enumerate(payload["chain"]):
+            key = (parent, tuple(int(t) for t in blk_tokens))
+            present = (key in self._index
+                       or (self.tier is not None
+                           and self.tier.contains(key)))
+            if not present:
+                try:
+                    # May evict LRU cached blocks (new prefix beats old)
+                    # but never steals live capacity: alloc raises only
+                    # when everything is referenced, and we stop there.
+                    (b,) = self.allocator.alloc(1)
+                except RuntimeError:
+                    break
+                new.append((i, key, b))
+            parent = hash(key)
+        if not new:
+            return 0
+        pos = np.asarray([i for i, _k, _b in new])
+        self._write_blocks([b for _i, _k, b in new], payload["k"][:, pos],
+                           payload["v_pool"][:, pos])
+        # Index + park evictable only AFTER every alloc: the blocks stay
+        # at refcount 1 through the loop above so a later alloc in the
+        # same import can never reclaim an earlier install.
+        for _i, key, b in new:
+            self._index[key] = b
+            self._block_key[b] = key
+            self.allocator.mark_cached(b)
+            self.allocator.decref(b)
+            self.stats["imported_blocks"] += 1
+        return len(new)
+
+    def prefix_summary(self, limit: int = 256) -> dict:
+        """Compact routing summary: the cumulative chain hashes of every
+        sealed block this cache can serve (device index + spill tier),
+        newest last, capped at `limit`.  A router holding the request's
+        own chain hashes scores this replica by deepest overlap without
+        ever shipping tokens."""
+        hashes = [hash(k) for k in self._block_key.values()]
+        if self.tier is not None:
+            hashes.extend(self.tier.summary_hashes())
+        # Order-preserving dedup; newest sealed blocks win the cap.
+        hashes = list(dict.fromkeys(hashes))[-max(int(limit), 1):]
+        return {
+            "v": 1,
+            "block_size": self.block_size,
+            "hashes": hashes,
+            "indexed_blocks": len(self._index),
+            "tier_blocks": 0 if self.tier is None else len(self.tier),
+        }
 
     # ---------------- lane growth / teardown ----------------
 

@@ -152,12 +152,20 @@ def test_engine_auto_start_streams_and_shuts_down():
         eng.submit([1])
 
 
-def test_unported_options_raise():
-    """The KV spill tier is the one engine option still to port; its
-    error names the slice it comes with."""
-    with pytest.raises(NotImplementedError,
-                       match="not ported.*disaggregated-serving slice"):
-        InferenceEngine("gpt", "nano", device="cpu", kv_tier=True)
+def test_unported_options_raise(tmp_path):
+    """No engine option raises any more: the KV spill tier, the last to
+    be ported, builds and spills.  Two 48-token prompts through a 4-block
+    pool evict the first one's sealed blocks into the tier's host level,
+    and its tier's overflow reaches the files under spill_dir."""
+    eng = InferenceEngine("gpt", "nano", device="cpu", kv_tier=True,
+                          num_blocks=4, block_size=16, max_lanes=1,
+                          kv_tier_host_blocks=1, spill_dir=str(tmp_path),
+                          auto_start=False)
+    eng.generate(list(range(1, 49)), 4)
+    eng.generate(list(range(100, 148)), 4)
+    st = eng.stats()
+    assert st["kv_tier_spilled_blocks"] >= 2 and st["blocks_evicted"] >= 2
+    assert list(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("kw", [dict(spec_k=2), dict(capture_logp=True)],
