@@ -849,14 +849,15 @@ LLAMA_1B_LOSSES = (10.888, 10.359, 10.130, 9.796, 9.691, 9.395, 9.594,
 LOSS_DRIFT = 0.02
 
 
-def _train(model, config, batch: int, seq: int, key) -> dict:
+def _train(model, config, batch: int, seq: int, key, after=None) -> dict:
     """TRAIN_WARMUP + TRAIN_STEPS AdamW(1e-4) steps of
     `model.make_train_step(config)` on one repeated batch of random
     tokens (seed 1), the flash kernels' counts set to 0 just before the
     timed steps and read just after.  `key` seeds the weights (a torch
     Generator draws them on its own device).  Checks the losses are
     finite and falling and that K1, K2 and K3 each ran once per layer
-    per timed step."""
+    per timed step.  `after(state, tokens)`, when given, runs once the
+    counts are read and adds its dict to the result."""
     from ray_tpu_torch.models._functional import adamw
     from ray_tpu_torch.ops import attention as A
 
@@ -888,6 +889,7 @@ def _train(model, config, batch: int, seq: int, key) -> dict:
     dt = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in kernels}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    extra = after(state, tokens) if after is not None else {}
     del state
 
     losses = [float(x) for x in losses]
@@ -904,7 +906,7 @@ def _train(model, config, batch: int, seq: int, key) -> dict:
                 step_ms=dt / TRAIN_STEPS * 1e3, tokens_per_s=tokens_per_s,
                 mfu=6 * n_params * tokens_per_s / PEAK_FLOPS[torch.bfloat16],
                 peak_memory_gib=peak, losses=losses,
-                kernel_launches=launches)
+                kernel_launches=launches, **extra)
 
 
 def _check_drift(label: str, losses, recorded) -> float:
@@ -1826,6 +1828,326 @@ def phase_kv_tier(report: dict) -> None:
          decode_kernel_launches=launches)
 
 
+# ------------------------------------------------------ training fabric
+
+MOE_EXPERTS = 8
+
+
+def _moe_probe(config):
+    """An `after` hook for `_train`: one forward of the trained state
+    with `gpt._moe_mlp` wrapped to keep each layer's aux and the share of
+    its tokens dropped at capacity."""
+    from ray_tpu_torch.models import gpt
+
+    def probe(state, tokens):
+        aux, dropped = [], []
+        original = gpt._moe_mlp
+
+        def record(x, router, w_up, w_down, c):
+            _, _, _, rank, cap = gpt._route(x.reshape(-1, x.shape[-1]),
+                                            router, c)
+            dropped.append(float((rank >= cap).float().mean()))
+            out, layer_aux = original(x, router, w_up, w_down, c)
+            aux.append(float(layer_aux))
+            return out, layer_aux
+
+        gpt._moe_mlp = record
+        try:
+            with torch.no_grad():
+                _, total = gpt.forward_trunk(state["params"], tokens, config)
+        finally:
+            gpt._moe_mlp = original
+        return dict(aux_per_layer=aux, aux_total=float(total),
+                    dropped_share_per_layer=dropped)
+
+    return probe
+
+
+def phase_train_moe(report: dict) -> None:
+    """gpt2-small's widths and depth with 8 Switch experts per layer
+    (the reference's GPTConfig takes any n_experts; its only preset is
+    nano-moe), bf16, 8 x 1024 random tokens, weights drawn on the card:
+    K1-K3 12 times per timed step, losses finite and falling, each
+    layer's load-balancing aux within [1, e]."""
+    from ray_tpu_torch.models import gpt
+
+    config = dataclasses.replace(gpt.CONFIGS["gpt2-small"],
+                                 n_experts=MOE_EXPERTS)
+    out = _train(gpt, config, 8, 1024,
+                 torch.Generator(device="cuda").manual_seed(0),
+                 after=_moe_probe(config))
+    aux = out["aux_per_layer"]
+    check(len(aux) == config.n_layers and
+          all(1.0 <= a <= MOE_EXPERTS for a in aux),
+          f"train_moe: per-layer aux {aux} outside [1, {MOE_EXPERTS}]")
+    check(abs(sum(aux) - out["aux_total"]) <= 1e-3 * out["aux_total"],
+          f"train_moe: aux total {out['aux_total']} != sum {sum(aux)}")
+    for name, n in out["kernel_launches"].items():
+        report[name]["train_moe"] = dict(launches=n)
+    emit("train_moe", config=f"gpt2-small, n_experts={MOE_EXPERTS}",
+         moe_train_tokens_per_sec_per_chip=out.pop("tokens_per_s"), **out)
+
+
+def phase_moe_parity() -> None:
+    """gpt2-small widths at 2 layers with 8 experts in f32 (TF32 off),
+    batch 2 x 256: the aux on the card and on the CPU within
+    GRAD_TOLERANCE, then one train step each from the same weights: the
+    losses and every gradient agree as train_parity's do."""
+    from ray_tpu_torch.models import gpt
+
+    _f32_exact()
+    config = dataclasses.replace(gpt.CONFIGS["gpt2-small"], n_layers=2,
+                                 dtype=torch.float32, n_experts=MOE_EXPERTS)
+    params = gpt.init_params(config, torch.Generator().manual_seed(5),
+                             device="cpu")
+    tokens = torch.randint(0, config.vocab_size, (2, 256),
+                           generator=torch.Generator().manual_seed(6))
+    aux = {}
+    with torch.no_grad():
+        for device in ("cuda", "cpu"):
+            aux[device] = float(gpt.forward_trunk(
+                gpt._map(params, lambda t: t.to(device)), tokens.to(device),
+                config)[1])
+    rel = abs(aux["cuda"] - aux["cpu"]) / abs(aux["cpu"])
+    label = f"gpt2-small widths, 2 layers, {MOE_EXPERTS} experts, float32"
+    emit("moe_parity_aux", config=label, aux_cuda=aux["cuda"],
+         aux_cpu=aux["cpu"], aux_rel_err=rel, tolerance=GRAD_TOLERANCE)
+    check(rel <= GRAD_TOLERANCE, f"moe aux CUDA {aux['cuda']} vs CPU "
+                                 f"{aux['cpu']}")
+    _train_parity("moe_parity", gpt, config, params, tokens, label)
+
+
+FABRIC_STEPS, FABRIC_SAVE_EVERY, FABRIC_BATCH, FABRIC_BLOCK = 10, 4, 24, 12
+
+
+def _fabric_blocks(vocab: int, first_batch: int = 0):
+    """Distinct blocks of FABRIC_BLOCK x 1024 random tokens, block i drawn
+    from seed 100 + i by numpy when the feed's producer thread pulls it;
+    two blocks make a batch."""
+    import numpy as np
+
+    per = FABRIC_BATCH // FABRIC_BLOCK
+    for i in range(first_batch * per, FABRIC_STEPS * per):
+        rng = np.random.default_rng(100 + i)
+        yield {"tokens": rng.integers(0, vocab, (FABRIC_BLOCK, 1024),
+                                      dtype=np.int32)}
+
+
+class _OneWorker:
+    """The worker-group contract of CudaBackend, for this process alone
+    (chip_smoke imports no runtime)."""
+
+    def __init__(self):
+        import types
+
+        self.workers = [types.SimpleNamespace(pid=os.getpid())]
+
+    def execute(self, fn, *args):
+        return [fn(*args)]
+
+    def execute_single(self, rank, fn, *args):
+        return fn(*args)
+
+    def local_ranks(self):
+        return [(0, 1)]
+
+
+def _ckpt_timer():
+    """An Observer keeping each save's stage span (ms) and the time from
+    its end to the commit on the writer thread (ms)."""
+    from ray_tpu_torch.util.observe import Observer
+
+    class CkptTimer(Observer):
+        def __init__(self):
+            self.stage_ms, self.write_ms, self.staged_at = [], [], None
+
+        def begin(self, plane, kind, **fields):
+            return (plane, kind, time.perf_counter())
+
+        def end(self, token, **fields):
+            if token[:2] == ("ckpt", "stage"):
+                self.staged_at = time.perf_counter()
+                self.stage_ms.append((self.staged_at - token[2]) * 1e3)
+
+        def record(self, plane, kind, **fields):
+            if (plane, kind) == ("ckpt", "commit"):
+                self.write_ms.append(
+                    (time.perf_counter() - self.staged_at) * 1e3)
+
+    return CkptTimer()
+
+
+def _nccl_one_rank() -> dict:
+    """CudaBackend's worker hook on this process: a one-rank nccl group,
+    an all-reduce of a CUDA tensor, the group destroyed."""
+    from ray_tpu_torch.train import CudaBackend, CudaConfig
+
+    group, config = _OneWorker(), CudaConfig()
+    backend = config.backend_cls()()
+    infos = backend.on_start(group, config)
+    try:
+        name = torch.distributed.get_backend()
+        t = torch.arange(4.0, device="cuda")
+        torch.distributed.all_reduce(t)
+        torch.cuda.synchronize()
+        check(name == "nccl" and torch.equal(t.cpu(), torch.arange(4.0)),
+              f"nccl group {name}: all_reduce gave {t.tolist()}")
+    finally:
+        backend.on_shutdown(group, config)
+    check(not torch.distributed.is_initialized(), "nccl group not destroyed")
+    return dict(backend=name, infos=infos)
+
+
+def phase_train_fabric(report: dict) -> None:
+    """gpt2-small (dense), bf16, 24 x 1024, fed by the port's device feed
+    (numpy blocks drawn on the producer thread, pinned staging, a side
+    stream): FABRIC_STEPS steps with a CheckpointManager save every
+    FABRIC_SAVE_EVERY steps into a temporary directory; K1-K3 12 times
+    per step.  Then a fresh state restored from the latest step steps
+    again over the same batches: its losses must equal the
+    uninterrupted run's, bit for bit.  Times the fed steps against steps
+    on a resident batch, the save at the step boundary (the host copy),
+    the write on the writer thread and the restore; then a one-rank nccl
+    group through CudaBackend's worker hook."""
+    import tempfile
+
+    from ray_tpu_torch.checkpoint import CheckpointManager
+    from ray_tpu_torch.data import iter_device_batches
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models._functional import adamw
+    from ray_tpu_torch.models.convert import (train_state_from_numpy,
+                                              train_state_to_tree)
+    from ray_tpu_torch.ops import attention as A
+
+    config = gpt.CONFIGS["gpt2-small"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init_state, train_step = gpt.make_train_step(config, adamw(1e-4),
+                                                 device="cuda")
+    state = init_state(torch.Generator(device="cuda").manual_seed(0))
+    kernels = (A.flash_forward, A.flash_dq, A.flash_dkv)
+    timer = _ckpt_timer()
+    with tempfile.TemporaryDirectory() as root:
+        mgr = CheckpointManager(root, observer=timer)
+        feed = iter_device_batches(_fabric_blocks(config.vocab_size),
+                                   device="cuda", batch_size=FABRIC_BATCH,
+                                   drop_last=True)
+        losses, step_ms, save_ms = [], [], []
+        for fn in kernels:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in feed:
+            state, metrics = train_step(state, batch)
+            losses.append(metrics["loss"])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step_ms.append((t1 - t0) * 1e3)
+            if state["step"] % FABRIC_SAVE_EVERY == 0:
+                mgr.save(state["step"], train_state_to_tree(state))
+                t0 = time.perf_counter()
+                save_ms.append((t0 - t1) * 1e3)
+            else:
+                t0 = t1
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        feed_stats = feed.stats()
+        resident_ms = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            state, _ = train_step(state, batch)
+            torch.cuda.synchronize()
+            resident_ms.append((time.perf_counter() - t0) * 1e3)
+        mgr.wait_until_finished()
+        step = mgr.latest_step()
+        path = mgr.latest_checkpoint()
+        saved_bytes = sum(os.path.getsize(os.path.join(path, f))
+                          for f in os.listdir(path))
+        del state, batch, feed
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        state = train_state_from_numpy(mgr.restore(step, device="cuda"),
+                                       config, adamw(1e-4), device="cuda")
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        resumed = []
+        for batch in iter_device_batches(
+                _fabric_blocks(config.vocab_size, step), device="cuda",
+                batch_size=FABRIC_BATCH, drop_last=True):
+            state, metrics = train_step(state, batch)
+            resumed.append(float(metrics["loss"]))
+        steps_saved = mgr.steps()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, batch
+    losses = [float(x) for x in losses]
+    nccl = _nccl_one_rank()
+    emit("train_fabric", config="gpt2-small", batch=FABRIC_BATCH, seq=1024,
+         steps=FABRIC_STEPS, fed_step_ms=statistics.median(step_ms[1:]),
+         resident_step_ms=statistics.median(resident_ms),
+         step_ms=step_ms, feed=feed_stats, saves=steps_saved,
+         save_call_ms=save_ms, stage_span_ms=timer.stage_ms,
+         write_ms=timer.write_ms, saved_bytes=saved_bytes,
+         restored_step=step, restore_ms=restore_ms, losses=losses,
+         resumed_losses=resumed, peak_memory_gib=peak,
+         kernel_launches=launches, nccl=nccl)
+    check(all(math.isfinite(x) for x in losses), f"fabric loss {losses}")
+    check(len(losses) == FABRIC_STEPS, f"fabric fed {len(losses)} batches")
+    for name, n in launches.items():
+        check(n == FABRIC_STEPS * config.n_layers,
+              f"{name} launched {n} times for {FABRIC_STEPS} fed steps")
+        report[name]["train_fabric"] = dict(launches=n)
+    check(steps_saved == list(range(FABRIC_SAVE_EVERY, FABRIC_STEPS + 1,
+                                    FABRIC_SAVE_EVERY)),
+          f"fabric saves {steps_saved}")
+    check(resumed == losses[step:],
+          f"resumed losses {resumed} != uninterrupted {losses[step:]}")
+
+
+def phase_train_resnet() -> None:
+    """resnet50 at full width: bf16 convolutions and norms, fp32 params,
+    a repeated batch of 64 random 224 x 224 x 3 images over 1000 classes,
+    AdamW(1e-4), 2 warm-up + 6 timed steps; the loss finite and
+    falling."""
+    from ray_tpu_torch.models import resnet
+    from ray_tpu_torch.models._functional import adamw
+
+    config = resnet.CONFIGS["resnet50"]
+    batch = 64
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init_state, train_step = resnet.make_train_step(config, adamw(1e-4),
+                                                    device="cuda")
+    state = init_state(torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    data = {"images": torch.randn((batch, 224, 224, 3), generator=gen,
+                                  device="cuda"),
+            "labels": torch.randint(0, config.num_classes, (batch,),
+                                    generator=gen, device="cuda")}
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        state, metrics = train_step(state, data)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, metrics = train_step(state, data)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, data
+    losses = [float(x) for x in losses]
+    emit("train_resnet", config="resnet50", batch=batch, image=[224, 224, 3],
+         params=resnet.num_params(config), warmup_steps=TRAIN_WARMUP,
+         steps=TRAIN_STEPS, step_ms=dt / TRAIN_STEPS * 1e3,
+         images_per_s=batch * TRAIN_STEPS / dt, peak_memory_gib=peak,
+         losses=losses)
+    check(all(math.isfinite(x) for x in losses), f"resnet loss {losses}")
+    check(losses[-1] < losses[0], f"resnet loss did not fall: {losses}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1854,7 +2176,11 @@ def main() -> int:
               ("logp", lambda _: phase_logp()),
               ("serve_disagg", phase_serve_disagg),
               ("disagg_parity", lambda _: phase_disagg_parity()),
-              ("kv_tier", phase_kv_tier))
+              ("kv_tier", phase_kv_tier),
+              ("train_moe", phase_train_moe),
+              ("moe_parity", lambda _: phase_moe_parity()),
+              ("train_fabric", phase_train_fabric),
+              ("train_resnet", lambda _: phase_train_resnet()))
     for name, phase in phases:
         t0 = time.perf_counter()
         phase(report)

@@ -18,7 +18,12 @@ kernels, the fused chunked cross-entropy and AdamW
 serving side also speculative decoding, behaviour log-probs, the KV
 spill tier, prefix export and import with their frame codec, and the
 serve deployments (`ray_tpu_torch.serve`: plain classes that a caller
-binds with the reference's serve plane).
+binds with the reference's serve plane).  On the training side also
+GPT's Switch MoE on one device, ResNet (`models.resnet`), and the
+training fabric: sharded asynchronous checkpoints in the reference's
+format (`ray_tpu_torch.checkpoint`), the device feed
+(`ray_tpu_torch.data`) and a CUDA backend that a caller binds to the
+reference's trainer (`ray_tpu_torch.train`).
 
 Every entry point takes `device=None`, which means CUDA; without a card
 it raises unless the caller passes `device="cpu"`.

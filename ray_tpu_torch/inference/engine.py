@@ -441,9 +441,9 @@ class InferenceEngine:
                 **span_end) -> None:
         """End a request's stream, close its open span with `span_end`
         and free its lane — once the step in flight, if it runs this
-        lane, has committed (caller holds the lock)."""
+        lane, has committed (caller holds the lock).  The stream ends
+        last, so a caller woken by its end finds the lane released."""
         req.finish_reason = reason
-        req.out.put(_DONE)
         self._obs.end(req.span_tok, **span_end)
         req.span_tok = None
         if lane is not None:
@@ -452,6 +452,7 @@ class InferenceEngine:
                 self._free_after_step.append(lane)
             else:
                 self.cache.free_lane(lane)
+        req.out.put(_DONE)
 
     def _expire_deadlines(self) -> None:
         """Evict every lane (and drop every queued request) whose

@@ -1,7 +1,7 @@
 """Models of the port: the GPT and Llama families' training forward and
-loss, their train step, and their cached (serving) forward."""
+loss, their train step, and their cached (serving) forward; ResNet."""
 
-from ray_tpu_torch.models import gpt, llama  # noqa: F401
+from ray_tpu_torch.models import gpt, llama, resnet  # noqa: F401
 
 
 def family(model):

@@ -17,7 +17,7 @@ from typing import Optional, Union
 
 import torch
 
-from ray_tpu_torch._device import DeviceLike, resolve_device
+from ray_tpu_torch._device import MULTI_DEVICE, DeviceLike, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,9 +73,6 @@ def working_params(params: dict, dtype: torch.dtype, matmul_keys,
             if isinstance(v, dict) else
             v.to(device=device, dtype=dtype if k in matmul_keys else v.dtype)
             for k, v in params.items()}
-
-
-MULTI_DEVICE = "the multi-device slice of the port (ROADMAP A8)"
 
 
 def check_single_device(mesh) -> None:

@@ -1,4 +1,4 @@
-"""Carry weights across from the JAX reference.
+"""Carry weights and train states across from the JAX reference.
 
 The reference initialises with `jax.random`, whose draws no torch
 generator reproduces, so the two packages compute the same thing only on
@@ -6,19 +6,30 @@ weights moved across: take the reference's GPT or Llama params as numpy
 (`jax.tree.map(np.asarray, params)`) and turn them into the port's
 params — same keys, same stacked layouts, same dtypes.  `params_to_numpy`
 goes the other way, so the reference can be handed the port's weights
-(or updated params compared leaf by leaf).
+(or updated params compared leaf by leaf).  `resnet_state_dict` and
+`resnet_variables` do the same for a ResNet: flax's variables tree and
+the port's module's state dict (conv kernels HWIO <-> OIHW).
+
+`train_state_from_numpy` and `train_state_to_tree` carry a whole train
+state, `optax.adamw`'s moments and step count included, so a run that
+either package checkpointed continues in the other.
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.models import gpt, llama
+from ray_tpu_torch.models import gpt, llama, resnet
+from ray_tpu_torch.models._functional import _leaves, _map
 
 
 def _tensor(arr) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):      # e.g. from restore_sharded
+        return arr.detach()
     arr = np.array(arr, order="C")     # a writable copy the tensor owns
     if arr.dtype.name == "bfloat16":        # ml_dtypes: no numpy-native bf16
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
@@ -30,7 +41,8 @@ _SHAPES = {gpt.GPTConfig: gpt.param_shapes,
 
 
 def params_from_numpy(tree: dict, config, device: DeviceLike = None) -> dict:
-    """The reference's param tree (numpy leaves) of the family that
+    """The reference's param tree (numpy leaves; tensor leaves, e.g. from
+    `restore_sharded`, are taken as they are) of the family that
     `config` names (a `gpt.GPTConfig` or a `llama.LlamaConfig`) as the
     port's params on `device`.  Raises if a key or a shape differs from
     that family's `param_shapes(config)`."""
@@ -58,17 +70,133 @@ def params_from_numpy(tree: dict, config, device: DeviceLike = None) -> dict:
     return convert(tree, _SHAPES[type(config)](config), "")
 
 
-def params_to_numpy(params: dict) -> dict:
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of `t` (bf16 as ml_dtypes' bfloat16)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def params_to_numpy(params) -> dict:
     """The inverse of `params_from_numpy`: the port's params as a tree of
     numpy arrays on the host (bf16 leaves as ml_dtypes' bfloat16)."""
-
-    def convert(t):
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            import ml_dtypes
-
-            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
-        return t.numpy().copy()
-
-    return {k: params_to_numpy(v) if isinstance(v, dict) else convert(v)
+    return {k: params_to_numpy(v) if isinstance(v, dict) else _numpy(v)
             for k, v in params.items()}
+
+
+def _is_conv(path: str) -> bool:
+    return path.rpartition(".")[0].rpartition(".")[2].startswith("Conv_")
+
+
+def resnet_state_dict(variables: dict, config: resnet.ResNetConfig,
+                      device: DeviceLike = None) -> dict:
+    """flax's variables tree ({"params": {...}}, numpy or tensor leaves)
+    of the reference's ResNet as the state dict of `resnet.ResNet(config)`
+    on `device`.  Raises if a key or a shape differs."""
+    device = resolve_device(device)
+    want = resnet.ResNet(config).state_dict()
+    flat = {}
+
+    def walk(sub, path):
+        for k, v in sub.items():
+            if isinstance(v, dict):
+                walk(v, f"{path}{k}.")
+            else:
+                flat[path + k] = v
+
+    walk(variables["params"], "")
+    if set(flat) != set(want):
+        raise ValueError(f"resnet params: keys {sorted(flat)} != expected "
+                         f"{sorted(want)}")
+    out = {}
+    for key, arr in flat.items():
+        t = _tensor(arr)
+        if _is_conv(key):
+            t = t.permute(3, 2, 0, 1).contiguous()     # HWIO -> OIHW
+        if t.shape != want[key].shape:
+            raise ValueError(f"resnet params[{key!r}]: shape "
+                             f"{tuple(t.shape)} != expected "
+                             f"{tuple(want[key].shape)}")
+        out[key] = t.to(device)
+    return out
+
+
+def resnet_variables(model: resnet.ResNet) -> dict:
+    """The inverse of `resnet_state_dict`: a port ResNet's parameters as
+    flax's variables tree of numpy arrays."""
+    params: dict = {}
+    for key, t in model.state_dict().items():
+        if _is_conv(key):
+            t = t.permute(2, 3, 1, 0)                  # OIHW -> HWIO
+        *path, leaf = key.split(".")
+        node = params
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = _numpy(t)
+    return {"params": params}
+
+
+# optax.adamw's state is (ScaleByAdamState(count, mu, nu), EmptyState(),
+# EmptyState()).  These types carry optax's names and modules without
+# importing it, so a checkpoint of `train_state_to_tree` has the
+# skeleton of the reference's own train state.
+ScaleByAdamState = collections.namedtuple(
+    "ScaleByAdamState", ("count", "mu", "nu"), module="optax._src.transform")
+EmptyState = collections.namedtuple("EmptyState", (),
+                                    module="optax._src.base")
+
+
+def train_state_from_numpy(tree: dict, config, optimizer,
+                           device: DeviceLike = None) -> dict:
+    """The reference's GPT or Llama train state {"params", "opt_state",
+    "step"} under `optax.adamw` (numpy or tensor leaves, e.g. from
+    either package's `restore_sharded`) as the port's state on `device`:
+    {"params", "opt_state": `optimizer.init(params)` (a
+    torch.optim.AdamW), "step"}, each param's AdamW state holding the
+    reference's moments (`mu` -> `exp_avg`, `nu` -> `exp_avg_sq`) and
+    step count (`count` -> `step`).  The port's next step is then the
+    reference's next step.  `opt_state[0]` may be a plain tuple
+    (count, mu, nu)."""
+    device = resolve_device(device)
+    params = _map(params_from_numpy(tree["params"], config, device),
+                  lambda t: t.float().requires_grad_())
+    count, mu, nu = tree["opt_state"][0]
+    opt = optimizer.init(params)
+    # Fused and capturable AdamW keep the step count on the param's device.
+    on_device = opt.defaults.get("fused") or opt.defaults.get("capturable")
+    for p, m, v in zip(_leaves(params),
+                       _leaves(params_from_numpy(mu, config, device)),
+                       _leaves(params_from_numpy(nu, config, device))):
+        opt.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32,
+                                 device=p.device if on_device else "cpu"),
+            "exp_avg": m.float(), "exp_avg_sq": v.float()}
+    return {"params": params, "opt_state": opt, "step": int(tree["step"])}
+
+
+def train_state_to_tree(state: dict) -> dict:
+    """The inverse of `train_state_from_numpy`: the port's GPT or Llama
+    train state in the reference's layout under `optax.adamw`
+    ({"params", "opt_state": (ScaleByAdamState(count, mu, nu),
+    EmptyState(), EmptyState()), "step"}, count and step int32).  The
+    leaves are the state's own tensors, on its device and copied
+    nowhere: `checkpoint.sharded.stage` takes the one host snapshot."""
+    opt = state["opt_state"]
+
+    def moment(name):
+        return _map(state["params"], lambda p: (
+            opt.state[p][name] if p in opt.state
+            else torch.zeros_like(p)).detach())
+
+    steps = {float(s["step"]) for s in opt.state.values()}
+    if len(steps) > 1:
+        raise ValueError(f"params at different AdamW steps: {steps}")
+    count = int(steps.pop()) if steps else 0
+    return {"params": _map(state["params"], torch.Tensor.detach),
+            "opt_state": (ScaleByAdamState(
+                torch.tensor(count, dtype=torch.int32), moment("exp_avg"),
+                moment("exp_avg_sq")), EmptyState(), EmptyState()),
+            "step": torch.tensor(state["step"], dtype=torch.int32)}

@@ -11,10 +11,11 @@ gradients.  A Python loop over the stacked layers takes the place of
 `lax.scan`.
 
 Ported: the config table, `init_params`, `num_params`, `_layernorm`,
-`_block`, `forward_trunk`, `forward`, `loss_fn` (single device),
-`make_train_step`, `_block_cached`, `forward_cached` and `lm_head`.  The
-MoE MLP and every mesh with an axis above 1 wait for the multi-device
-slice and raise `NotImplementedError`.
+the Switch MoE MLP (`_moe_mlp`, single device), `_block`,
+`forward_trunk`, `forward`, `loss_fn` (single device),
+`make_train_step`, `_block_cached`, `forward_cached` and `lm_head`.
+Every mesh with an axis above 1 waits for the multi-device slice and
+raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -182,18 +183,69 @@ def lm_head(params: dict, x: torch.Tensor, config: GPTConfig) -> torch.Tensor:
     return x @ head
 
 
+def _route(x, router, config: GPTConfig):
+    """Switch top-1 routing of x [T, D] over `config.n_experts` experts,
+    as the reference's `_moe_mlp` routes: f32 logits and softmax, gate =
+    the largest probability, expert = its first index, each token's rank
+    in its expert's queue in token order.  Returns (probs [T, E] f32,
+    gate [T] f32, expert [T], rank [T], cap); a token is kept iff
+    rank < cap."""
+    t = x.shape[0]
+    e = config.n_experts
+    cap = int(math.ceil(t / e * config.capacity_factor))
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    # amax splits the gradient evenly among tied maxima, as jnp.max does.
+    gate = probs.amax(-1)
+    expert = probs.argmax(-1)
+    # The queue positions, scanned along tokens as the inner dim.
+    onehot = F.one_hot(expert, e).T.contiguous()            # [E, T]
+    rank = (onehot.cumsum(1) * onehot).sum(0) - 1
+    return probs, gate, expert, rank, cap
+
+
+def _moe_mlp(x, router, w_up, w_down, config: GPTConfig):
+    """Switch-style top-1 MoE on one device: x [B, L, D] -> (out
+    [B, L, D], aux f32 scalar), the function of the reference's
+    `_moe_mlp` (ray_tpu/models/gpt.py), dispatched by index instead of
+    by its dense one-hot einsums.
+
+    Token t goes to slot expert * cap + rank if kept, else to a spare
+    slot of its own (E * cap + t), whose row is dropped: the slots are
+    distinct, so the dispatch is one `index_copy` and the combine one
+    `index_select`, and the backward of each is a gather or a one-add-
+    per-row scatter (deterministic, with no run of equal indices to
+    serialise).  Every sum in the dense form has one non-zero term, so
+    the values are the reference's."""
+    b, l, d = x.shape
+    t, e = b * l, config.n_experts
+    xt = x.reshape(t, d)
+    probs, gate, expert, rank, cap = _route(xt, router, config)
+    arange = torch.arange(t, device=x.device)
+    slot = torch.where(rank < cap, expert * cap + rank, e * cap + arange)
+    ex_in = xt.new_zeros(e * cap + t, d).index_copy(0, slot, xt)
+    hidden = F.gelu(torch.bmm(ex_in[:e * cap].view(e, cap, d),
+                              w_up.to(x.dtype)), approximate="tanh")
+    ex_out = torch.bmm(hidden, w_down.to(x.dtype)).view(e * cap, d)
+    # The reference rounds gate to the activation dtype before combining.
+    out = torch.cat([ex_out, ex_out.new_zeros(t, d)]).index_select(
+        0, slot) * gate.to(x.dtype)[:, None]
+    # Load-balancing aux loss (Switch eq. 4): mean assignment * mean prob.
+    density = F.one_hot(expert, e).float().mean(0)
+    aux = e * torch.sum(density * probs.mean(0))
+    return out.view(b, l, d), aux
+
+
 def _check_single_device(config: GPTConfig, mesh) -> None:
-    """The port runs one device: MoE and a mesh with any axis above 1
-    raise (`_functional.check_single_device`)."""
-    if config.n_experts:
-        raise NotImplementedError(f"the Switch MoE MLP waits for "
-                                  f"{_functional.MULTI_DEVICE}")
+    """The port runs one device: a mesh with any axis above 1 raises
+    (`_functional.check_single_device`)."""
     _functional.check_single_device(mesh)
 
 
 def _block(x, p, config: GPTConfig):
-    """One training block: x [B, L, D] -> x.  Attention is
-    `flash_attention` (K1 forward, K2/K3 backward) with causal=True."""
+    """One training block: x [B, L, D] -> (x, aux).  Attention is
+    `flash_attention` (K1 forward, K2/K3 backward) with causal=True; the
+    MLP is dense (aux None), or the Switch MoE when `config.n_experts`
+    (aux is its load-balancing loss)."""
     b, l, d = x.shape
     nh, dh = config.n_heads, config.head_dim
     h = _layernorm(x, p["ln1_scale"], p["ln1_bias"])
@@ -207,15 +259,20 @@ def _block(x, p, config: GPTConfig):
         h.dtype)
 
     h = _layernorm(x, p["ln2_scale"], p["ln2_bias"])
+    if config.n_experts:
+        mlp_out, aux = _moe_mlp(h, p["router"], p["w_up"], p["w_down"],
+                                config)
+        return x + mlp_out, aux
     # jax.nn.gelu's default is the tanh approximation.
     hidden = F.gelu(h @ p["w_up"].to(h.dtype), approximate="tanh")
-    return x + hidden @ p["w_down"].to(h.dtype)
+    return x + hidden @ p["w_down"].to(h.dtype), None
 
 
 def forward_trunk(params: dict, tokens: torch.Tensor, config: GPTConfig,
                   mesh=None, position_offset: int = 0):
     """Transformer stack up to (excluding) the lm head.
-    tokens [B, L] -> (x [B, L, D], moe_aux_loss f32 scalar, 0 here).
+    tokens [B, L] -> (x [B, L, D], moe_aux_loss f32 scalar summed over
+    the layers, as the reference's `jnp.sum(auxes)`; 0 for a dense MLP).
 
     position_offset shifts the learned position table: a suffix call at
     absolute position p reads pos_embed[p:p+l].  With `config.remat` each
@@ -227,16 +284,24 @@ def forward_trunk(params: dict, tokens: torch.Tensor, config: GPTConfig,
     x = params["tok_embed"][tokens.long()].to(c.dtype)
     pos = params["pos_embed"][position_offset:position_offset + l]
     x = x + pos[None].to(c.dtype)
-    blocks = params["blocks"]
+    # One unbind per leaf: its backward stacks the per-layer gradients
+    # into one tensor, as lax.scan's does, where indexing a layer per
+    # block would add a zero-padded gradient of the whole stack per layer.
+    layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
+    auxes = []
     for layer in range(c.n_layers):
-        p = {k: v[layer] for k, v in blocks.items()}
+        p = {k: v[layer] for k, v in layers.items()}
         if c.remat:
-            x = torch.utils.checkpoint.checkpoint(_block, x, p, c,
-                                                  use_reentrant=False)
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _block, x, p, c, use_reentrant=False)
         else:
-            x = _block(x, p, c)
+            x, aux = _block(x, p, c)
+        if aux is not None:
+            auxes.append(aux)
     x = _layernorm(x, params["final_ln_scale"], params["final_ln_bias"])
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.stack(auxes).sum() if auxes else torch.zeros(
+        (), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def forward(params: dict, tokens: torch.Tensor, config: GPTConfig,
@@ -254,8 +319,8 @@ def loss_fn(params: dict, batch: dict, config: GPTConfig, mesh=None):
     targets are the tokens rolled left by one; the last position, which
     would predict the rolled-around token 0, is always masked.  The loss
     is the fused chunked cross-entropy on the (tied) head, which never
-    materialises [B, L, V].  The reference's `+ 0.01 * aux` term is 0
-    for the dense MLP, the only one ported."""
+    materialises [B, L, V], plus the reference's `0.01 * aux` (the MoE
+    load-balancing loss summed over layers; 0 for a dense MLP)."""
     c = config
     tokens = batch["tokens"]
     targets = torch.roll(tokens, -1, dims=1)
@@ -265,12 +330,13 @@ def loss_fn(params: dict, batch: dict, config: GPTConfig, mesh=None):
     mask = batch.get("loss_mask")
     if mask is not None:
         valid = valid * mask
-    x, _ = forward_trunk(params, tokens, c, mesh)
+    x, aux = forward_trunk(params, tokens, c, mesh)
     b, l, d = x.shape
     head = (params["tok_embed"].T if c.tie_embeddings
             else params["lm_head"]).to(c.dtype)
-    return fused_cross_entropy(x.reshape(b * l, d), head,
+    loss = fused_cross_entropy(x.reshape(b * l, d), head,
                                targets.reshape(-1), valid.reshape(-1))
+    return loss + 0.01 * aux
 
 
 def make_train_step(config: GPTConfig, optimizer, mesh=None, *,

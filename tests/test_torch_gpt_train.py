@@ -207,11 +207,8 @@ def test_num_params_matches_reference(name):
     assert gpt.CONFIGS[name].remat == jgpt.CONFIGS[name].remat
 
 
-def test_moe_and_mesh_raise():
+def test_mesh_raises():
     tokens = {"tokens": torch.zeros(1, 8, dtype=torch.long)}
-    moe = gpt.CONFIGS["nano-moe"]
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        gpt.loss_fn(gpt.init_params(moe, device="cpu"), tokens, moe)
     nano = gpt.CONFIGS["nano"]
     params = gpt.init_params(nano, device="cpu")
     mesh = types.SimpleNamespace(shape={"data": 2, "tensor": 1})
@@ -221,6 +218,15 @@ def test_moe_and_mesh_raise():
         gpt.make_train_step(nano, adamw(1e-4), mesh, device="cpu")
     one = types.SimpleNamespace(shape={"data": 1, "tensor": 1})
     assert torch.isfinite(gpt.loss_fn(params, tokens, nano, one))
+
+
+def test_moe_loss_is_finite_on_one_device():
+    """The Switch MoE runs on one device, as the reference's does with
+    no mesh (tests/test_torch_moe.py holds it to the reference)."""
+    moe = gpt.CONFIGS["nano-moe"]
+    tokens = {"tokens": torch.from_numpy(_tokens(7, l=32))}
+    loss = gpt.loss_fn(gpt.init_params(moe, device="cpu"), tokens, moe)
+    assert torch.isfinite(loss)
 
 
 def test_train_step_needs_a_card_by_default():
