@@ -123,6 +123,35 @@ run with a nonzero exit code and no result line:
            streams must equal a tier-less engine's (or part at a
            near-tie), K4 must have run 22 times per decode step; ms per
            spilled and per restored block are printed.
+  rl_rollout  EngineRolloutActor("llama", "llama-1b") at full width and
+           depth (bf16, weights drawn on the card, 32 lanes, block 16,
+           temperature 1.0): two rollouts of 64 prompts of 48-96 tokens
+           sharing a 32-token template, 64 new tokens each, with
+           adopt(1, a second weight set) between them, then an adopt
+           mid-flight after 5 steps of 32 live lanes.  Each batch must be
+           [64, 64] time-major, its valid log-probs finite, <= 0 and the
+           handles' own, tagged version 0 then 1; no lane may drop; K4
+           must have run 22 times per decode step.  Prints rollout
+           tokens/s, decode step ms, prefix hit tokens, and two adopt
+           times: adopt(1) from the host numpy tree that a publish
+           delivers (copy to the card and bf16 cast), and the mid-flight
+           adopt from weights already on the card (the cast alone).
+  rl_learner  the V-trace learner (_VTraceLearner) on the Nature-CNN:
+           fragments of 16 SyntheticPixel-v0 envs x 64 steps (1,024 uint8
+           frames of 84x84x4) from a RolloutWorker on the card, IMPALA's
+           defaults; 3 warm-up and 20 timed updates, losses finite.
+           Prints update ms, updates/s, frames/s, peak memory.
+  rl_podracer  PodracerConfig().build() with an in-process runtime (2
+           EnvRolloutActors on CartPole-v1, 16 envs x 32 steps; actor
+           calls run in order), the learner on the card, at staleness
+           bounds 0, 1 and 2: updates/s, accepted and stale-dropped.  At
+           k=0 the checkpoint at update 20 restores into a fresh learner
+           bit for bit.  Then PPO with no remote workers, 3 iterations.
+  rl_parity  f32, TF32 off: one V-trace update (MLP and Nature-CNN) on
+           the card and on the CPU from the same weights and batch (loss
+           within 1e-5 relative, every update within 0.05 x lr); greedy
+           rollouts at llama-1b widths, 2 layers, on the card (K4) and on
+           the CPU: actions token-exact, log-probs within 1e-4.
 
 Each phase's wall seconds follow it on a line of their own.  Then, on
 lines of their own: the kernels' JSON record, the card's name and power
@@ -1053,6 +1082,12 @@ def _llama_1b_params(seed: int = 1234) -> dict:
     return llama.init_params(llama.CONFIGS["llama-1b"],
                              torch.Generator(device="cuda").manual_seed(seed),
                              device="cuda")
+
+
+def _tree_leaves(tree: dict) -> list:
+    """The leaves of a nested dict of arrays."""
+    return [leaf for v in tree.values()
+            for leaf in (_tree_leaves(v) if isinstance(v, dict) else [v])]
 
 
 def _oracle(continuations: dict):
@@ -2148,6 +2183,457 @@ def phase_train_resnet() -> None:
     check(losses[-1] < losses[0], f"resnet loss did not fall: {losses}")
 
 
+# --------------------------------------------------------------------- RL
+
+RL_PROMPTS, RL_NEW_TOKENS, RL_TEMPLATE = 64, 64, 32
+
+
+def _rl_prompts(vocab: int) -> list:
+    """RL_PROMPTS prompts of 48-96 tokens, each starting with one shared
+    RL_TEMPLATE-token template (the prefix cache's case on this path)."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    template = rng.integers(0, vocab, RL_TEMPLATE).tolist()
+    return [template + rng.integers(
+        0, vocab, int(rng.integers(48, 97)) - RL_TEMPLATE).tolist()
+        for _ in range(RL_PROMPTS)]
+
+
+def _check_rl_batch(label, batch, handles, version, vocab) -> None:
+    """A rollout batch against the handles it was built from (whose
+    token streams rollout() has drained): time-major [T, B], each lane's
+    full budget valid, the handle's log-probs where valid (each finite
+    and <= 0), ids in the vocabulary, one version tag throughout."""
+    import numpy as np
+
+    T, B = batch["actions"].shape
+    check(B == len(handles) and T == RL_NEW_TOKENS,
+          f"{label}: batch [{T}, {B}], expected [{RL_NEW_TOKENS}, "
+          f"{len(handles)}]")
+    for b, h in enumerate(handles):
+        lps = np.asarray(h.logps, np.float32)
+        n = len(lps)
+        check(h.finish_reason == "length" and n == RL_NEW_TOKENS,
+              f"{label}: lane {b} stopped at {n} ({h.finish_reason})")
+        check(batch["valid"][:, b].sum() == n, f"{label}: valid mask")
+        check(np.array_equal(batch["action_logp"][:n, b], lps),
+              f"{label}: log-probs differ from the handle's")
+        check(bool(np.isfinite(lps).all() and (lps <= 0).all()),
+              f"{label}: a log-prob is not finite or above 0")
+    check(bool(((batch["actions"] >= 0) & (batch["actions"] < vocab)).all()),
+          f"{label}: token id out of range")
+    check((batch["policy_version"] == version).all(),
+          f"{label}: policy_version is not {version}")
+
+
+def phase_rl_rollout(report: dict) -> None:
+    """EngineRolloutActor("llama", "llama-1b") at full width and depth:
+    bf16, 32 lanes, block 16, temperature 1.0, weights drawn on the card.
+    Two rollouts of RL_PROMPTS prompts x RL_NEW_TOKENS tokens with an
+    adopt(1) of a second weight set between them, then an adopt
+    mid-flight (after 5 steps of 32 lanes) that must keep every lane.
+    K4 must have run 22 times per decode step of the whole drive."""
+    from ray_tpu_torch.models import convert, llama
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.rl import EngineRolloutActor
+
+    config = llama.CONFIGS["llama-1b"]
+    params = _llama_1b_params()
+    # The second weight set crosses as a publish delivers it on the RL
+    # path: the reference's param tree of host numpy arrays.
+    params2 = convert.params_to_numpy(_llama_1b_params(seed=4321))
+    adopt_bytes = sum(leaf.nbytes for leaf in _tree_leaves(params2))
+    actor = EngineRolloutActor("llama", "llama-1b", params=params,
+                               max_lanes=32, block_size=16, temperature=1.0,
+                               seed=0, device="cuda")
+    eng = actor.engine
+    handles: list = []
+    submit = eng.submit
+
+    def recording_submit(*args, **kwargs):
+        handles.append(submit(*args, **kwargs))
+        return handles[-1]
+
+    eng.submit = recording_submit
+    prompts = _rl_prompts(config.vocab_size)
+    try:
+        actor.rollout(prompts[:2], max_new_tokens=4, seed=1)    # warm-up
+        torch.cuda.synchronize()
+        before = eng.stats()
+        handles.clear()
+        A.paged_decode_attention.launches = 0
+        t0 = time.perf_counter()
+        batch0, v0, m0 = actor.rollout(prompts, RL_NEW_TOKENS, seed=100)
+        wall0 = time.perf_counter() - t0
+        first = list(handles)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        actor.adopt(1, params2)
+        torch.cuda.synchronize()
+        adopt_ms = (time.perf_counter() - t1) * 1e3
+        handles.clear()
+        t2 = time.perf_counter()
+        batch1, v1, m1 = actor.rollout(prompts, RL_NEW_TOKENS, seed=200)
+        wall1 = time.perf_counter() - t2
+        second = list(handles)
+        # An adopt mid-flight: 32 live lanes keep going under the new
+        # weights and finish their budgets.
+        handles.clear()
+        live = [eng.submit(p, RL_NEW_TOKENS, temperature=1.0, seed=300 + i)
+                for i, p in enumerate(prompts[:32])]
+        for _ in range(5):
+            eng.step()
+        active = eng.num_active
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        actor.adopt(2, params)
+        torch.cuda.synchronize()
+        adopt_on_card_ms = (time.perf_counter() - t3) * 1e3
+        check(eng.num_active == active == 32,
+              f"lanes live across the adopt: {active} -> {eng.num_active}")
+        while eng.step():
+            pass
+        torch.cuda.synchronize()
+        launches = A.paged_decode_attention.launches
+        after = eng.stats()
+    finally:
+        eng.shutdown()
+    del params, params2, actor, eng
+    torch.cuda.empty_cache()
+
+    _check_rl_batch("rl_rollout v0", batch0, first, 0, config.vocab_size)
+    _check_rl_batch("rl_rollout v1", batch1, second, 1, config.vocab_size)
+    check(v0 == 0 and v1 == 1, f"versions {v0}, {v1}")
+    for h in live:
+        check(h.finish_reason == "length" and len(h.tokens())
+              == RL_NEW_TOKENS == len(h.logps), "a mid-flight lane dropped")
+    check(after["policy_version"] == 2, "engine version after the adopts")
+
+    def delta(key):
+        return after[key] - before[key]
+
+    decode_steps = delta("decode_steps")
+    check(launches == decode_steps * config.n_layers and launches > 0,
+          f"K4 launched {launches} times for {decode_steps} decode steps x "
+          f"{config.n_layers} layers")
+    hit_tokens = delta("prefix_hit_tokens")
+    check(hit_tokens >= RL_TEMPLATE, "no prefix-cache hit on the template")
+    tokens = m0["tokens"] + m1["tokens"]
+    report["paged_decode_attention"]["llama_1b"]["rl_rollout"] = dict(
+        launches=launches)
+    emit("rl_rollout", config="llama-1b", lanes=32, prompts=RL_PROMPTS,
+         new_tokens=RL_NEW_TOKENS, batch=list(batch0["actions"].shape),
+         rollout_tokens=tokens, rollout_wall_s=wall0 + wall1,
+         rollout_tokens_per_s=tokens / (wall0 + wall1),
+         tokens_per_s_by_rollout=[m0["tokens"] / wall0,
+                                  m1["tokens"] / wall1],
+         decode_steps=decode_steps,
+         decode_step_ms=delta("decode_seconds") / decode_steps * 1e3,
+         prefill_steps=delta("prefill_steps"),
+         prefill_step_ms=(delta("prefill_seconds") / delta("prefill_steps")
+                          * 1e3),
+         adopt_ms=adopt_ms, adopt_from="host numpy tree (fp32)",
+         adopt_bytes=adopt_bytes,
+         adopt_host_to_card_gb_per_s=adopt_bytes / adopt_ms / 1e6,
+         adopt_on_card_ms=adopt_on_card_ms,
+         adopt_params=llama.num_params(config),
+         prefix_hit_tokens=hit_tokens, versions=[v0, v1, 2],
+         mid_flight_lanes=active, decode_kernel_launches=launches)
+
+
+RL_LEARNER_WARMUP, RL_LEARNER_STEPS = 3, 20
+
+
+def phase_rl_learner() -> None:
+    """IMPALA's V-trace learner on the Nature-CNN at full width: two
+    fragments from RolloutWorker("SyntheticPixel-v0", 16 envs x 64 steps,
+    postprocess=False) on the card, each 1,024 uint8 frames of 84x84x4
+    (28.9 MB), the reference's IMPALA defaults (lr 6e-4, grad clip 40);
+    3 warm-up and 20 timed updates, each ending in its metrics' host
+    copy.  Every loss must be finite."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import IMPALAConfig, RolloutWorker
+    from ray_tpu_torch.rllib.impala import _VTraceLearner
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = IMPALAConfig()
+    worker = RolloutWorker("SyntheticPixel-v0", num_envs=16,
+                           rollout_fragment_length=64, postprocess=False,
+                           seed=0, device="cuda")
+    learner = _VTraceLearner((84, 84, 4), 4, cfg, cfg.model_hidden, seed=0,
+                             device="cuda")
+    worker.set_weights(learner.get_weights())
+    t0 = time.perf_counter()
+    fragments = [worker.sample()[0] for _ in range(2)]
+    sample_s = (time.perf_counter() - t0) / 2
+    frames = fragments[0]["obs"]
+    check(frames.shape == (64, 16, 84, 84, 4) and frames.dtype == np.uint8,
+          f"fragment obs {frames.shape} {frames.dtype}")
+    metrics = [learner.update(fragments[i % 2])
+               for i in range(RL_LEARNER_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(RL_LEARNER_STEPS):
+        metrics.append(learner.update(fragments[i % 2]))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [m["total_loss"] for m in metrics]
+    check(all(math.isfinite(x) for x in losses), f"V-trace losses {losses}")
+    n_frames = frames.shape[0] * frames.shape[1]
+    emit("rl_learner", model="nature_cnn",
+         params=sum(p.numel() for p in learner.model.parameters()),
+         fragment=list(frames.shape), fragment_bytes=int(frames.nbytes),
+         lr=cfg.lr, grad_clip=cfg.grad_clip, warmup=RL_LEARNER_WARMUP,
+         updates=RL_LEARNER_STEPS, update_ms=dt / RL_LEARNER_STEPS * 1e3,
+         updates_per_s=RL_LEARNER_STEPS / dt,
+         frames_per_s=n_frames * RL_LEARNER_STEPS / dt,
+         sample_s_per_fragment=sample_s,
+         rollout_frames_per_s=n_frames / sample_s,
+         peak_memory_gib=peak, losses=losses)
+
+
+class _InlineRuntime:
+    """The runtime handle's five calls, run in this process: an actor's
+    method calls queue in order and run when a result is asked for (so an
+    adopt published behind an in-flight sample lands after it, as on a
+    cluster); `wait` hands back the oldest pending call, or nothing when
+    it may not block; `put` wraps a value whose refs resolve when a call
+    runs."""
+
+    class Ref:
+        def __init__(self, actor=None, call=None, value=None):
+            self.actor, self.call, self.value = actor, call, value
+            self.done = call is None
+
+        def resolve(self):
+            while not self.done:
+                ref = self.actor.pending.pop(0)
+                name, args = ref.call
+                args = [a.resolve() if isinstance(a, _InlineRuntime.Ref)
+                        else a for a in args]
+                ref.value, ref.done = getattr(self.actor.obj, name)(*args), \
+                    True
+            return self.value
+
+    class Actor:
+        def __init__(self, obj):
+            self.obj, self.pending = obj, []
+
+        def __getattr__(self, name):
+            actor = self
+
+            class Method:
+                @staticmethod
+                def remote(*args):
+                    ref = _InlineRuntime.Ref(actor, (name, args))
+                    actor.pending.append(ref)
+                    return ref
+            return Method
+
+    def remote(self, **_):
+        def bind(cls):
+            class Factory:
+                @staticmethod
+                def remote(**kwargs):
+                    return _InlineRuntime.Actor(cls(**kwargs))
+            return Factory
+        return bind
+
+    def put(self, value):
+        return self.Ref(value=value)
+
+    def get(self, ref):
+        return ref.resolve()
+
+    def wait(self, refs, num_returns=1, timeout=None):
+        ready = list(refs[:1]) if timeout else []
+        return ready, [r for r in refs if r not in ready]
+
+    def kill(self, actor):
+        actor.pending.clear()
+
+
+RL_PODRACER_UPDATES, RL_CKPT_AT = 30, 20
+
+
+def phase_rl_podracer() -> None:
+    """The Podracer loop in one process: PodracerConfig().build() with
+    `_InlineRuntime` as the runtime, 2 EnvRolloutActors ("CartPole-v1",
+    16 envs x 32 steps) and the stale-tolerant V-trace learner on the
+    card: Podracer.training_step calls sample_versioned, then
+    TrajectoryQueue.put, StaleTolerantLearner.update and
+    publish_boundary, then adopt, in that order.  At staleness bounds 0,
+    1 and 2: updates/s, accepted, stale-dropped (RL_BENCH.json's
+    learner_by_staleness_bound).  At k=0 a checkpoint at update 20
+    through the port's CheckpointManager, restored by restore_latest()
+    into a fresh learner: the same params and Adam state, bit for bit.
+    Then PPOConfig().rollouts(num_rollout_workers=0), 3 iterations on
+    the card."""
+    import tempfile
+
+    import numpy as np
+
+    from ray_tpu_torch.rl import PodracerConfig, StaleTolerantLearner
+    from ray_tpu_torch.rllib import PPOConfig
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, (tuple, list)):
+            return [x for v in tree for x in leaves(v)]
+        return [np.asarray(tree.cpu() if hasattr(tree, "cpu") else tree)]
+
+    rows, saved = [], {}
+    with tempfile.TemporaryDirectory() as root:
+        for k in (0, 1, 2):
+            algo = (PodracerConfig().environment("CartPole-v1")
+                    .rollouts(num_rollout_workers=2, num_envs_per_worker=16,
+                              rollout_fragment_length=32)
+                    .training(staleness_bound=k, publish_interval=1,
+                              min_updates_per_step=2,
+                              ckpt_dir=root if k == 0 else None,
+                              ckpt_interval=RL_CKPT_AT)
+                    .resources(runtime=_InlineRuntime())
+                    .debugging(seed=0).build())
+            if k == 0:
+                learner, save = algo.learner, algo.learner.checkpoint
+
+                def checkpoint(**kw):
+                    saved[learner.num_updates] = learner.state_tree()
+                    save(**kw)
+
+                learner.checkpoint = checkpoint
+            algo.train()                       # warm-up
+            u0 = algo.learner.num_updates
+            t0 = time.perf_counter()
+            while algo.learner.num_updates - u0 < RL_PODRACER_UPDATES:
+                r = algo.train()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            st = r["queue"]
+            losses_ok = math.isfinite(r["learner/total_loss"])
+            rows.append(dict(
+                staleness_bound=k,
+                updates_per_s=(algo.learner.num_updates - u0) / dt,
+                updates=algo.learner.num_updates, accepted=st["accepted"],
+                stale_dropped=st["stale_dropped"],
+                backpressured=st["backpressured"],
+                fragments_per_s=st["accepted"] / dt,
+                last_trained_staleness=r["learner/staleness"]))
+            check(losses_ok, f"k={k}: loss not finite")
+            algo.stop()
+        check(RL_CKPT_AT in saved, f"no checkpoint at update {RL_CKPT_AT}")
+        fresh = StaleTolerantLearner(4, 2, seed=99, ckpt_dir=root,
+                                     device="cuda")
+        restored = fresh.restore_latest()
+        check(restored == RL_CKPT_AT, f"latest checkpoint {restored}")
+        want = saved[restored]
+        got = fresh.state_tree()
+        same = all(np.array_equal(a, b) for a, b in zip(
+            leaves(got), leaves(want)))
+        check(same, f"restored state at update {restored} differs")
+
+    algo = (PPOConfig().rollouts(num_rollout_workers=0)
+            .debugging(seed=0).build())
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r = algo.train()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    algo.stop()
+    check(math.isfinite(r["learner/total_loss"]), "PPO loss not finite")
+    emit("rl_podracer", env="CartPole-v1", actors=2, envs_per_actor=16,
+         fragment_length=32, learner_by_staleness_bound=rows,
+         checkpoint_step=restored, restored_bit_exact=same,
+         ppo_iterations=3, ppo_s_per_iteration=times,
+         ppo_sampled_rows=r["sampled_rows"],
+         ppo_episode_reward_mean=r["episode_reward_mean"])
+
+
+def phase_rl_parity() -> None:
+    """The same work on the card and on the CPU, f32 with TF32 off: one
+    _VTraceLearner update (MLP and Nature-CNN, same weights and batch,
+    terminations and truncations in it): loss within 1e-5 relative and
+    every parameter's update within 0.05 * lr; EngineRolloutActor at
+    llama-1b widths, 2 layers, greedy (K4 on the card, its plain version
+    on the CPU): actions token-exact, log-probs within 1e-4."""
+    import numpy as np
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.rl import EngineRolloutActor
+    from ray_tpu_torch.rllib import IMPALAConfig, SampleBatch
+    from ray_tpu_torch.rllib.impala import _VTraceLearner
+
+    _f32_exact()
+    rng = np.random.default_rng(11)
+    cfg = IMPALAConfig()
+    out = {}
+    for name, obs_dim, (T, B) in (("mlp", 4, (32, 16)),
+                                  ("nature_cnn", (84, 84, 4), (16, 8))):
+        shape = (obs_dim,) if isinstance(obs_dim, int) else obs_dim
+        if name == "mlp":
+            obs = rng.normal(size=(T + 1, B) + shape).astype(np.float32)
+        else:
+            obs = rng.integers(0, 256, (T + 1, B) + shape).astype(np.uint8)
+        term, trunc = rng.random((T, B)) < 0.05, rng.random((T, B)) < 0.05
+        batch = SampleBatch({
+            "obs": obs[:T], "bootstrap_obs": obs[T],
+            "actions": rng.integers(0, 4, (T, B)).astype(np.int32),
+            "action_logp": rng.uniform(-2.0, -0.8, (T, B)).astype(
+                np.float32),
+            "rewards": rng.normal(size=(T, B)).astype(np.float32),
+            "terminateds": term, "truncateds": trunc})
+        res = {}
+        for device in ("cuda", "cpu"):
+            ln = _VTraceLearner(obs_dim, 4, cfg, cfg.model_hidden, seed=3,
+                                device=device)
+            before = [p.detach().cpu().clone() for p in ln.opt.params]
+            m = ln.update(batch)
+            res[device] = (m["total_loss"], [
+                p.detach().cpu() - b for p, b in zip(ln.opt.params,
+                                                     before)])
+        loss_rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+        upd_err = max(float((a - b).abs().max())
+                      for a, b in zip(res["cuda"][1], res["cpu"][1]))
+        out[name] = dict(batch=[T, B], loss_cuda=res["cuda"][0],
+                         loss_cpu=res["cpu"][0], loss_rel_err=loss_rel,
+                         max_update_err=upd_err, limit=0.05 * cfg.lr,
+                         has_terminal=bool(term.any()),
+                         has_truncation=bool(trunc.any()))
+        check(loss_rel <= 1e-5, f"rl_parity {name}: loss {res}")
+        check(upd_err <= 0.05 * cfg.lr,
+              f"rl_parity {name}: update error {upd_err}")
+
+    config = dataclasses.replace(llama.CONFIGS["llama-1b"], n_layers=2,
+                                 dtype=torch.float32)
+    params = llama.init_params(config, torch.Generator().manual_seed(7),
+                               device="cpu")
+    prompts = [[(37 * i + 11 * j) % config.vocab_size for j in range(n)]
+               for i, n in enumerate((5, 17, 33, 48, 64, 9))]
+    rolls = {}
+    for device in ("cuda", "cpu"):
+        actor = EngineRolloutActor("llama", config, params=params,
+                                   max_lanes=4, block_size=16,
+                                   max_seq_len=128, temperature=0.0,
+                                   device=device)
+        rolls[device] = actor.rollout(prompts, max_new_tokens=16)[0]
+    same = np.array_equal(rolls["cuda"]["actions"], rolls["cpu"]["actions"])
+    lp_err = float(np.abs(rolls["cuda"]["action_logp"]
+                          - rolls["cpu"]["action_logp"]).max())
+    emit("rl_parity", learner=out,
+         engine=dict(config="llama-1b widths, 2 layers, float32",
+                     prompts=len(prompts), new_tokens=16,
+                     actions_equal=same, max_logp_err=lp_err))
+    check(same, "rl_parity: CUDA and CPU rollout actions differ")
+    check(lp_err <= 1e-4, f"rl_parity: log-prob error {lp_err}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -2180,7 +2666,11 @@ def main() -> int:
               ("train_moe", phase_train_moe),
               ("moe_parity", lambda _: phase_moe_parity()),
               ("train_fabric", phase_train_fabric),
-              ("train_resnet", lambda _: phase_train_resnet()))
+              ("train_resnet", lambda _: phase_train_resnet()),
+              ("rl_rollout", phase_rl_rollout),
+              ("rl_learner", lambda _: phase_rl_learner()),
+              ("rl_podracer", lambda _: phase_rl_podracer()),
+              ("rl_parity", lambda _: phase_rl_parity()))
     for name, phase in phases:
         t0 = time.perf_counter()
         phase(report)

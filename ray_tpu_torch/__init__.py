@@ -23,7 +23,10 @@ GPT's Switch MoE on one device, ResNet (`models.resnet`), and the
 training fabric: sharded asynchronous checkpoints in the reference's
 format (`ray_tpu_torch.checkpoint`), the device feed
 (`ray_tpu_torch.data`) and a CUDA backend that a caller binds to the
-reference's trainer (`ray_tpu_torch.train`).
+reference's trainer (`ray_tpu_torch.train`).  And the RL path
+(`ray_tpu_torch.rllib`, `ray_tpu_torch.rl`): V-trace, the actor-critics,
+rollout workers, PPO and IMPALA learners, engine rollouts with behaviour
+log-probs and the Podracer loop, with the runtime passed in as a handle.
 
 Every entry point takes `device=None`, which means CUDA; without a card
 it raises unless the caller passes `device="cpu"`.

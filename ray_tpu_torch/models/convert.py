@@ -13,6 +13,13 @@ the port's module's state dict (conv kernels HWIO <-> OIHW).
 `train_state_from_numpy` and `train_state_to_tree` carry a whole train
 state, `optax.adamw`'s moments and step count included, so a run that
 either package checkpointed continues in the other.
+
+The RL actor-critics (`ray_tpu_torch.rllib.models`) have their own pair,
+`actor_critic_state_dict` / `actor_critic_variables` (a flax Dense
+kernel [in, out] <-> a Linear weight [out, in], a flax Conv kernel HWIO
+<-> a Conv2d weight OIHW), and their learners' optimizer state its own,
+`rl_adam_state` / `rl_opt_state_tree` (optax.chain(clip_by_global_norm,
+adam)'s count, mu and nu under optax's namedtuple skeleton).
 """
 
 from __future__ import annotations
@@ -200,3 +207,97 @@ def train_state_to_tree(state: dict) -> dict:
                 torch.tensor(count, dtype=torch.int32), moment("exp_avg"),
                 moment("exp_avg_sq")), EmptyState(), EmptyState()),
             "step": torch.tensor(state["step"], dtype=torch.int32)}
+
+
+# ---------------------------------------------------------------- RL models
+
+def _to_torch_layout(key: str, t: torch.Tensor) -> torch.Tensor:
+    """One flax leaf of an actor-critic in the port's layout: a Dense
+    kernel [in, out] -> [out, in], a Conv kernel HWIO -> OIHW."""
+    if not key.endswith(".kernel"):
+        return t
+    return (t.permute(3, 2, 0, 1) if t.dim() == 4 else t.t()).contiguous()
+
+
+def _to_flax_layout(key: str, t: torch.Tensor) -> torch.Tensor:
+    if not key.endswith(".weight"):
+        return t
+    return t.permute(2, 3, 1, 0) if t.dim() == 4 else t.t()
+
+
+def _flat_flax(tree: dict) -> dict:
+    """{"Dense_0.kernel": leaf, ...} of a flax params dict."""
+    return {f"{layer}.{name}": leaf for layer, sub in tree.items()
+            for name, leaf in sub.items()}
+
+
+def actor_critic_state_dict(variables: dict, model) -> dict:
+    """flax's variables tree ({"params": {"Dense_0": {"kernel", "bias"},
+    ...}}, numpy or tensor leaves) of the reference's `ActorCritic` or
+    `ConvActorCritic` as the state dict of the port's `model` (the same
+    class at the same widths), on the model's device.  Dense kernels
+    [in, out] become Linear weights [out, in]; Conv kernels HWIO become
+    Conv2d weights OIHW.  Raises if a key or a shape differs."""
+    want = model.state_dict()
+    flat = {k.replace(".kernel", ".weight"): _to_torch_layout(k, _tensor(v))
+            for k, v in _flat_flax(variables["params"]).items()}
+    if set(flat) != set(want):
+        raise ValueError(f"actor-critic params: keys {sorted(flat)} != "
+                         f"expected {sorted(want)}")
+    for key, t in flat.items():
+        if t.shape != want[key].shape:
+            raise ValueError(f"actor-critic params[{key!r}]: shape "
+                             f"{tuple(t.shape)} != expected "
+                             f"{tuple(want[key].shape)}")
+    return {k: flat[k].to(want[k].device, want[k].dtype) for k in want}
+
+
+def actor_critic_variables(tensors) -> dict:
+    """The inverse of `actor_critic_state_dict`: a port actor-critic (or
+    any {name: tensor} in its state dict's names, e.g. its gradients or
+    Adam moments) as flax's variables tree of numpy arrays."""
+    if isinstance(tensors, torch.nn.Module):
+        tensors = tensors.state_dict()
+    params: dict = {}
+    for key, t in tensors.items():
+        layer, _, name = key.rpartition(".")
+        flax_name = "kernel" if name == "weight" else name
+        params.setdefault(layer, {})[flax_name] = _numpy(
+            _to_flax_layout(key, t))
+    return {"params": params}
+
+
+# optax.chain(clip_by_global_norm, adam(lr)) keeps (EmptyState(),
+# (ScaleByAdamState(count, mu, nu), EmptyState())); with a schedule the
+# last is ScaleByScheduleState(count).
+ScaleByScheduleState = collections.namedtuple(
+    "ScaleByScheduleState", ("count",), module="optax._src.transform")
+
+
+def rl_adam_state(opt_state, model) -> tuple:
+    """An RL learner's optax state (the tree above; numpy or tensor
+    leaves, namedtuples or plain tuples) as (count, mu, nu): the step
+    count as an int and the moments as lists of tensors in the order of
+    `model.state_dict()`, in its layouts, on its device."""
+    count, mu, nu = opt_state[1][0]
+    want = model.state_dict()
+
+    def moments(tree):
+        sd = actor_critic_state_dict(tree, model)
+        return [sd[k].float() for k in want]
+
+    return int(count), moments(mu), moments(nu)
+
+
+def rl_opt_state_tree(count: int, mu, nu, model,
+                      schedule: bool = False) -> tuple:
+    """The inverse of `rl_adam_state`: count and the moments (lists in
+    the order of `model.state_dict()`) as optax's tree of numpy arrays,
+    count int32, with ScaleByScheduleState(count) last when the learner
+    runs a learning-rate schedule."""
+    keys = list(model.state_dict())
+    c = np.asarray(count, np.int32)
+    return (EmptyState(), (
+        ScaleByAdamState(c, actor_critic_variables(dict(zip(keys, mu))),
+                         actor_critic_variables(dict(zip(keys, nu)))),
+        ScaleByScheduleState(c.copy()) if schedule else EmptyState()))

@@ -1,0 +1,246 @@
+"""TorchLearner: minibatch SGD on sample batches (port of
+ray_tpu/rllib/learner.py's single-device `JaxLearner`), and the PPO loss.
+
+The reference jits the whole update (a lax.scan over minibatches inside
+one over epochs); here it is a Python loop over the same epochs and
+minibatches, each minibatch one forward, one backward and one optimizer
+step.  The permutations are the learner's own draws (a torch.Generator
+from `seed + 17`), not `jax.random`'s, so the two packages agree per
+minibatch step, not over a shuffled epoch.
+
+The optimizer is optax's `chain(clip_by_global_norm(grad_clip),
+adam(lr, eps=1e-5))`, written out (`ClipAdam`) in optax's arithmetic:
+- the global norm clips as `g / g_norm * max_norm`, and only when
+  `g_norm >= max_norm` (torch's `clip_grad_norm_` scales by
+  `max_norm / (g_norm + 1e-6)`, always);
+- Adam adds eps outside the square root and corrects the bias from the
+  incremented count; no weight decay.
+
+The data-parallel learner (`mesh`, the reference's shard_map with a
+gradient pmean) waits for the multi-device slice.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ray_tpu_torch._device import DeviceLike, resolve_device
+from ray_tpu_torch.models import convert
+from ray_tpu_torch.models._functional import check_single_device
+from ray_tpu_torch.rllib.models import make_model
+from ray_tpu_torch.rllib.sample_batch import SampleBatch
+
+
+def batch_tensors(batch, device: torch.device) -> Dict[str, torch.Tensor]:
+    """A SampleBatch's columns as tensors on `device`, dtypes kept (uint8
+    frames stay bytes).  A read-only column (one the object store handed
+    over) is copied first."""
+    out = {}
+    for k, v in batch.items():
+        a = np.asarray(v)
+        out[k] = torch.from_numpy(a if a.flags.writeable
+                                  else a.copy()).to(device)
+    return out
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor],
+                        max_norm: float) -> List[torch.Tensor]:
+    """optax.clip_by_global_norm: every gradient scaled by
+    max_norm / g_norm when the global norm g_norm >= max_norm, else
+    left as it is.  Decided on the device, without a host sync."""
+    g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    keep = g_norm < max_norm
+    one = torch.ones((), dtype=g_norm.dtype, device=g_norm.device)
+    denom = torch.where(keep, one, g_norm)
+    numer = torch.where(keep, one, torch.full_like(one, max_norm))
+    return [g / denom * numer for g in grads]
+
+
+class ClipAdam:
+    """optax.chain(clip_by_global_norm(max_norm), adam(lr, eps=1e-5))
+    over `params`, updated in place.  `decay_steps` makes the learning
+    rate optax's linear_schedule(lr, 0.0, decay_steps).  State: `count`
+    (host int) and the moments `mu`, `nu` (one tensor per param)."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-5
+
+    def __init__(self, params: Sequence[torch.Tensor], lr: float,
+                 max_norm: float, decay_steps: Optional[int] = None):
+        self.params = list(params)
+        self.lr, self.max_norm = float(lr), float(max_norm)
+        self.decay_steps = decay_steps
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def lr_at(self, count: int) -> float:
+        if self.decay_steps is None:
+            return self.lr
+        frac = 1.0 - min(max(count, 0), self.decay_steps) / self.decay_steps
+        return self.lr * frac
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        lr = self.lr_at(self.count)
+        self.count += 1
+        bc1 = 1.0 - self.B1 ** self.count
+        bc2 = 1.0 - self.B2 ** self.count
+        for p, g, m, v in zip(self.params,
+                              clip_by_global_norm(grads, self.max_norm),
+                              self.mu, self.nu):
+            m.mul_(self.B1).add_(g, alpha=1.0 - self.B1)
+            v.mul_(self.B2).addcmul_(g, g, value=1.0 - self.B2)
+            u = (m / bc1) / ((v / bc2).sqrt_() + self.EPS)
+            p.add_(u, alpha=-lr)
+
+
+class TorchLearner:
+    """Minibatch-SGD learner over an actor-critic model.
+
+    loss_fn(model, minibatch, cfg) -> (loss, metrics) is supplied by the
+    algorithm (`ppo_loss` below); the minibatch is a dict of tensors on
+    the learner's device.  `device=None` means CUDA.
+    """
+
+    def __init__(self, obs_dim, num_actions: int, *,
+                 loss_fn: Callable, config: Dict[str, Any],
+                 hidden=(64, 64), seed: int = 0,
+                 mesh: Optional[Any] = None, action_dim: int = 0,
+                 model: str = "fc", device: DeviceLike = None):
+        check_single_device(mesh)
+        if model != "fc":
+            raise NotImplementedError(
+                f"model={model!r}: the recurrent learner waits for its "
+                f"item of ROADMAP A9")
+        if num_actions == 0 and action_dim > 0:
+            raise NotImplementedError(
+                "continuous actions wait for their item of ROADMAP A9 "
+                "(GaussianActorCritic)")
+        self.device = resolve_device(device)
+        self.config = config
+        self.model = make_model(obs_dim, num_actions, hidden, seed=seed,
+                                device=self.device)
+        self.opt = ClipAdam(
+            self.model.parameters(), config.get("lr", 3e-4),
+            config.get("grad_clip", 0.5),
+            (config.get("lr_decay_steps", 1000)
+             if config.get("lr_schedule") == "linear" else None))
+        self._loss_fn = loss_fn
+        self._gen = torch.Generator().manual_seed(seed + 17)
+        self._lock = threading.Lock()
+
+    def minibatch_step(self, mb: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        """One loss, backward and optimizer step on one minibatch;
+        returns the loss's metrics as device scalars."""
+        params = self.opt.params
+        loss, metrics = self._loss_fn(self.model, mb, self.config)
+        grads = torch.autograd.grad(loss, params)
+        with self._lock:
+            self.opt.step(grads)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def update(self, batch: SampleBatch) -> Dict[str, float]:
+        tb = batch_tensors(batch, self.device)
+        n = next(iter(tb.values())).shape[0]
+        mb_size = self.config.get("sgd_minibatch_size", 128)
+        num_mb = max(n // mb_size, 1)
+        rows = min(mb_size, n)
+        metrics: List[Dict[str, torch.Tensor]] = []
+        for _ in range(self.config.get("num_sgd_iter", 1)):
+            perm = torch.randperm(n, generator=self._gen).to(self.device)
+            for i in range(num_mb):
+                idx = perm[i * rows:(i + 1) * rows]
+                metrics.append(self.minibatch_step(
+                    {k: v[idx] for k, v in tb.items()}))
+        keys = list(metrics[0])
+        means = torch.stack([torch.stack([m[k] for m in metrics]).mean()
+                             for k in keys]).tolist()
+        return dict(zip(keys, means))
+
+    def get_weights(self):
+        with self._lock:
+            return convert.actor_critic_variables(self.model)
+
+    def set_weights(self, weights) -> None:
+        sd = convert.actor_critic_state_dict(weights, self.model)
+        with self._lock:
+            self.model.load_state_dict(sd)
+
+    def get_state(self) -> Dict[str, Any]:
+        return learner_state(self)
+
+    def set_state(self, state: Dict[str, Any]) -> None:
+        set_learner_state(self, state)
+
+
+def learner_state(learner) -> Dict[str, Any]:
+    """{"params", "opt_state"} of a learner with `.model`, `.opt`
+    (ClipAdam) and `._lock`, in the reference's layout (numpy)."""
+    opt = learner.opt
+    with learner._lock:
+        return {"params": convert.actor_critic_variables(learner.model),
+                "opt_state": convert.rl_opt_state_tree(
+                    opt.count, opt.mu, opt.nu, learner.model,
+                    schedule=opt.decay_steps is not None)}
+
+
+def set_learner_state(learner, state: Dict[str, Any]) -> None:
+    """Load {"params", "opt_state"} (either package's layout) into such a
+    learner."""
+    sd = convert.actor_critic_state_dict(state["params"], learner.model)
+    count, mu, nu = convert.rl_adam_state(state["opt_state"], learner.model)
+    with learner._lock:
+        learner.model.load_state_dict(sd)
+        learner.opt.count = count
+        for dst, src in zip(learner.opt.mu + learner.opt.nu, mu + nu):
+            dst.copy_(src)
+
+
+def policy_terms(model, mb, cfg=None):
+    """Shared per-minibatch terms: (values, taken-action logp, normalized
+    advantages, entropy) — used by the PPO loss."""
+    logits, values = model(mb[SampleBatch.OBS])
+    logp_all = F.log_softmax(logits, dim=-1)
+    actions = mb[SampleBatch.ACTIONS].long()
+    logp = logp_all.gather(1, actions[:, None])[:, 0]
+    adv = mb[SampleBatch.ADVANTAGES]
+    if not (cfg or {}).get("advantages_prenormalized"):
+        adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    entropy = -(torch.exp(logp_all) * logp_all).sum(-1).mean()
+    return values, logp, adv, entropy
+
+
+def _ppo_surrogate(mb, cfg, values, logp, entropy) -> Tuple[torch.Tensor,
+                                                            Dict]:
+    """Clipped surrogate + clamped squared vf error (zero-gradding
+    outliers past vf_clip_param), as the reference assembles them."""
+    clip = cfg.get("clip_param", 0.2)
+    vf_clip = cfg.get("vf_clip_param", 100.0)
+    vf_coeff = cfg.get("vf_loss_coeff", 0.5)
+    ent_coeff = cfg.get("entropy_coeff", 0.0)
+
+    adv = mb[SampleBatch.ADVANTAGES]
+    if not cfg.get("advantages_prenormalized"):
+        adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    ratio = torch.exp(logp - mb[SampleBatch.ACTION_LOGP])
+    surr = torch.minimum(ratio * adv,
+                         torch.clamp(ratio, 1 - clip, 1 + clip) * adv)
+    policy_loss = -surr.mean()
+    vf_loss = torch.clamp(
+        (values - mb[SampleBatch.VALUE_TARGETS]) ** 2, max=vf_clip).mean()
+    total = policy_loss + vf_coeff * vf_loss - ent_coeff * entropy
+    return total, {"total_loss": total, "policy_loss": policy_loss,
+                   "vf_loss": vf_loss, "entropy": entropy,
+                   "kl": (mb[SampleBatch.ACTION_LOGP] - logp).mean()}
+
+
+def ppo_loss(model, mb, cfg) -> Tuple[torch.Tensor, Dict]:
+    """Clipped-surrogate PPO loss (categorical actions)."""
+    values, logp, _adv, entropy = policy_terms(model, mb)
+    return _ppo_surrogate(mb, cfg, values, logp, entropy)

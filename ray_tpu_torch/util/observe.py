@@ -19,7 +19,8 @@ to `ray_tpu.util`.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+import contextlib
+from typing import Any, Iterator, Optional
 
 
 class Observer:
@@ -31,6 +32,8 @@ class Observer:
       span (`spans.begin` / `spans.end`; `ctx=` is the trace context).
       `end` gets whatever `begin` returned; a None token is no span and
       records nothing.
+    - `span(plane, kind, **fields)`: `begin` and `end` around a `with`
+      block (the reference's `spans.span`).
     - `inc(name, n)`, `set(name, value)`, `observe(name, value)`: a
       counter, a gauge and a histogram sample, by metric name.
     - `context()`: the caller's trace context at submit time (the
@@ -46,6 +49,14 @@ class Observer:
 
     def end(self, token: Any, **fields: Any) -> None:
         pass
+
+    @contextlib.contextmanager
+    def span(self, plane: str, kind: str, **fields: Any) -> Iterator[Any]:
+        tok = self.begin(plane, kind, **fields)
+        try:
+            yield tok
+        finally:
+            self.end(tok)
 
     def inc(self, name: str, n: float = 1.0) -> None:
         pass
