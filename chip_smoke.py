@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (ray_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py                     # one card
+    python3 chip_smoke.py                     # one card, every phase
+    python3 chip_smoke.py rl_offpolicy ...    # the named phases only
 
 It runs every phase, each printing one JSON line; any failure ends the
 run with a nonzero exit code and no result line:
@@ -152,6 +153,38 @@ run with a nonzero exit code and no result line:
            within 1e-5 relative, every update within 0.05 x lr); greedy
            rollouts at llama-1b widths, 2 layers, on the card (K4) and on
            the CPU: actions token-exact, log-probs within 1e-4.
+  rl_continuous  PPO with the Gaussian actor-critic on Pendulum-v1 at the
+           reference's own test settings (16 envs x 128 steps, train
+           batch 4096, minibatch 512, 10 SGD iterations, lr 1e-3, gamma
+           0.95, hidden (64, 64)), policy and learner on the card: up to
+           150 train() calls, stopping once episode_reward_mean > -400,
+           and failing if it never gets there.  Then A2C and APPO on
+           CartPole-v1 at their configs' defaults (2 rollout actors of
+           the in-process runtime): 5 timed train() calls each, losses
+           finite.  Prints iterations, ms per SGD minibatch, env frames/s.
+  rl_offpolicy  SAC and TD3 on Pendulum-v1 and DQN on CartPole-v1 at
+           their configs' defaults (SAC / TD3: (256, 256), batch 256, 32
+           updates a step, replay 100k, warm-up 1,000, learning from
+           1,500; 2 rollout actors of the in-process runtime): train()
+           past learning_starts, then 20 timed rounds each; ms per
+           update, updates/s, launches per update and the device's busy
+           share (torch.profiler over 5 updates); SAC's alpha; DQN's
+           target net must equal the params at its last sync after every
+           round.
+  rl_recurrent  the LSTM half of the reference's memory gate on
+           RepeatPrev-v0 (32 envs x 24 steps, hidden (32,), lstm 32, 120
+           iterations of TorchLearner(model="lstm") on the card): it must
+           score > 40 of 48 (the feed-forward half, < 26, is a CPU test);
+           launches per LSTM minibatch.  Then the recurrent V-trace
+           learner at lstm 64 on 16 x 64 RepeatPrev fragments: ms per
+           update and launches per update.
+  rl_breadth_parity  f32, TF32 off: one update of each new learner (PPO
+           Gaussian and LSTM, A2C, the recurrent V-trace, APPO, DQN, SAC,
+           and TD3's two updates over its delay) on the card and on the
+           CPU from the same weights, batch and noise: metrics within
+           1e-5 relative + 1e-6, every update within 0.05 x lr; deterministic
+           continuous actions within 1e-5, greedy recurrent actions
+           equal.
 
 Each phase's wall seconds follow it on a line of their own.  Then, on
 lines of their own: the kernels' JSON record, the card's name and power
@@ -2634,6 +2667,473 @@ def phase_rl_parity() -> None:
     check(lp_err <= 1e-4, f"rl_parity: log-prob error {lp_err}")
 
 
+class _Profiled:
+    """Device time and launches of a call, read by torch.profiler over
+    `n` calls after an untraced timing of the same calls: device ms per
+    call, launches per call (kernels and copies), and the busy share,
+    device ms over the untraced call's host ms."""
+
+    def __init__(self, fn, n: int = 5):
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        self.host_ms = (time.perf_counter() - t0) / n * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA"]
+        self.device_ms = sum(e.self_device_time_total
+                             for e in events) / n / 1e3
+        self.launches = sum(e.count for e in events) / n
+        self.busy = self.device_ms / self.host_ms
+
+    def fields(self, prefix: str) -> dict:
+        return {f"{prefix}_host_ms": self.host_ms,
+                f"{prefix}_device_ms": self.device_ms,
+                f"{prefix}_launches": self.launches,
+                f"{prefix}_busy_share": self.busy}
+
+
+PENDULUM_TARGET, PENDULUM_MAX_ITERS = -400.0, 150
+RL_TIMED_CALLS = 5
+
+
+def phase_rl_continuous() -> None:
+    """PPO with GaussianActorCritic on Pendulum-v1 at the reference's
+    `test_ppo_continuous_pendulum` settings (tests/test_rllib.py), on the
+    card, until episode_reward_mean > -400 (at most 150 train() calls);
+    then A2C and APPO on CartPole-v1 at their configs' defaults with the
+    in-process runtime's 2 rollout actors, 5 timed train() calls each."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import A2CConfig, APPOConfig, PPOConfig
+
+    algo = (PPOConfig().environment("Pendulum-v1")
+            .rollouts(num_rollout_workers=0, num_envs_per_worker=16,
+                      rollout_fragment_length=128)
+            .training(train_batch_size=4096, sgd_minibatch_size=512,
+                      num_sgd_iter=10, lr=1e-3, entropy_coeff=0.0,
+                      clip_param=0.2, vf_clip_param=1e6, gamma=0.95,
+                      grad_clip=1.0)
+            .debugging(seed=0).build())
+    learner = algo.learner
+    sgd_s = [0.0]
+    step = learner.update
+
+    def timed_update(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(batch)              # ends in the metrics' host copy
+        sgd_s[0] += time.perf_counter() - t0
+        return out
+
+    learner.update = timed_update
+    best, curve = -math.inf, []
+    t0 = time.perf_counter()
+    for _ in range(PENDULUM_MAX_ITERS):
+        r = algo.train()
+        curve.append(r["episode_reward_mean"])
+        best = max(best, r["episode_reward_mean"])
+        if best > PENDULUM_TARGET:
+            break
+    wall = time.perf_counter() - t0
+    batch, _ = algo.workers.local_worker.sample()
+    algo.stop()
+    iters = len(curve)
+    minibatches = iters * 10 * (4096 // 512)
+    frames = r["timesteps_total"]
+    emit("rl_continuous", algo="PPO", env="Pendulum-v1",
+         model="GaussianActorCritic (64, 64)", iterations=iters,
+         best_reward_mean=best, target=PENDULUM_TARGET,
+         reward_curve=curve[::5] + [curve[-1]],
+         ms_per_sgd_minibatch=sgd_s[0] / minibatches * 1e3,
+         sgd_share_of_wall=sgd_s[0] / wall,
+         env_frames_per_s=frames / wall, frames=frames, wall_s=wall,
+         actions=[list(batch["actions"].shape), str(batch["actions"].dtype)])
+    check(best > PENDULUM_TARGET,
+          f"rl_continuous: PPO on Pendulum-v1 reached only {best}")
+    check(batch["actions"].dtype == np.float32
+          and batch["actions"].shape[-1] == 1, "continuous action plumbing")
+
+    for name, cfg in (("A2C", A2CConfig()), ("APPO", APPOConfig())):
+        algo = (cfg.environment("CartPole-v1")
+                .resources(runtime=_InlineRuntime()).debugging(seed=0)
+                .build())
+        algo.train()                                   # warm-up
+        times, losses = [], []
+        for _ in range(RL_TIMED_CALLS):
+            t0 = time.perf_counter()
+            r = algo.train()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(r["learner/total_loss"])
+        algo.stop()
+        emit("rl_continuous", algo=name, env="CartPole-v1",
+             s_per_train_call=times, losses=losses,
+             timesteps_total=r["timesteps_total"],
+             episode_reward_mean=r["episode_reward_mean"])
+        check(all(math.isfinite(x) for x in losses),
+              f"rl_continuous: {name} losses {losses}")
+
+
+RL_OFFPOLICY_ROUNDS = 20
+
+
+def phase_rl_offpolicy() -> None:
+    """SAC and TD3 on Pendulum-v1, DQN on CartPole-v1, each at its
+    config's defaults with the in-process runtime's 2 rollout actors and
+    the learner on the card: train() until updates start (the buffer
+    past learning_starts), then 20 timed rounds; 32 learner updates
+    timed alone and 5 profiled.  DQN's target net must, after every
+    round, equal the params at its last sync (syncs every 250 updates)
+    and differ from the current params."""
+    from ray_tpu_torch.rllib import DQNConfig, SACConfig, TD3Config
+
+    for name, cfg in (("SAC", SACConfig().environment("Pendulum-v1")),
+                      ("TD3", TD3Config().environment("Pendulum-v1")),
+                      ("DQN", DQNConfig().environment("CartPole-v1"))):
+        algo = cfg.resources(runtime=_InlineRuntime()).debugging(
+            seed=0).build()
+        learner = algo.learner
+        syncs = []
+        if name == "DQN":
+            sync = learner.sync_target
+
+            def recording_sync(sync=sync, learner=learner):
+                sync()
+                syncs.append((learner.num_updates, [
+                    p.detach().clone() for p in learner.model.parameters()]))
+
+            learner.sync_target = recording_sync
+            initial = [p.detach().clone() for p in learner.target.parameters()]
+        warm = 0
+        while algo.train()["updates_this_iter"] == 0:
+            warm += 1
+        target_ok = True
+        times = []
+        for _ in range(RL_OFFPOLICY_ROUNDS):
+            t0 = time.perf_counter()
+            r = algo.train()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if name == "DQN":
+                want = syncs[-1][1] if syncs else initial
+                target_ok &= all(torch.equal(a, b) for a, b in zip(
+                    learner.target.parameters(), want))
+                target_ok &= not all(torch.equal(a, b) for a, b in zip(
+                    learner.target.parameters(), learner.model.parameters()))
+
+        rounds_updates = learner.num_updates
+
+        def one_update(algo=algo):
+            algo.learner.update(algo.buffer.sample(cfg.train_batch_size))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(32):
+            one_update()
+        torch.cuda.synchronize()
+        update_ms = (time.perf_counter() - t0) / 32 * 1e3
+        prof = _Profiled(one_update)
+        losses = {k: v for k, v in r.items() if k.startswith("learner/")}
+        fields = dict(
+            algo=name, env=cfg.env, hidden=list(cfg.model_hidden),
+            batch=cfg.train_batch_size, updates_per_step=cfg.updates_per_step,
+            warmup_calls=warm + 1, rounds=RL_OFFPOLICY_ROUNDS,
+            s_per_round=times, updates=rounds_updates,
+            ms_per_update=update_ms, updates_per_s=1e3 / update_ms,
+            buffer_size=r["buffer_size"],
+            episode_reward_mean=r["episode_reward_mean"], **losses,
+            **prof.fields("update"))
+        if name == "SAC":
+            fields["alpha"] = r["learner/alpha"]
+        if name == "DQN":
+            fields.update(target_syncs=[u for u, _ in syncs],
+                          target_moved_only_at_syncs=target_ok)
+        algo.stop()
+        emit("rl_offpolicy", **fields)
+        check(all(math.isfinite(v) for v in losses.values()),
+              f"rl_offpolicy: {name} metrics {losses}")
+        if name == "DQN":
+            check(target_ok and syncs and all(
+                u % cfg.target_update_freq == 0 for u, _ in syncs),
+                f"rl_offpolicy: DQN target syncs {[u for u, _ in syncs]}")
+
+
+MEMORY_ITERS = 120
+
+
+def _memory_task() -> dict:
+    """The LSTM half of the reference's gate (tests/test_rllib.py
+    test_recurrent_ppo_solves_memory_task_feedforward_cannot) on the
+    card: mean return of 4 fragments after 120 iterations."""
+    from ray_tpu_torch.rllib import (RolloutWorker, TorchLearner,
+                                     ppo_loss_recurrent)
+    from ray_tpu_torch.rllib.learner import batch_tensors
+
+    w = RolloutWorker("RepeatPrev-v0", num_envs=32,
+                      rollout_fragment_length=24, hidden=(32,), seed=0,
+                      gamma=0.5, lam=0.9, device="cuda",
+                      policy_kind="recurrent", lstm_size=32)
+    ln = TorchLearner(3, 3, hidden=(32,), model="lstm", lstm_size=32,
+                      loss_fn=ppo_loss_recurrent,
+                      config={"lr": 5e-3, "num_sgd_iter": 8,
+                              "sgd_minibatch_size": 16,
+                              "entropy_coeff": 0.01}, device="cuda")
+    t0 = time.perf_counter()
+    for _ in range(MEMORY_ITERS):
+        w.set_weights(ln.get_weights())
+        b, _ = w.sample()
+        ln.update(b)
+    wall = time.perf_counter() - t0
+    rets = []
+    for _ in range(4):
+        _, m = w.sample()
+        rets += m["episode_returns"]
+    out = {"lstm_return": sum(rets) / max(len(rets), 1),
+           "lstm_wall_s": wall}
+    mb = {k: v[:16] for k, v in batch_tensors(b, ln.device).items()}
+    out.update(_Profiled(lambda: ln.minibatch_step(mb)).fields(
+        "lstm_minibatch"))
+    return out
+
+
+def phase_rl_recurrent() -> None:
+    """The memory gate's LSTM half (> 40 of 48) with the LSTM's launches
+    per minibatch (T 24, 16 sequences); then the
+    recurrent V-trace learner at IMPALA's defaults with use_lstm (lstm
+    64, hidden (64, 64)) on two RepeatPrev-v0 fragments of 16 envs x 64
+    steps: 3 warm-up and 20 timed updates, 5 profiled."""
+    from ray_tpu_torch.rllib import IMPALAConfig, RolloutWorker
+    from ray_tpu_torch.rllib.impala import _VTraceLearner
+
+    memory = _memory_task()
+    cfg = IMPALAConfig().training(use_lstm=True)
+    worker = RolloutWorker("RepeatPrev-v0", num_envs=16,
+                           rollout_fragment_length=64, postprocess=False,
+                           policy_kind="recurrent", lstm_size=cfg.lstm_size,
+                           hidden=cfg.model_hidden, seed=0, device="cuda")
+    learner = _VTraceLearner(3, 3, cfg, cfg.model_hidden, seed=0,
+                             device="cuda")
+    worker.set_weights(learner.get_weights())
+    frags = [worker.sample()[0] for _ in range(2)]
+    losses = [learner.update(frags[i % 2])["total_loss"] for i in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(RL_LEARNER_STEPS):
+        losses.append(learner.update(frags[i % 2])["total_loss"])
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) / RL_LEARNER_STEPS * 1e3
+    prof = _Profiled(lambda: learner.update(frags[0]))
+    emit("rl_recurrent", memory_task=dict(
+        env="RepeatPrev-v0", envs=32, fragment=24, hidden=[32], lstm=32,
+        iterations=MEMORY_ITERS, **memory),
+        vtrace=dict(lstm=cfg.lstm_size, hidden=list(cfg.model_hidden),
+                    fragment=list(frags[0]["obs"].shape),
+                    resets=int(frags[0]["resets"].sum()),
+                    update_ms=update_ms, updates_per_s=1e3 / update_ms,
+                    losses=losses, **prof.fields("update")))
+    check(memory["lstm_return"] > 40,
+          f"rl_recurrent: LSTM scored {memory['lstm_return']} of 48")
+    check(all(math.isfinite(x) for x in losses),
+          f"rl_recurrent: V-trace losses {losses}")
+
+
+def _parity_batches(rng):
+    """Numpy batches for rl_breadth_parity, by learner."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import SampleBatch
+
+    def f32(*shape, scale=1.0):
+        return (scale * rng.normal(size=shape)).astype(np.float32)
+
+    def transitions(n, obs_dim, discrete=0):
+        return SampleBatch({
+            "obs": f32(n, obs_dim), "next_obs": f32(n, obs_dim),
+            "actions": (rng.integers(0, discrete, n).astype(np.int32)
+                        if discrete else
+                        rng.uniform(-2, 2, (n, 1)).astype(np.float32)),
+            "rewards": f32(n), "dones": rng.random(n) < 0.1})
+
+    def fragment(T, B, obs_dim, lstm=0):
+        out = {"obs": f32(T, B, obs_dim), "bootstrap_obs": f32(B, obs_dim),
+               "actions": rng.integers(0, 3, (T, B)).astype(np.int32),
+               "action_logp": rng.uniform(-1.6, -0.6, (T, B)).astype(
+                   np.float32),
+               "rewards": f32(T, B), "terminateds": rng.random((T, B)) < 0.03,
+               "truncateds": rng.random((T, B)) < 0.03}
+        if lstm:
+            out.update(state_in=f32(2, B, lstm, scale=0.3),
+                       bootstrap_state=f32(2, B, lstm, scale=0.3),
+                       resets=rng.random((T, B)) < 0.05)
+        return SampleBatch(out)
+
+    n = 512
+    gaussian = SampleBatch({
+        "obs": f32(n, 3), "actions": f32(n, 1), "action_logp": f32(n) - 1.0,
+        "advantages": f32(n), "value_targets": f32(n, scale=3.0)})
+    b, T = 16, 24
+    seqs = SampleBatch({
+        "obs": f32(b, T, 3), "actions": rng.integers(0, 3, (b, T)).astype(
+            np.int32), "action_logp": rng.uniform(-1.6, -0.6, (b, T)).astype(
+            np.float32), "advantages": f32(b, T),
+        "value_targets": f32(b, T), "resets": rng.random((b, T)) < 0.1,
+        "state_in": f32(b, 2, 32, scale=0.3)})
+    m = 2048
+    a2c = SampleBatch({
+        "obs": f32(m, 4), "actions": rng.integers(0, 2, m).astype(np.int32),
+        "action_logp": f32(m) - 1.0, "advantages": f32(m),
+        "value_targets": f32(m, scale=3.0)})
+    return {"ppo_gaussian": gaussian, "ppo_lstm": seqs, "a2c": a2c,
+            "vtrace_lstm": fragment(64, 16, 3, lstm=64),
+            "appo": fragment(64, 16, 4), "dqn": transitions(128, 4, 2),
+            "sac": transitions(256, 3), "td3": transitions(256, 3)}
+
+
+def _parity_learner(name: str, device: str):
+    """A new learner of each kind, its weights drawn on the CPU from one
+    seed (so equal on both devices), and its lr."""
+    from ray_tpu_torch.rllib import (A2CConfig, APPOConfig, DQNConfig,
+                                     IMPALAConfig, SACConfig, TD3Config,
+                                     TorchLearner, a2c_loss,
+                                     ppo_loss_continuous, ppo_loss_recurrent)
+    from ray_tpu_torch.rllib.dqn import _QLearner
+    from ray_tpu_torch.rllib.impala import _VTraceLearner
+    from ray_tpu_torch.rllib.sac import _SACLearner
+    from ray_tpu_torch.rllib.td3 import _TD3Learner
+
+    ppo = {"lr": 1e-3, "grad_clip": 1.0, "num_sgd_iter": 1,
+           "sgd_minibatch_size": 4096, "clip_param": 0.2,
+           "vf_clip_param": 10.0, "vf_loss_coeff": 0.5, "entropy_coeff": 0.01}
+    if name == "ppo_gaussian":
+        return TorchLearner(3, 0, action_dim=1, loss_fn=ppo_loss_continuous,
+                            config=ppo, seed=3, device=device), 1e-3
+    if name == "ppo_lstm":
+        return TorchLearner(3, 3, model="lstm", lstm_size=32, hidden=(32,),
+                            loss_fn=ppo_loss_recurrent, config=ppo, seed=3,
+                            device=device), 1e-3
+    if name == "a2c":
+        cfg = A2CConfig()
+        return TorchLearner(4, 2, loss_fn=a2c_loss, config={
+            "lr": cfg.lr, "grad_clip": cfg.grad_clip, "num_sgd_iter": 1,
+            "sgd_minibatch_size": 2048, "entropy_coeff": cfg.entropy_coeff},
+            seed=3, device=device), cfg.lr
+    if name == "vtrace_lstm":
+        cfg = IMPALAConfig().training(use_lstm=True)
+        return _VTraceLearner(3, 3, cfg, cfg.model_hidden, 3,
+                              device=device), cfg.lr
+    if name == "appo":
+        cfg = APPOConfig()
+        return _VTraceLearner(4, 3, cfg, cfg.model_hidden, 3,
+                              device=device), cfg.lr
+    if name == "dqn":
+        cfg = DQNConfig()
+        return _QLearner(4, 2, cfg, cfg.model_hidden, 3,
+                         device=device), cfg.lr
+    if name == "sac":
+        cfg = SACConfig()
+        return _SACLearner(3, 1, cfg, -2.0, 2.0, 3, device=device), \
+            cfg.actor_lr
+    cfg = TD3Config()
+    return _TD3Learner(3, 1, cfg, -2.0, 2.0, 3, device=device), cfg.actor_lr
+
+
+def _parity_params(learner) -> list:
+    nets = [getattr(learner, n) for n in ("model", "actor", "q1", "q2",
+                                          "q1_t", "q2_t", "actor_t")
+            if hasattr(learner, n)]
+    out = [p.detach().cpu().clone() for m in nets for p in m.parameters()]
+    if hasattr(learner, "log_alpha"):
+        out.append(learner.log_alpha.detach().cpu().clone())
+    return out
+
+
+def phase_rl_breadth_parity() -> None:
+    """One update of each new learner on the card and on the CPU, f32
+    with TF32 off, from the same weights, batch and noise (TD3: two
+    updates, so its delayed actor step and polyak run): every metric
+    within 1e-5 relative + 1e-6, every parameter's update within
+    0.05 * lr.
+    Deterministic continuous actions (the Gaussian policy's clipped
+    mean, TD3's actor without noise, SAC's tanh(mean)) within 1e-5;
+    greedy recurrent actions over 8 threaded steps equal."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import (DeterministicNoiseRolloutPolicy,
+                                     RecurrentTorchPolicy,
+                                     SquashedGaussianRolloutPolicy,
+                                     TorchPolicy)
+
+    _f32_exact()
+    rng = np.random.default_rng(17)
+    batches = _parity_batches(rng)
+    noise = {"sac": (rng.normal(size=(256, 1)).astype(np.float32),
+                     rng.normal(size=(256, 1)).astype(np.float32)),
+             "td3": rng.normal(size=(256, 1)).astype(np.float32)}
+    rows = {}
+    for name, batch in batches.items():
+        res = {}
+        for device in ("cuda", "cpu"):
+            ln, lr = _parity_learner(name, device)
+            before = _parity_params(ln)
+            kw = {"noise": noise[name]} if name in noise else {}
+            metrics = ln.update(batch, **kw)
+            if name == "td3":
+                metrics.update(ln.update(batch, **kw))
+            res[device] = (metrics, [a - b for a, b in zip(
+                _parity_params(ln), before)])
+        (mc, uc), (mp, up) = res["cuda"], res["cpu"]
+        # Metrics within 1e-5 relative, with a 1e-6 floor for those near
+        # zero (a policy loss over normalized advantages).
+        over = max(abs(mc[k] - mp[k]) - 1e-5 * abs(mp[k]) for k in mp)
+        err = max(float((a - b).abs().max()) for a, b in zip(uc, up))
+        moved = max(float(b.abs().max()) for b in up)
+        rows[name] = dict(
+            max_metric_abs_err=max(abs(mc[k] - mp[k]) for k in mp),
+            loss_rel_err=max(abs(mc[k] - mp[k]) / abs(mp[k]) for k in mp
+                             if k in ("total_loss", "loss", "critic_loss")),
+            max_update_err=err, limit=0.05 * lr, max_update=moved)
+        check(over <= 1e-6 and err <= 0.05 * lr and moved > 0,
+              f"rl_breadth_parity {name}: {rows[name]}")
+
+    x = rng.normal(size=(64, 3)).astype(np.float32)
+    acts = {}
+    for name, make in (
+            ("gaussian_mean", lambda d: TorchPolicy(
+                3, 0, action_dim=1, action_low=-2.0, action_high=2.0,
+                seed=5, device=d)),
+            ("td3_actor", lambda d: DeterministicNoiseRolloutPolicy(
+                3, 1, seed=5, action_low=-2.0, action_high=2.0, device=d)),
+            ("sac_tanh_mean", lambda d: SquashedGaussianRolloutPolicy(
+                3, 1, seed=5, action_low=-2.0, action_high=2.0, device=d))):
+        a, b = (make(d).compute_actions(x, explore=False)[0]
+                for d in ("cuda", "cpu"))
+        acts[name] = float(np.abs(a - b).max())
+        check(acts[name] <= 1e-5, f"rl_breadth_parity {name}: {acts[name]}")
+    greedy = {}
+    for d in ("cuda", "cpu"):
+        pol = RecurrentTorchPolicy(3, 3, (64,), 64, seed=5, device=d)
+        state, seq = pol.initial_state(64), []
+        for t in range(8):
+            obs = np.eye(3, dtype=np.float32)[(np.arange(64) + t) % 3]
+            a, _, _, _, state = pol.compute_actions(obs, state,
+                                                    explore=False)
+            seq.append(a)
+        greedy[d] = np.stack(seq)
+    same = bool(np.array_equal(greedy["cuda"], greedy["cpu"]))
+    emit("rl_breadth_parity", learners=rows, continuous_action_err=acts,
+         recurrent_greedy_equal=same)
+    check(same, "rl_breadth_parity: greedy recurrent actions differ")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -2670,11 +3170,24 @@ def main() -> int:
               ("rl_rollout", phase_rl_rollout),
               ("rl_learner", lambda _: phase_rl_learner()),
               ("rl_podracer", lambda _: phase_rl_podracer()),
-              ("rl_parity", lambda _: phase_rl_parity()))
+              ("rl_parity", lambda _: phase_rl_parity()),
+              ("rl_continuous", lambda _: phase_rl_continuous()),
+              ("rl_offpolicy", lambda _: phase_rl_offpolicy()),
+              ("rl_recurrent", lambda _: phase_rl_recurrent()),
+              ("rl_breadth_parity", lambda _: phase_rl_breadth_parity()))
+    wanted = sys.argv[1:]
+    unknown = set(wanted) - {name for name, _ in phases}
+    if unknown:
+        print(f"chip_smoke: no phase {sorted(unknown)}", file=sys.stderr)
+        return 2
+    start = time.perf_counter()
     for name, phase in phases:
+        if wanted and name not in wanted:
+            continue
         t0 = time.perf_counter()
         phase(report)
         emit("wall", of=name, seconds=time.perf_counter() - t0)
+    emit("wall", of="all phases", seconds=time.perf_counter() - start)
     print(json.dumps({"kernels": list(report.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,12 +14,17 @@ the port's module's state dict (conv kernels HWIO <-> OIHW).
 state, `optax.adamw`'s moments and step count included, so a run that
 either package checkpointed continues in the other.
 
-The RL actor-critics (`ray_tpu_torch.rllib.models`) have their own pair,
+The RL models (`ray_tpu_torch.rllib.models`) have their own pair,
 `actor_critic_state_dict` / `actor_critic_variables` (a flax Dense
 kernel [in, out] <-> a Linear weight [out, in], a flax Conv kernel HWIO
-<-> a Conv2d weight OIHW), and their learners' optimizer state its own,
-`rl_adam_state` / `rl_opt_state_tree` (optax.chain(clip_by_global_norm,
-adam)'s count, mu and nu under optax's namedtuple skeleton).
+<-> a Conv2d weight OIHW, the free `log_std` as it is; the recurrent
+model's plain dict as it is), and their learners' optimizer states
+theirs: `rl_adam_state` / `rl_opt_state_tree` for
+optax.chain(clip_by_global_norm, adam)'s tree, and `adam_state` /
+`adam_state_tree` with `model_moments` / `moments_tree` for any
+ScaleByAdamState(count, mu, nu) over one model, a tuple of models (SAC's
+and TD3's critic optimizer spans q1 and q2) or a scalar, under optax's
+namedtuple skeleton.
 """
 
 from __future__ import annotations
@@ -226,21 +231,51 @@ def _to_flax_layout(key: str, t: torch.Tensor) -> torch.Tensor:
 
 
 def _flat_flax(tree: dict) -> dict:
-    """{"Dense_0.kernel": leaf, ...} of a flax params dict."""
-    return {f"{layer}.{name}": leaf for layer, sub in tree.items()
-            for name, leaf in sub.items()}
+    """{"Dense_0.kernel": leaf, ..., "log_std": leaf} of a flax params
+    dict (a free parameter sits at the top, beside the layers)."""
+    flat = {}
+    for layer, sub in tree.items():
+        if isinstance(sub, dict):
+            flat.update({f"{layer}.{name}": leaf
+                         for name, leaf in sub.items()})
+        else:
+            flat[layer] = sub
+    return flat
+
+
+def _flat_recurrent(tree: dict) -> dict:
+    """{"enc.0.w": leaf, ..., "lstm.wx": leaf, ...} of the reference's
+    recurrent param dict ({"enc": [{"w", "b"}, ...], "lstm": {"wx", "wh",
+    "b"}, "pi": {"w", "b"}, "vf": {"w", "b"}})."""
+    flat = {f"enc.{i}.{name}": leaf for i, layer in enumerate(tree["enc"])
+            for name, leaf in layer.items()}
+    for part in ("lstm", "pi", "vf"):
+        flat.update({f"{part}.{name}": leaf
+                     for name, leaf in tree[part].items()})
+    return flat
 
 
 def actor_critic_state_dict(variables: dict, model) -> dict:
-    """flax's variables tree ({"params": {"Dense_0": {"kernel", "bias"},
-    ...}}, numpy or tensor leaves) of the reference's `ActorCritic` or
-    `ConvActorCritic` as the state dict of the port's `model` (the same
-    class at the same widths), on the model's device.  Dense kernels
-    [in, out] become Linear weights [out, in]; Conv kernels HWIO become
-    Conv2d weights OIHW.  Raises if a key or a shape differs."""
+    """The reference's weights of an RL model as the state dict of the
+    port's `model` (the same class at the same widths), on the model's
+    device; numpy or tensor leaves.
+
+    - a flax variables tree ({"params": {"Dense_0": {"kernel", "bias"},
+      ..., "log_std"}}) of `ActorCritic`, `ConvActorCritic`,
+      `GaussianActorCritic`, `SquashedGaussianActor`,
+      `DeterministicActor` or `QNetwork`: Dense kernels [in, out] become
+      Linear weights [out, in], Conv kernels HWIO Conv2d weights OIHW;
+    - the recurrent model's plain dict ({"enc", "lstm", "pi", "vf"}),
+      whose [in, out] matrices the port keeps as they are.
+
+    Raises if a key or a shape differs."""
     want = model.state_dict()
-    flat = {k.replace(".kernel", ".weight"): _to_torch_layout(k, _tensor(v))
-            for k, v in _flat_flax(variables["params"]).items()}
+    if "params" in variables:
+        flat = {k.replace(".kernel", ".weight"):
+                _to_torch_layout(k, _tensor(v))
+                for k, v in _flat_flax(variables["params"]).items()}
+    else:
+        flat = {k: _tensor(v) for k, v in _flat_recurrent(variables).items()}
     if set(flat) != set(want):
         raise ValueError(f"actor-critic params: keys {sorted(flat)} != "
                          f"expected {sorted(want)}")
@@ -253,14 +288,30 @@ def actor_critic_state_dict(variables: dict, model) -> dict:
 
 
 def actor_critic_variables(tensors) -> dict:
-    """The inverse of `actor_critic_state_dict`: a port actor-critic (or
-    any {name: tensor} in its state dict's names, e.g. its gradients or
-    Adam moments) as flax's variables tree of numpy arrays."""
+    """The inverse of `actor_critic_state_dict`: a port RL model (or any
+    {name: tensor} in its state dict's names, e.g. its gradients or Adam
+    moments) as the reference's tree of numpy arrays: flax's variables
+    tree, or the recurrent model's plain dict."""
     if isinstance(tensors, torch.nn.Module):
         tensors = tensors.state_dict()
+    if "lstm.wx" in tensors:
+        tree: dict = {"enc": []}
+        for key, t in tensors.items():
+            part, _, name = key.rpartition(".")
+            if part.startswith("enc."):
+                i = int(part[4:])
+                while len(tree["enc"]) <= i:
+                    tree["enc"].append({})
+                tree["enc"][i][name] = _numpy(t)
+            else:
+                tree.setdefault(part, {})[name] = _numpy(t)
+        return tree
     params: dict = {}
     for key, t in tensors.items():
         layer, _, name = key.rpartition(".")
+        if not layer:                  # a free parameter (log_std)
+            params[key] = _numpy(t)
+            continue
         flax_name = "kernel" if name == "weight" else name
         params.setdefault(layer, {})[flax_name] = _numpy(
             _to_flax_layout(key, t))
@@ -274,19 +325,56 @@ ScaleByScheduleState = collections.namedtuple(
     "ScaleByScheduleState", ("count",), module="optax._src.transform")
 
 
+def model_moments(tree, models) -> list:
+    """One Adam moment of the reference (a tree shaped like the weights
+    of `models`: one RL model's, or a tuple of trees for a tuple of
+    models, as an optimizer over (q1, q2) keeps it) as a list of f32
+    tensors in the order of the models' state dicts, on their device."""
+    if not isinstance(models, (tuple, list)):
+        models, tree = (models,), (tree,)
+    out = []
+    for m, t in zip(models, tree):
+        sd = actor_critic_state_dict(t, m)
+        out += [sd[k].float() for k in m.state_dict()]
+    return out
+
+
+def moments_tree(moments, models):
+    """The inverse of `model_moments`: a list of tensors in the order of
+    the models' state dicts as the reference's tree (numpy)."""
+    if not isinstance(models, (tuple, list)):
+        return actor_critic_variables(dict(zip(models.state_dict(),
+                                               moments)))
+    trees, at = [], 0
+    for m in models:
+        keys = list(m.state_dict())
+        trees.append(actor_critic_variables(dict(zip(
+            keys, moments[at:at + len(keys)]))))
+        at += len(keys)
+    return tuple(trees)
+
+
+def adam_state(state, moments) -> tuple:
+    """optax.scale_by_adam's ScaleByAdamState(count, mu, nu) (namedtuple
+    or tuple, numpy or tensor leaves) as (int count, moments(mu),
+    moments(nu))."""
+    count, mu, nu = state
+    return int(count), moments(mu), moments(nu)
+
+
+def adam_state_tree(count: int, mu, nu, tree) -> "ScaleByAdamState":
+    """The inverse of `adam_state`: count (int32) and tree(mu), tree(nu)
+    under optax's ScaleByAdamState."""
+    return ScaleByAdamState(np.asarray(count, np.int32), tree(mu), tree(nu))
+
+
 def rl_adam_state(opt_state, model) -> tuple:
     """An RL learner's optax state (the tree above; numpy or tensor
     leaves, namedtuples or plain tuples) as (count, mu, nu): the step
     count as an int and the moments as lists of tensors in the order of
     `model.state_dict()`, in its layouts, on its device."""
-    count, mu, nu = opt_state[1][0]
-    want = model.state_dict()
-
-    def moments(tree):
-        sd = actor_critic_state_dict(tree, model)
-        return [sd[k].float() for k in want]
-
-    return int(count), moments(mu), moments(nu)
+    return adam_state(opt_state[1][0],
+                      lambda tree: model_moments(tree, model))
 
 
 def rl_opt_state_tree(count: int, mu, nu, model,
@@ -295,9 +383,8 @@ def rl_opt_state_tree(count: int, mu, nu, model,
     the order of `model.state_dict()`) as optax's tree of numpy arrays,
     count int32, with ScaleByScheduleState(count) last when the learner
     runs a learning-rate schedule."""
-    keys = list(model.state_dict())
     c = np.asarray(count, np.int32)
     return (EmptyState(), (
-        ScaleByAdamState(c, actor_critic_variables(dict(zip(keys, mu))),
-                         actor_critic_variables(dict(zip(keys, nu)))),
-        ScaleByScheduleState(c.copy()) if schedule else EmptyState()))
+        adam_state_tree(count, mu, nu,
+                        lambda moments: moments_tree(moments, model)),
+        ScaleByScheduleState(c) if schedule else EmptyState()))

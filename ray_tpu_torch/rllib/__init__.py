@@ -1,35 +1,54 @@
 """ray_tpu_torch.rllib — the RL library of the port (port of ray_tpu/rllib/,
-single-device, feed-forward, discrete actions).
+single-device, single-agent).
 
-Rollout workers step natively vectorized numpy envs with a torch policy;
-learners (`TorchLearner` for PPO, `_VTraceLearner` for IMPALA) train the
-reference's actor-critics (`models.py`: the tanh MLP and the Nature-CNN)
-with optax's clipped Adam written out.  Weights and batches cross the
-object plane as the reference's (flax variables trees and SampleBatches
-of numpy), so either package's workers and learners interoperate.  The
-runtime reaches the port only as a handle that the caller passes
-(`AlgorithmConfig.resources(runtime=ray_tpu)`).
+Rollout workers step natively vectorized numpy envs with a torch policy
+(categorical, diagonal-Gaussian, squashed-Gaussian, deterministic with
+noise, or an LSTM with its state threaded); learners train the
+reference's models (`models.py`) with optax's Adam written out:
+`TorchLearner` for PPO (categorical, continuous and recurrent) and A2C,
+`_VTraceLearner` for IMPALA and APPO (feed-forward or recurrent), and
+the off-policy `_QLearner` (DQN), `_SACLearner` and `_TD3Learner` over a
+replay buffer.  Weights and batches cross the object plane as the
+reference's (flax variables trees, the recurrent model's plain dict,
+SampleBatches of numpy), so either package's workers and learners
+interoperate.  The runtime reaches the port only as a handle that the
+caller passes (`AlgorithmConfig.resources(runtime=ray_tpu)`).
 
-Waiting (ROADMAP A9): continuous actions, recurrent models,
-multi-agent, the other algorithms, offline and estimators, and the Tune
-binding; data-parallel learners wait for the multi-device slice.
+Waiting for later slices: multi-agent (`multi_agent.py`, QMIX), the
+Tune binding (`save`, `restore`, `as_trainable`) and the data-parallel
+learners of the multi-device slice (`learner_mesh`).  Not in this
+package yet: offline RL, MARWIL, CQL, the estimators, ES / ARS, bandits
+and the policy server.
 """
 
+from ray_tpu_torch.rllib.a2c import A2C, A2CConfig, a2c_loss  # noqa: F401
 from ray_tpu_torch.rllib.algorithm import (  # noqa: F401
     Algorithm, AlgorithmConfig)
+from ray_tpu_torch.rllib.appo import APPO, APPOConfig  # noqa: F401
+from ray_tpu_torch.rllib.dqn import DQN, DQNConfig  # noqa: F401
 from ray_tpu_torch.rllib.env import (  # noqa: F401
-    CartPoleVector, Env, SyntheticPixelVector, VectorEnv, make_vector_env,
-    register_env)
+    CartPoleVector, Env, PendulumVector, RepeatPrevVector,
+    SyntheticPixelVector, VectorEnv, make_vector_env, register_env)
 from ray_tpu_torch.rllib.impala import (  # noqa: F401
     IMPALA, IMPALAConfig, LearnerThread)
 from ray_tpu_torch.rllib.learner import (  # noqa: F401
-    ClipAdam, TorchLearner, ppo_loss)
+    ClipAdam, TorchLearner, ppo_loss, ppo_loss_continuous,
+    ppo_loss_recurrent)
 from ray_tpu_torch.rllib.models import (  # noqa: F401
-    ActorCritic, ConvActorCritic, make_model)
-from ray_tpu_torch.rllib.policy import TorchPolicy  # noqa: F401
+    ActorCritic, ConvActorCritic, DeterministicActor, GaussianActorCritic,
+    QNetwork, RecurrentActorCritic, SquashedGaussianActor, gaussian_logp,
+    make_continuous_model, make_model, make_offpolicy_model,
+    make_recurrent_model)
+from ray_tpu_torch.rllib.policy import (  # noqa: F401
+    DeterministicNoiseRolloutPolicy, RecurrentTorchPolicy,
+    SquashedGaussianRolloutPolicy, TorchPolicy)
 from ray_tpu_torch.rllib.ppo import PPO, PPOConfig  # noqa: F401
+from ray_tpu_torch.rllib.replay_buffer import (  # noqa: F401
+    PrioritizedReplayBuffer, ReplayBuffer)
 from ray_tpu_torch.rllib.rollout_worker import RolloutWorker  # noqa: F401
+from ray_tpu_torch.rllib.sac import SAC, SACConfig  # noqa: F401
 from ray_tpu_torch.rllib.sample_batch import (  # noqa: F401
     SampleBatch, compute_gae)
+from ray_tpu_torch.rllib.td3 import TD3, TD3Config  # noqa: F401
 from ray_tpu_torch.rllib.vtrace import vtrace  # noqa: F401
 from ray_tpu_torch.rllib.worker_set import WorkerSet  # noqa: F401

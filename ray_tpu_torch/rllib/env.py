@@ -5,9 +5,9 @@ The same seed gives the same episodes as the reference's: the dynamics,
 the draws of `np.random.default_rng(seed)` and their order are the
 reference's, line for line.  A VectorEnv steps all sub-environments in
 one batched numpy computation and auto-resets finished ones.  The
-registry holds the discrete environments of this slice, CartPole-v1 and
-SyntheticPixel-v0 (84x84x4 uint8 frames); Pendulum-v1 and RepeatPrev-v0
-wait with the continuous and recurrent algorithms (ROADMAP A9).
+registry holds the reference's four: CartPole-v1, Pendulum-v1 (one
+continuous action in [-2, 2]), SyntheticPixel-v0 (84x84x4 uint8 frames)
+and RepeatPrev-v0 (the memory probe of the recurrent policies).
 """
 
 from __future__ import annotations
@@ -156,6 +156,70 @@ class CartPoleVector(VectorEnv):
         return (self._state.astype(np.float32), rewards, terminated, truncated)
 
 
+class PendulumVector(VectorEnv):
+    """Vectorized Pendulum-v1 (classic continuous control: swing-up with
+    bounded torque; standard published dynamics/reward).  Episodes
+    truncate at 200 steps; reward = -(theta^2 + 0.1*thetadot^2 +
+    0.001*torque^2)."""
+
+    observation_dim = 3
+    num_actions = 0
+    action_dim = 1
+    action_low = -2.0
+    action_high = 2.0
+
+    MAX_SPEED = 8.0
+    MAX_TORQUE = 2.0
+    DT = 0.05
+    G = 10.0
+    M = 1.0
+    L = 1.0
+    MAX_STEPS = 200
+
+    def __init__(self, num_envs: int, seed: int = 0):
+        super().__init__(num_envs)
+        self._rng = np.random.default_rng(seed)
+        self._theta = np.zeros(num_envs)
+        self._thetadot = np.zeros(num_envs)
+        self._steps = np.zeros(num_envs, np.int64)
+
+    def _obs(self) -> np.ndarray:
+        return np.stack([np.cos(self._theta), np.sin(self._theta),
+                         self._thetadot], axis=1).astype(np.float32)
+
+    def reset_all(self, seed: Optional[int] = None) -> np.ndarray:
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._theta = self._rng.uniform(-np.pi, np.pi, self.num_envs)
+        self._thetadot = self._rng.uniform(-1.0, 1.0, self.num_envs)
+        self._steps[:] = 0
+        self._ep_return[:] = 0.0
+        self._ep_len[:] = 0
+        return self._obs()
+
+    def step_batch(self, actions: np.ndarray):
+        u = np.clip(np.asarray(actions, np.float64).reshape(self.num_envs),
+                    -self.MAX_TORQUE, self.MAX_TORQUE)
+        th, thdot = self._theta, self._thetadot
+        norm_th = ((th + np.pi) % (2 * np.pi)) - np.pi
+        costs = norm_th ** 2 + 0.1 * thdot ** 2 + 0.001 * u ** 2
+        newthdot = thdot + (3 * self.G / (2 * self.L) * np.sin(th)
+                            + 3.0 / (self.M * self.L ** 2) * u) * self.DT
+        newthdot = np.clip(newthdot, -self.MAX_SPEED, self.MAX_SPEED)
+        self._theta = th + newthdot * self.DT
+        self._thetadot = newthdot
+        self._steps += 1
+        truncated = self._steps >= self.MAX_STEPS
+        terminated = np.zeros(self.num_envs, bool)
+        if truncated.any():
+            n = int(truncated.sum())
+            self._theta[truncated] = self._rng.uniform(-np.pi, np.pi, n)
+            self._thetadot[truncated] = self._rng.uniform(-1.0, 1.0, n)
+            self._steps[truncated] = 0
+        return (self._obs(), (-costs).astype(np.float32), terminated,
+                truncated)
+
+
 class SyntheticPixelVector(VectorEnv):
     """Synthetic [84, 84, 4]-observation env at Atari frame shapes.
 
@@ -228,9 +292,58 @@ class SyntheticPixelVector(VectorEnv):
         return self._obs(), rewards, terminated, truncated
 
 
+class RepeatPrevVector(VectorEnv):
+    """Memory probe: at every step the agent sees a one-hot symbol and is
+    rewarded for emitting the PREVIOUS step's symbol.  The current
+    observation carries zero information about the correct action, so a
+    feedforward policy is capped at chance (1/K) while one step of
+    memory solves it exactly — the standard separation task for
+    recurrent policies (reference: rllib's RepeatAfterMeEnv,
+    examples/env/repeat_after_me_env.py, used by the LSTM examples)."""
+
+    K = 3
+    MAX_STEPS = 48
+    observation_dim = 3   # == K
+    num_actions = 3       # == K
+
+    def __init__(self, num_envs: int, seed: int = 0):
+        super().__init__(num_envs)
+        self._rng = np.random.default_rng(seed)
+        self._sym = np.zeros(num_envs, np.int64)
+        self._prev = np.zeros(num_envs, np.int64)
+        self._steps = np.zeros(num_envs, np.int64)
+
+    def _obs(self) -> np.ndarray:
+        return np.eye(self.K, dtype=np.float32)[self._sym]
+
+    def reset_all(self, seed: Optional[int] = None) -> np.ndarray:
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._sym = self._rng.integers(0, self.K, self.num_envs)
+        self._prev[:] = self._sym   # step 0: reward "repeat what you see"
+        self._steps[:] = 0
+        self._ep_return[:] = 0.0
+        self._ep_len[:] = 0
+        return self._obs()
+
+    def step_batch(self, actions: np.ndarray):
+        rewards = (np.asarray(actions) == self._prev).astype(np.float32)
+        self._prev = self._sym
+        self._sym = self._rng.integers(0, self.K, self.num_envs)
+        self._steps += 1
+        truncated = self._steps >= self.MAX_STEPS
+        terminated = np.zeros(self.num_envs, bool)
+        if truncated.any():
+            self._steps[truncated] = 0
+            self._prev[truncated] = self._sym[truncated]
+        return self._obs(), rewards, terminated, truncated
+
+
 _ENV_REGISTRY: Dict[str, Callable[..., VectorEnv]] = {
     "CartPole-v1": CartPoleVector,
+    "Pendulum-v1": PendulumVector,
     "SyntheticPixel-v0": SyntheticPixelVector,
+    "RepeatPrev-v0": RepeatPrevVector,
 }
 
 

@@ -1,12 +1,14 @@
-"""IMPALA: async actor-learner RL (port of ray_tpu/rllib/impala.py,
-feed-forward).
+"""IMPALA: async actor-learner RL (port of ray_tpu/rllib/impala.py).
 
 `_VTraceLearner` is one V-trace SGD step over a time-major fragment
 (`vtrace.py`): one forward over the fragment's T*B observations and the
 B bootstrap observations together (the MLP or the Nature-CNN, by the
 observation's shape), the loss, a backward and `ClipAdam`'s step.  With
-`clip_param` set the policy loss is APPO's clipped surrogate on the
-V-trace advantages.
+`use_lstm` the model is the recurrent actor-critic: `apply_seq` over the
+time-major fragment from its `state_in` with the carry zeroed at its
+`resets`, and `step` from `bootstrap_state` for the bootstrap value.
+With `clip_param` set the policy loss is APPO's clipped surrogate on
+the V-trace advantages.
 
 The reference's learner has no donation, so the driver may read the
 weights while `LearnerThread` steps.  Here the optimizer updates the
@@ -14,9 +16,8 @@ params in place, so its step and every read of the weights hold the
 learner's lock: a read never sees half an update.
 
 `IMPALA` needs the caller's runtime handle (`.resources(runtime=...)`):
-its rollout workers are remote by construction.  Recurrent models and
-`appo.py` wait (ROADMAP A9); data-parallel learners wait for the
-multi-device slice.
+its rollout workers are remote by construction.  Data-parallel learners
+wait for the multi-device slice.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from ray_tpu_torch.models._functional import check_single_device
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.learner import (ClipAdam, batch_tensors,
                                          learner_state, set_learner_state)
-from ray_tpu_torch.rllib.models import make_model
+from ray_tpu_torch.rllib.models import make_model, make_recurrent_model
 from ray_tpu_torch.rllib.sample_batch import SampleBatch
 from ray_tpu_torch.rllib.vtrace import vtrace
 from ray_tpu_torch.rllib.worker_set import WorkerSet
@@ -61,14 +62,16 @@ class _VTraceLearner:
     def __init__(self, obs_dim, num_actions: int, cfg: IMPALAConfig,
                  hidden, seed: int, mesh=None, device: DeviceLike = None):
         check_single_device(mesh)
-        if getattr(cfg, "use_lstm", False):
-            raise NotImplementedError(
-                "the recurrent V-trace learner waits for the recurrent "
-                "models of ROADMAP A9")
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.model = make_model(obs_dim, num_actions, hidden, seed=seed,
-                                device=self.device)
+        self.recurrent = bool(getattr(cfg, "use_lstm", False))
+        if self.recurrent:
+            self.model = make_recurrent_model(
+                obs_dim, num_actions, hidden, getattr(cfg, "lstm_size", 64),
+                seed=seed, device=self.device)
+        else:
+            self.model = make_model(obs_dim, num_actions, hidden, seed=seed,
+                                    device=self.device)
         self.opt = ClipAdam(self.model.parameters(), cfg.lr, cfg.grad_clip)
         self.num_updates = 0
         self._lock = threading.Lock()
@@ -78,12 +81,18 @@ class _VTraceLearner:
         cfg = self.cfg
         obs = batch[SampleBatch.OBS]      # [T, B, D] or [T, B, H, W, C]
         T, B = obs.shape[:2]
-        flat = torch.cat([obs.reshape((T * B,) + obs.shape[2:]),
-                          batch["bootstrap_obs"].to(obs.dtype)])
-        logits, values = self.model(flat)
-        bootstrap_value = values[T * B:]
-        logits = logits[:T * B].reshape(T, B, -1)
-        values = values[:T * B].reshape(T, B)
+        if self.recurrent:
+            logits, values = self.model.apply_seq(obs, batch["state_in"],
+                                                  batch["resets"])
+            _, bootstrap_value, _ = self.model.step(
+                batch["bootstrap_obs"], batch["bootstrap_state"])
+        else:
+            flat = torch.cat([obs.reshape((T * B,) + obs.shape[2:]),
+                              batch["bootstrap_obs"].to(obs.dtype)])
+            logits, values = self.model(flat)
+            bootstrap_value = values[T * B:]
+            logits = logits[:T * B].reshape(T, B, -1)
+            values = values[:T * B].reshape(T, B)
 
         logp_all = F.log_softmax(logits, dim=-1)
         actions = batch[SampleBatch.ACTIONS].long()
@@ -177,10 +186,12 @@ class IMPALA(Algorithm):
         if cfg.runtime is None:
             raise ValueError("IMPALA's rollout workers are remote: pass "
                              "config.resources(runtime=ray_tpu)")
+        recurrent = ({"policy_kind": "recurrent", "lstm_size": cfg.lstm_size}
+                     if cfg.use_lstm else {})
         self.workers = WorkerSet(
             num_workers=max(cfg.num_rollout_workers, 1), runtime=cfg.runtime,
             num_cpus_per_worker=cfg.num_cpus_per_worker,
-            worker_kwargs=self.worker_kwargs(postprocess=False))
+            worker_kwargs=self.worker_kwargs(postprocess=False, **recurrent))
         self.learner = _VTraceLearner(
             self.obs_dim, self.num_actions, cfg, cfg.model_hidden, cfg.seed,
             device=cfg.device)

@@ -1,5 +1,8 @@
 """TorchLearner: minibatch SGD on sample batches (port of
-ray_tpu/rllib/learner.py's single-device `JaxLearner`), and the PPO loss.
+ray_tpu/rllib/learner.py's single-device `JaxLearner`), and the PPO
+losses: categorical (`ppo_loss`), diagonal Gaussian
+(`ppo_loss_continuous`) and over LSTM sequence chunks
+(`ppo_loss_recurrent`).
 
 The reference jits the whole update (a lax.scan over minibatches inside
 one over epochs); here it is a Python loop over the same epochs and
@@ -15,6 +18,13 @@ adam(lr, eps=1e-5))`, written out (`ClipAdam`) in optax's arithmetic:
   `max_norm / (g_norm + 1e-6)`, always);
 - Adam adds eps outside the square root and corrects the bias from the
   incremented count; no weight decay.
+With `max_norm=None` and `eps=1e-8` it is plain `optax.adam(lr)`, the
+optimizer of SAC and TD3.
+
+The learner's model follows the reference's choice: `model="lstm"` the
+recurrent actor-critic (minibatch rows are then sequences), a continuous
+env (`num_actions == 0`, `action_dim > 0`) the Gaussian actor-critic,
+else the MLP or the Nature-CNN.
 
 The data-parallel learner (`mesh`, the reference's shard_map with a
 gradient pmean) waits for the multi-device slice.
@@ -22,6 +32,7 @@ gradient pmean) waits for the multi-device slice.
 
 from __future__ import annotations
 
+import math
 import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -32,7 +43,9 @@ import torch.nn.functional as F
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models import convert
 from ray_tpu_torch.models._functional import check_single_device
-from ray_tpu_torch.rllib.models import make_model
+from ray_tpu_torch.rllib.models import (gaussian_logp,
+                                        make_continuous_model, make_model,
+                                        make_recurrent_model)
 from ray_tpu_torch.rllib.sample_batch import SampleBatch
 
 
@@ -63,16 +76,21 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor],
 
 class ClipAdam:
     """optax.chain(clip_by_global_norm(max_norm), adam(lr, eps=1e-5))
-    over `params`, updated in place.  `decay_steps` makes the learning
-    rate optax's linear_schedule(lr, 0.0, decay_steps).  State: `count`
-    (host int) and the moments `mu`, `nu` (one tensor per param)."""
+    over `params`, updated in place; with `max_norm=None` no clip, and
+    with `eps=1e-8` then optax.adam(lr).  `decay_steps` makes the
+    learning rate optax's linear_schedule(lr, 0.0, decay_steps).  State:
+    `count` (host int) and the moments `mu`, `nu` (one tensor per
+    param)."""
 
-    B1, B2, EPS = 0.9, 0.999, 1e-5
+    B1, B2 = 0.9, 0.999
 
     def __init__(self, params: Sequence[torch.Tensor], lr: float,
-                 max_norm: float, decay_steps: Optional[int] = None):
+                 max_norm: Optional[float],
+                 decay_steps: Optional[int] = None, eps: float = 1e-5):
         self.params = list(params)
-        self.lr, self.max_norm = float(lr), float(max_norm)
+        self.lr = float(lr)
+        self.max_norm = None if max_norm is None else float(max_norm)
+        self.eps = eps
         self.decay_steps = decay_steps
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
@@ -90,41 +108,53 @@ class ClipAdam:
         self.count += 1
         bc1 = 1.0 - self.B1 ** self.count
         bc2 = 1.0 - self.B2 ** self.count
-        for p, g, m, v in zip(self.params,
-                              clip_by_global_norm(grads, self.max_norm),
-                              self.mu, self.nu):
+        if self.max_norm is not None:
+            grads = clip_by_global_norm(grads, self.max_norm)
+        for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
             m.mul_(self.B1).add_(g, alpha=1.0 - self.B1)
             v.mul_(self.B2).addcmul_(g, g, value=1.0 - self.B2)
-            u = (m / bc1) / ((v / bc2).sqrt_() + self.EPS)
+            u = (m / bc1) / ((v / bc2).sqrt_() + self.eps)
             p.add_(u, alpha=-lr)
+
+
+def make_learner_model(obs_dim, num_actions: int, hidden, *, seed: int,
+                       device: torch.device, action_dim: int = 0,
+                       model: str = "fc", lstm_size: int = 64):
+    """The model a learner trains, chosen as the reference chooses it:
+    "lstm" the recurrent actor-critic, a continuous env the Gaussian
+    actor-critic, else the MLP or the Nature-CNN."""
+    if model == "lstm":
+        return make_recurrent_model(obs_dim, num_actions, hidden, lstm_size,
+                                    seed=seed, device=device)
+    if model != "fc":
+        raise ValueError(f"unknown model {model!r}")
+    if num_actions == 0 and action_dim > 0:
+        return make_continuous_model(obs_dim, action_dim, hidden,
+                                     seed=seed, device=device)
+    return make_model(obs_dim, num_actions, hidden, seed=seed,
+                      device=device)
 
 
 class TorchLearner:
     """Minibatch-SGD learner over an actor-critic model.
 
     loss_fn(model, minibatch, cfg) -> (loss, metrics) is supplied by the
-    algorithm (`ppo_loss` below); the minibatch is a dict of tensors on
-    the learner's device.  `device=None` means CUDA.
+    algorithm (the PPO losses below, `a2c_loss`); the minibatch is a dict
+    of tensors on the learner's device.  `device=None` means CUDA.
     """
 
     def __init__(self, obs_dim, num_actions: int, *,
                  loss_fn: Callable, config: Dict[str, Any],
                  hidden=(64, 64), seed: int = 0,
                  mesh: Optional[Any] = None, action_dim: int = 0,
-                 model: str = "fc", device: DeviceLike = None):
+                 model: str = "fc", lstm_size: int = 64,
+                 device: DeviceLike = None):
         check_single_device(mesh)
-        if model != "fc":
-            raise NotImplementedError(
-                f"model={model!r}: the recurrent learner waits for its "
-                f"item of ROADMAP A9")
-        if num_actions == 0 and action_dim > 0:
-            raise NotImplementedError(
-                "continuous actions wait for their item of ROADMAP A9 "
-                "(GaussianActorCritic)")
         self.device = resolve_device(device)
         self.config = config
-        self.model = make_model(obs_dim, num_actions, hidden, seed=seed,
-                                device=self.device)
+        self.model = make_learner_model(
+            obs_dim, num_actions, hidden, seed=seed, device=self.device,
+            action_dim=action_dim, model=model, lstm_size=lstm_size)
         self.opt = ClipAdam(
             self.model.parameters(), config.get("lr", 3e-4),
             config.get("grad_clip", 0.5),
@@ -243,4 +273,31 @@ def _ppo_surrogate(mb, cfg, values, logp, entropy) -> Tuple[torch.Tensor,
 def ppo_loss(model, mb, cfg) -> Tuple[torch.Tensor, Dict]:
     """Clipped-surrogate PPO loss (categorical actions)."""
     values, logp, _adv, entropy = policy_terms(model, mb)
+    return _ppo_surrogate(mb, cfg, values, logp, entropy)
+
+
+def ppo_loss_recurrent(model, mb, cfg) -> Tuple[torch.Tensor, Dict]:
+    """Clipped-surrogate PPO over LSTM sequence chunks.  Minibatch rows
+    are sequences: OBS [b, T, D], actions / logp / advantages / targets
+    [b, T], resets [b, T], state_in [b, 2, H]; the chunk is replayed from
+    state_in with the carry zeroed at the resets."""
+    obs = mb[SampleBatch.OBS].movedim(0, 1)              # [T, b, D]
+    resets = mb["resets"].t()                            # [T, b]
+    state0 = mb["state_in"].movedim(0, 1)                # [2, b, H]
+    logits, values = model.apply_seq(obs, state0, resets)
+    logits = logits.movedim(0, 1)                        # [b, T, A]
+    values = values.t()                                  # [b, T]
+    logp_all = F.log_softmax(logits, dim=-1)
+    actions = mb[SampleBatch.ACTIONS].long()
+    logp = logp_all.gather(-1, actions[..., None])[..., 0]
+    entropy = -(torch.exp(logp_all) * logp_all).sum(-1).mean()
+    return _ppo_surrogate(mb, cfg, values, logp, entropy)
+
+
+def ppo_loss_continuous(model, mb, cfg) -> Tuple[torch.Tensor, Dict]:
+    """Clipped-surrogate PPO for diagonal-Gaussian policies; the entropy
+    is sum(log_std + 0.5 * log(2 * pi * e)), state-independent."""
+    mean, log_std, values = model(mb[SampleBatch.OBS])
+    logp = gaussian_logp(mean, log_std, mb[SampleBatch.ACTIONS])
+    entropy = torch.sum(log_std + 0.5 * math.log(2 * math.pi * math.e))
     return _ppo_surrogate(mb, cfg, values, logp, entropy)

@@ -1,10 +1,11 @@
 """PPO: Proximal Policy Optimization (port of ray_tpu/rllib/ppo.py,
-single-agent, feed-forward, discrete actions).
+single-agent).
 
 training_step: synchronous sampling until train_batch_size rows ->
-minibatch SGD (`TorchLearner`, `ppo_loss`) -> one weight broadcast.
-Recurrent models (`use_lstm`), continuous envs and multi-agent configs
-wait for their items of ROADMAP A9.
+minibatch SGD (`TorchLearner`) -> one weight broadcast.  The loss
+follows the model: `ppo_loss_recurrent` with `use_lstm` (rows are then
+sequences), `ppo_loss_continuous` on a continuous env, else `ppo_loss`.
+Multi-agent configs wait for `multi_agent.py` (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -12,7 +13,9 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
-from ray_tpu_torch.rllib.learner import TorchLearner, ppo_loss
+from ray_tpu_torch.rllib.learner import (TorchLearner, ppo_loss,
+                                         ppo_loss_continuous,
+                                         ppo_loss_recurrent)
 from ray_tpu_torch.rllib.sample_batch import SampleBatch
 from ray_tpu_torch.rllib.worker_set import WorkerSet
 
@@ -33,24 +36,29 @@ class PPOConfig(AlgorithmConfig):
 class PPO(Algorithm):
     def setup(self) -> None:
         cfg = self.config
-        if cfg.use_lstm:
-            raise NotImplementedError(
-                "PPO use_lstm waits for the recurrent models of ROADMAP A9")
-        if self.continuous:
-            raise NotImplementedError(
-                "PPO on continuous actions waits for GaussianActorCritic "
-                "(ROADMAP A9)")
+        recurrent = ({"policy_kind": "recurrent", "lstm_size": cfg.lstm_size}
+                     if cfg.use_lstm else {})
         self.workers = WorkerSet(
             num_workers=cfg.num_rollout_workers, runtime=cfg.runtime,
             num_cpus_per_worker=cfg.num_cpus_per_worker,
-            worker_kwargs=self.worker_kwargs(postprocess=True))
+            worker_kwargs=self.worker_kwargs(postprocess=True, **recurrent))
         self.learner = self._make_learner()
         self.workers.sync_weights(self.learner.get_weights())
 
     def _make_learner(self) -> TorchLearner:
+        """Overridable learner factory (A2C swaps the loss and config
+        here)."""
         cfg = self.config
+        if cfg.use_lstm:
+            loss = ppo_loss_recurrent
+        elif self.continuous:
+            loss = ppo_loss_continuous
+        else:
+            loss = ppo_loss
         return TorchLearner(
-            self.obs_dim, self.num_actions, loss_fn=ppo_loss,
+            self.obs_dim, self.num_actions, action_dim=self.action_dim,
+            model="lstm" if cfg.use_lstm else "fc",
+            lstm_size=cfg.lstm_size, loss_fn=loss,
             config={
                 "lr": cfg.lr, "grad_clip": cfg.grad_clip,
                 "num_sgd_iter": cfg.num_sgd_iter,

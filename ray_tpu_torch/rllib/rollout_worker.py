@@ -1,5 +1,5 @@
 """RolloutWorker: experience collection (port of
-ray_tpu/rllib/rollout_worker.py, feed-forward actor-critic policies).
+ray_tpu/rllib/rollout_worker.py).
 
 The env is natively vectorized (one numpy step for all sub-envs), the
 policy forward is one call per timestep over the whole env batch, and
@@ -8,10 +8,14 @@ on `device` (None -> CUDA): the reference pins rollout policies to the
 host CPU; here the caller places them (the algorithms forward their
 config's `rollout_device`).
 
-Waiting for the algorithms that need them (ROADMAP A9): recurrent
-policies (`_sample_recurrent`), continuous actions, and the value-based
-knobs (`epsilon_schedule`, `exploration`, `obs_connector`,
-`action_connector`, policy kinds other than "actor_critic").
+`policy_kind` picks the policy as the reference does: "actor_critic"
+(`TorchPolicy`, categorical or Gaussian by the env), "recurrent"
+(`RecurrentTorchPolicy`, sampled by `_sample_recurrent` with state
+threading), "squashed_gaussian" (SAC) and "deterministic_noise" (TD3).
+The host-side knobs (`epsilon_schedule`, `exploration`,
+`random_warmup_steps`, the connectors) draw from the worker's numpy
+generator (`seed + 99`) in the reference's order, so the same seed gives
+the same actions where the policy's own draws do not enter.
 """
 
 from __future__ import annotations
@@ -22,10 +26,11 @@ import numpy as np
 
 from ray_tpu_torch._device import DeviceLike
 from ray_tpu_torch.rllib.env import make_vector_env
-from ray_tpu_torch.rllib.policy import TorchPolicy
+from ray_tpu_torch.rllib.policy import (DeterministicNoiseRolloutPolicy,
+                                        RecurrentTorchPolicy,
+                                        SquashedGaussianRolloutPolicy,
+                                        TorchPolicy)
 from ray_tpu_torch.rllib.sample_batch import SampleBatch, compute_gae
-
-_WAITS = "waits for the {} of ROADMAP A9"
 
 
 class RolloutWorker:
@@ -39,35 +44,82 @@ class RolloutWorker:
                  gamma: float = 0.99, lam: float = 0.95,
                  hidden=(64, 64), seed: int = 0,
                  postprocess: bool = True,
+                 epsilon_schedule=None,
                  policy_kind: str = "actor_critic",
-                 epsilon_schedule=None, exploration=None,
-                 obs_connector=None, action_connector=None,
+                 lstm_size: int = 64,
+                 exploration_noise: float = 0.1,
+                 random_warmup_steps: int = 0,
+                 exploration=None,
+                 obs_connector=None,
+                 action_connector=None,
                  device: DeviceLike = None):
-        if policy_kind != "actor_critic":
-            raise NotImplementedError(
-                f"policy_kind={policy_kind!r} " + _WAITS.format(
-                    "recurrent and value-based algorithms"))
-        knobs = dict(epsilon_schedule=epsilon_schedule,
-                     exploration=exploration, obs_connector=obs_connector,
-                     action_connector=action_connector)
-        for name, value in knobs.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name} " + _WAITS.format("value-based algorithms"))
         self.env = make_vector_env(env, num_envs, seed=seed)
         self.num_envs = num_envs
         self.fragment_length = rollout_fragment_length
         self.gamma, self.lam = gamma, lam
         self.postprocess = postprocess
-        if getattr(self.env, "num_actions", 0) == 0:
-            raise NotImplementedError(
-                f"env {env!r} has continuous actions, which " + _WAITS.format(
-                    "continuous-action item (GaussianActorCritic)"))
-        self.policy = TorchPolicy(self.env.observation_dim,
-                                  self.env.num_actions, hidden, seed=seed,
-                                  device=device)
+        action_dim = getattr(self.env, "action_dim", 0)
+        num_actions = getattr(self.env, "num_actions", 0)
+        self.continuous = num_actions == 0 and action_dim > 0
+        if num_actions == 0 and action_dim == 0:
+            raise ValueError(
+                f"env {env!r} must declare num_actions (discrete) or "
+                f"action_dim (continuous)")
+        if epsilon_schedule is not None and self.continuous:
+            raise ValueError(
+                "epsilon-greedy exploration requires a discrete env")
+        action_low = getattr(self.env, "action_low", -1.0)
+        action_high = getattr(self.env, "action_high", 1.0)
+        # An obs connector can reshape what the policy sees; size the
+        # model from a transformed sample, not the raw env spec.
+        policy_obs_dim = self.env.observation_dim
+        if obs_connector is not None:
+            probe = obs_connector(self.env.reset_all(seed))
+            policy_obs_dim = (probe.shape[1] if probe.ndim == 2
+                              else tuple(probe.shape[1:]))
+        self._rnn_state = None
+        if policy_kind == "recurrent":
+            self.policy = RecurrentTorchPolicy(
+                policy_obs_dim, self.env.num_actions, hidden,
+                lstm_size=lstm_size, seed=seed, device=device)
+            self._rnn_state = self.policy.initial_state(num_envs)
+        elif policy_kind == "actor_critic":
+            self.policy = TorchPolicy(
+                policy_obs_dim, self.env.num_actions, hidden,
+                seed=seed, device=device, action_dim=action_dim,
+                action_low=action_low, action_high=action_high)
+        elif policy_kind == "squashed_gaussian":      # SAC behavior policy
+            self.policy = SquashedGaussianRolloutPolicy(
+                self.env.observation_dim, action_dim, hidden, seed=seed,
+                action_low=action_low, action_high=action_high,
+                device=device)
+        elif policy_kind == "deterministic_noise":    # TD3 behavior policy
+            self.policy = DeterministicNoiseRolloutPolicy(
+                self.env.observation_dim, action_dim, hidden, seed=seed,
+                action_low=action_low, action_high=action_high,
+                device=device, noise_scale=exploration_noise)
+        else:
+            raise ValueError(f"unknown policy_kind {policy_kind!r}")
+        # Uniform-random action warmup before the policy takes over
+        # (SAC's and TD3's random_warmup_steps).
+        self._random_warmup = int(random_warmup_steps)
+        self._action_low, self._action_high = action_low, action_high
         self.obs = self.env.reset_all(seed)
         self._total_steps = 0
+        # Epsilon-greedy exploration for value-based algorithms:
+        # (initial, final, decay_steps) linear schedule on env steps.
+        self._epsilon_schedule = epsilon_schedule
+        self._np_rng = np.random.default_rng(seed + 99)
+        # Pluggable exploration + connector pipelines: the obs connector
+        # transforms observations INTO the policy (recorded batches hold
+        # the transformed obs, as the learner must see what the policy
+        # saw); the action connector transforms actions OUT to the env
+        # only — training stores the raw policy actions.
+        self._exploration = exploration
+        self._obs_connector = obs_connector
+        self._action_connector = action_connector
+        if self._obs_connector is not None:
+            self.obs = self._obs_connector(self.obs)
 
     # -- weights -----------------------------------------------------------
     def get_weights(self):
@@ -78,18 +130,27 @@ class RolloutWorker:
 
     # -- sampling ----------------------------------------------------------
     def sample(self) -> Tuple[SampleBatch, Dict]:
-        """Collect one fragment: [T, B] steps, T=fragment_length,
-        B=num_envs.
+        """Collect one fragment: [T, B] steps, T=fragment_length, B=num_envs.
 
         Returns (batch, metrics).  With postprocess=True the batch is
         flattened to [T*B] rows with GAE advantages/value targets (PPO
         path); otherwise it stays time-major [T, B, ...] with behavior
-        logits and `bootstrap_obs` [B, ...] (IMPALA/V-trace path).
+        logits (IMPALA/V-trace path).
         """
+        if self._rnn_state is not None:
+            return self._sample_recurrent()
         T, B = self.fragment_length, self.num_envs
+        # Image envs declare a shape tuple + uint8 observations; buffers
+        # follow the (possibly connector-transformed) obs the policy
+        # actually sees, at its dtype, so pixels move at 1 byte each.
         obs_buf = np.empty((T, B) + self.obs.shape[1:], self.obs.dtype)
-        act_buf = np.empty((T, B), np.int32)
-        logits_buf = np.empty((T, B, self.env.num_actions), np.float32)
+        if self.continuous:
+            adim = self.env.action_dim
+            act_buf = np.empty((T, B, adim), np.float32)
+            logits_buf = np.empty((T, B, adim), np.float32)  # means
+        else:
+            act_buf = np.empty((T, B), np.int32)
+            logits_buf = np.empty((T, B, self.env.num_actions), np.float32)
         rew_buf = np.empty((T, B), np.float32)
         term_buf = np.empty((T, B), np.bool_)
         trunc_buf = np.empty((T, B), np.bool_)
@@ -98,13 +159,37 @@ class RolloutWorker:
 
         obs = self.obs
         for t in range(T):
-            actions, logp, vf, logits = self.policy.compute_actions(obs)
+            # Value-based (epsilon) mode acts GREEDILY on Q plus epsilon
+            # noise; policy-gradient mode samples the distribution.
+            actions, logp, vf, logits = self.policy.compute_actions(
+                obs, explore=self._epsilon_schedule is None)
+            if self._epsilon_schedule is not None:
+                e0, e1, decay = self._epsilon_schedule
+                frac = min(1.0, self._total_steps / max(decay, 1))
+                eps = e0 + (e1 - e0) * frac
+                explore_mask = self._np_rng.random(B) < eps
+                random_actions = self._np_rng.integers(
+                    0, self.env.num_actions, size=B)
+                actions = np.where(explore_mask, random_actions, actions)
+            if self.continuous and self._total_steps + t * B < \
+                    self._random_warmup:
+                actions = self._np_rng.uniform(
+                    self._action_low, self._action_high,
+                    size=(B, self.env.action_dim)).astype(np.float32)
+            if self._exploration is not None:
+                actions = self._exploration.apply(
+                    actions, self._total_steps + t * B, self._np_rng)
             obs_buf[t] = obs
             act_buf[t] = actions
             logp_buf[t] = logp
             vf_buf[t] = vf
             logits_buf[t] = logits
-            obs, rew, term, trunc = self.env.step(actions)
+            env_actions = (self._action_connector(actions)
+                           if self._action_connector is not None
+                           else actions)
+            obs, rew, term, trunc = self.env.step(env_actions)
+            if self._obs_connector is not None:
+                obs = self._obs_connector(obs)
             rew_buf[t] = rew
             term_buf[t] = term
             trunc_buf[t] = trunc
@@ -127,16 +212,14 @@ class RolloutWorker:
             })
             return batch, metrics
 
-        # GAE.  Episodes end at terminated|truncated (auto-reset envs), as
-        # in the reference.
+        # GAE. Episodes end at terminated|truncated (auto-reset envs); a
+        # truncated boundary still cuts the advantage chain, which slightly
+        # underestimates returns there but keeps the fragment math simple.
         done = term_buf | trunc_buf
         _, _, bootstrap_vf, _ = self.policy.compute_actions(self.obs)
         adv, targets = compute_gae(rew_buf, vf_buf, done, bootstrap_vf,
                                    self.gamma, self.lam)
-
-        def flat(x):
-            return x.reshape((T * B,) + x.shape[2:])
-
+        flat = lambda x: x.reshape((T * B,) + x.shape[2:])
         batch = SampleBatch({
             SampleBatch.OBS: flat(obs_buf),
             SampleBatch.ACTIONS: flat(act_buf),
@@ -147,6 +230,98 @@ class RolloutWorker:
         })
         return batch, metrics
 
+    def _sample_recurrent(self) -> Tuple[SampleBatch, Dict]:
+        """Fragment collection with LSTM state threading.  The chunk IS
+        the max_seq_len unit: training replays the whole [T] fragment from
+        the recorded initial state, zeroing the carry at episode
+        boundaries via the `resets` mask — the static-shape equivalent
+        of the reference's padded sequence batches.
+
+        Batch layout: postprocess=True -> sequence-major [B, T, ...]
+        rows (the learner minibatches over SEQUENCES); otherwise
+        time-major [T, B, ...] for the V-trace path.  Extra columns:
+        state_in ([B, 2, H] / [2, B, H]), resets, dones."""
+        T, B = self.fragment_length, self.num_envs
+        obs_buf = np.empty((T, B) + self.obs.shape[1:], self.obs.dtype)
+        act_buf = np.empty((T, B), np.int32)
+        logits_buf = np.empty((T, B, self.env.num_actions), np.float32)
+        rew_buf = np.empty((T, B), np.float32)
+        term_buf = np.empty((T, B), np.bool_)
+        trunc_buf = np.empty((T, B), np.bool_)
+        logp_buf = np.empty((T, B), np.float32)
+        vf_buf = np.empty((T, B), np.float32)
+        resets_buf = np.zeros((T, B), np.bool_)
+
+        state_in = self._rnn_state.copy()    # [2, B, H] at fragment start
+        obs = self.obs
+        state = self._rnn_state
+        for t in range(T):
+            actions, logp, vf, logits, state = \
+                self.policy.compute_actions(obs, state)
+            obs_buf[t] = obs
+            act_buf[t] = actions
+            logp_buf[t] = logp
+            vf_buf[t] = vf
+            logits_buf[t] = logits
+            env_actions = (self._action_connector(actions)
+                           if self._action_connector is not None
+                           else actions)
+            obs, rew, term, trunc = self.env.step(env_actions)
+            if self._obs_connector is not None:
+                obs = self._obs_connector(obs)
+            rew_buf[t] = rew
+            term_buf[t] = term
+            trunc_buf[t] = trunc
+            done = term | trunc
+            if done.any():
+                # Auto-reset envs: zero the carry for finished episodes;
+                # the NEXT consumed step starts fresh (mirrored by the
+                # resets mask during training).  The policy's state_out
+                # is the host's own array, written in place.
+                state[:, done, :] = 0.0
+                if t + 1 < T:
+                    resets_buf[t + 1, done] = True
+        self.obs = obs
+        self._rnn_state = state
+        self._total_steps += T * B
+
+        rets, lens = self.env.drain_episode_metrics()
+        metrics = {"episode_returns": rets, "episode_lengths": lens,
+                   "env_steps": T * B, "total_env_steps": self._total_steps}
+
+        if not self.postprocess:
+            batch = SampleBatch({
+                SampleBatch.OBS: obs_buf, SampleBatch.ACTIONS: act_buf,
+                SampleBatch.REWARDS: rew_buf,
+                SampleBatch.TERMINATEDS: term_buf,
+                SampleBatch.TRUNCATEDS: trunc_buf,
+                SampleBatch.ACTION_LOGP: logp_buf,
+                SampleBatch.ACTION_LOGITS: logits_buf,
+                "state_in": state_in,         # [2, B, H]
+                "resets": resets_buf,         # [T, B]
+                "bootstrap_obs": self.obs,
+                "bootstrap_state": self._rnn_state.copy(),
+            })
+            return batch, metrics
+
+        done = term_buf | trunc_buf
+        _, _, bootstrap_vf, _, _ = self.policy.compute_actions(
+            self.obs, self._rnn_state)
+        adv, targets = compute_gae(rew_buf, vf_buf, done, bootstrap_vf,
+                                   self.gamma, self.lam)
+        seq = lambda x: np.moveaxis(x, 0, 1)   # [T,B,...] -> [B,T,...]
+        batch = SampleBatch({
+            SampleBatch.OBS: seq(obs_buf),
+            SampleBatch.ACTIONS: seq(act_buf),
+            SampleBatch.ACTION_LOGP: seq(logp_buf),
+            SampleBatch.VF_PREDS: seq(vf_buf),
+            SampleBatch.ADVANTAGES: seq(adv),
+            SampleBatch.VALUE_TARGETS: seq(targets),
+            "resets": seq(resets_buf),                    # [B, T]
+            "state_in": np.moveaxis(state_in, 0, 1),      # [B, 2, H]
+        })
+        return batch, metrics
+
     def evaluate(self, num_episodes: int = 10,
                  max_steps: int = 1000) -> Dict:
         """Greedy-policy evaluation rollouts."""
@@ -154,9 +329,32 @@ class RolloutWorker:
         returns: list = []
         obs = self.obs
         steps = 0
+        if self._rnn_state is not None:
+            state = self.policy.initial_state(self.num_envs)
+            while len(returns) < num_episodes and steps < max_steps:
+                actions, _, _, _, state = self.policy.compute_actions(
+                    obs, state, explore=False)
+                if self._action_connector is not None:
+                    actions = self._action_connector(actions)
+                obs, _, term, trunc = self.env.step(actions)
+                if self._obs_connector is not None:
+                    obs = self._obs_connector(obs)
+                done = term | trunc
+                if done.any():
+                    state[:, done, :] = 0.0
+                steps += 1
+                rets, _ = self.env.drain_episode_metrics()
+                returns.extend(rets)
+            self.obs = obs
+            self._rnn_state = self.policy.initial_state(self.num_envs)
+            return {"episode_returns": returns}
         while len(returns) < num_episodes and steps < max_steps:
             actions, _, _, _ = self.policy.compute_actions(obs, explore=False)
+            if self._action_connector is not None:
+                actions = self._action_connector(actions)
             obs, _, _, _ = self.env.step(actions)
+            if self._obs_connector is not None:
+                obs = self._obs_connector(obs)
             steps += 1
             rets, _ = self.env.drain_episode_metrics()
             returns.extend(rets)

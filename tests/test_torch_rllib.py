@@ -18,8 +18,12 @@
 - the V-trace learner (MLP and Nature-CNN, terminations and truncations
   in the batch): loss and every gradient against the reference's
   `_VTraceLearner`, then three updates compared by update at 0.05 * lr;
+- the rollout worker's value-based knobs (epsilon schedule, an
+  exploration strategy, obs and action connectors) giving the reference
+  worker's fragments;
 - the PPO driver with no remote workers, its state crossing from the
-  reference's learner; every entry point raising without a card unless
+  reference's learner; every entry point (those of the continuous,
+  recurrent and off-policy algorithms too) raising without a card unless
   given device="cpu", and a mesh raising.
 """
 
@@ -35,7 +39,9 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from ray_tpu.rllib import connectors as jconn
 from ray_tpu.rllib import env as jenv
+from ray_tpu.rllib import exploration as jexp
 from ray_tpu.rllib.impala import IMPALAConfig as JIMPALAConfig
 from ray_tpu.rllib.impala import _VTraceLearner as JVTraceLearner
 from ray_tpu.rllib.learner import JaxLearner, ppo_loss as jppo_loss
@@ -49,8 +55,16 @@ from ray_tpu_torch.models.resnet import _same
 from ray_tpu_torch.rllib import (PPOConfig, RolloutWorker, SampleBatch,
                                  TorchLearner, TorchPolicy, compute_gae,
                                  make_model, ppo_loss)
+from ray_tpu_torch.rllib import connectors as pconn
 from ray_tpu_torch.rllib import env as penv
+from ray_tpu_torch.rllib import exploration as pexp
+from ray_tpu_torch.rllib import (A2CConfig, DeterministicNoiseRolloutPolicy,
+                                 DQNConfig, RecurrentTorchPolicy, SACConfig,
+                                 SquashedGaussianRolloutPolicy, TD3Config)
+from ray_tpu_torch.rllib.dqn import _QLearner
 from ray_tpu_torch.rllib.impala import IMPALAConfig, _VTraceLearner
+from ray_tpu_torch.rllib.sac import _SACLearner
+from ray_tpu_torch.rllib.td3 import _TD3Learner
 from ray_tpu_torch.rllib.learner import clip_by_global_norm
 
 torch.set_num_threads(1)
@@ -240,13 +254,57 @@ def test_rollout_worker_layouts_match_reference(postprocess):
             np.testing.assert_array_equal(pb["obs"][0], rb["obs"][0])
 
 
+def _knob_case(knob, pkg):
+    """(env, worker kwargs) that exercise one value-based knob with the
+    objects of one package (`pkg` "ref" or "port"); the actions the env
+    sees come from the worker's numpy generator (epsilon 1, or the
+    uniform warm-up), so both packages step the same episodes."""
+    conn, exp = (jconn, jexp) if pkg == "ref" else (pconn, pexp)
+    all_random = {"epsilon_schedule": (1.0, 1.0, 1)}
+    return {
+        "epsilon_schedule": ("CartPole-v1",
+                             {"epsilon_schedule": (1.0, 0.2, 48)}),
+        "exploration": ("CartPole-v1",
+                        {"exploration": exp.EpsilonGreedy(2, 1.0, 1.0, 1)}),
+        "obs_connector": ("CartPole-v1",
+                          dict(all_random, obs_connector=conn.
+                               ConnectorPipeline([conn.NormalizeObs(),
+                                                  conn.ClipObs(-2, 2)]))),
+        "action_connector": ("Pendulum-v1",
+                             {"random_warmup_steps": 10 ** 6,
+                              "action_connector": conn.ClipActions(-0.5,
+                                                                   0.5)}),
+    }[knob]
+
+
 @pytest.mark.parametrize("knob", ["epsilon_schedule", "exploration",
                                   "obs_connector", "action_connector"])
 def test_rollout_worker_refuses_the_value_based_knobs(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        RolloutWorker("CartPole-v1", device="cpu", **{knob: object()})
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        RolloutWorker("CartPole-v1", device="cpu", policy_kind="recurrent")
+    """Each value-based knob, refused before, now works: two fragments
+    equal to the reference worker's (the same weights, the knob's
+    objects from each package): obs, actions, rewards and episode ends
+    exactly, the policy's outputs within 1e-5."""
+    env, kw_ref = _knob_case(knob, "ref")
+    _, kw_port = _knob_case(knob, "port")
+    kw = dict(num_envs=4, rollout_fragment_length=8, hidden=HIDDEN, seed=1,
+              postprocess=False)
+    ref = JRolloutWorker(env, **kw, **kw_ref)
+    port = RolloutWorker(env, device="cpu", **kw, **kw_port)
+    port.set_weights(ref.get_weights())
+    for _ in range(2):
+        rb, rm = ref.sample()
+        pb, pm = port.sample()
+        assert set(pb) == set(rb)
+        for k in ("obs", "actions", "rewards", "terminateds", "truncateds",
+                  "bootstrap_obs"):
+            np.testing.assert_array_equal(pb[k], rb[k])
+        if knob == "epsilon_schedule":        # greedy Q, then epsilon
+            np.testing.assert_allclose(pb["action_logits"],
+                                       rb["action_logits"], rtol=1e-5,
+                                       atol=1e-6)
+        assert pm["episode_returns"] == rm["episode_returns"]
+    if knob == "action_connector":           # the batch keeps raw actions
+        assert np.abs(pb["actions"]).max() > 0.5
 
 
 # ----------------------------------------------------------------- PPO
@@ -566,10 +624,6 @@ def test_ppo_trains_locally_and_takes_the_references_state():
 def test_ppo_refuses_what_waits():
     cfg = PPOConfig().rollouts(num_rollout_workers=0).resources(
         device="cpu", rollout_device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        PPOConfig().training(use_lstm=True).resources(
-            device="cpu", rollout_device="cpu").rollouts(
-                num_rollout_workers=0).build()
     with pytest.raises(ValueError, match="runtime"):
         PPOConfig().resources(device="cpu", rollout_device="cpu").build()
     with pytest.raises(NotImplementedError, match="multi_agent"):
@@ -580,6 +634,11 @@ def test_ppo_refuses_what_waits():
     algo.stop()
 
 
+def _local_algo(cfg, device=None):
+    return cfg.rollouts(num_rollout_workers=0).resources(
+        device=device, rollout_device=device).build()
+
+
 def _entry_points():
     return {
         "TorchPolicy": lambda **kw: TorchPolicy(4, 2, HIDDEN, **kw),
@@ -588,9 +647,33 @@ def _entry_points():
             4, 2, loss_fn=ppo_loss, config={}, hidden=HIDDEN, **kw),
         "_VTraceLearner": lambda **kw: _VTraceLearner(
             4, 2, IMPALAConfig(), HIDDEN, 0, **kw),
-        "PPO": lambda **kw: PPOConfig().rollouts(num_rollout_workers=0)
-        .resources(device=kw.get("device"),
-                   rollout_device=kw.get("device")).build(),
+        "PPO": lambda **kw: _local_algo(PPOConfig(), **kw),
+        "TorchPolicy(continuous)": lambda **kw: TorchPolicy(
+            3, 0, HIDDEN, action_dim=1, **kw),
+        "SquashedGaussianRolloutPolicy": lambda **kw:
+        SquashedGaussianRolloutPolicy(3, 1, HIDDEN, **kw),
+        "DeterministicNoiseRolloutPolicy": lambda **kw:
+        DeterministicNoiseRolloutPolicy(3, 1, HIDDEN, **kw),
+        "RecurrentTorchPolicy": lambda **kw: RecurrentTorchPolicy(
+            3, 3, (8,), 8, **kw),
+        "TorchLearner(lstm)": lambda **kw: TorchLearner(
+            3, 3, loss_fn=ppo_loss, config={}, hidden=(8,), model="lstm",
+            lstm_size=8, **kw),
+        "_VTraceLearner(lstm)": lambda **kw: _VTraceLearner(
+            3, 3, IMPALAConfig().training(use_lstm=True, lstm_size=8),
+            (8,), 0, **kw),
+        "_QLearner": lambda **kw: _QLearner(4, 2, DQNConfig(), HIDDEN, 0,
+                                            **kw),
+        "_SACLearner": lambda **kw: _SACLearner(3, 1, SACConfig(), -2.0,
+                                                2.0, 0, **kw),
+        "_TD3Learner": lambda **kw: _TD3Learner(3, 1, TD3Config(), -2.0,
+                                                2.0, 0, **kw),
+        "A2C": lambda **kw: _local_algo(A2CConfig(), **kw),
+        "DQN": lambda **kw: _local_algo(DQNConfig(), **kw),
+        "SAC": lambda **kw: _local_algo(
+            SACConfig().environment("Pendulum-v1"), **kw),
+        "TD3": lambda **kw: _local_algo(
+            TD3Config().environment("Pendulum-v1"), **kw),
     }
 
 
