@@ -3134,6 +3134,491 @@ def phase_rl_breadth_parity() -> None:
     check(same, "rl_breadth_parity: greedy recurrent actions differ")
 
 
+# ------------------------------------------------- offline and multi-agent
+
+def _mixed_quality_log(n_episodes=60, ep_len=10, seed=0):
+    """tests/test_rllib_offline_eval.py's log: 40% expert episodes (the
+    right action, reward 1 a step), 60% anti-expert (the wrong one,
+    reward 0), so imitation by majority learns the wrong action."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import SampleBatch
+
+    rng = np.random.default_rng(seed)
+    obs, acts, rews, terms = [], [], [], []
+    for ep in range(n_episodes):
+        expert = ep % 5 < 2
+        for t in range(ep_len):
+            s = rng.uniform(-1, 1, 4).astype(np.float32)
+            correct = int(s[2] > 0)
+            obs.append(s)
+            acts.append(correct if expert else 1 - correct)
+            rews.append(1.0 if expert else 0.0)
+            terms.append(t == ep_len - 1)
+    return SampleBatch({"obs": np.stack(obs),
+                        "actions": np.array(acts, np.int64),
+                        "rewards": np.array(rews, np.float32),
+                        "terminateds": np.array(terms)})
+
+
+# The enumerated two-step MDP of tests/test_rllib_offline_eval.py: s0 ->
+# s1, r(s0, a) = a, r(s1, a) = (2, 5)[a], behaviour uniform, target
+# pi(s0) = (0.2, 0.8), pi(s1) = (0.7, 0.3); every behaviour trajectory
+# once, so unbiased estimators hit the true value exactly.
+OPE_GAMMA = 0.9
+OPE_V_TRUE = 0.8 + OPE_GAMMA * (0.7 * 2 + 0.3 * 5)
+
+
+def _enumerated_batch():
+    import numpy as np
+
+    from ray_tpu_torch.rllib import SampleBatch
+
+    obs = {0: [1.0, 0.0], 1: [0.0, 1.0]}
+    rows = []
+    for a0 in (0, 1):
+        for a1 in (0, 1):
+            rows += [(obs[0], a0, float(a0), False),
+                     (obs[1], a1, (2.0, 5.0)[a1], True)]
+    o, a, r, d = zip(*rows)
+    n = len(rows)
+    return SampleBatch({
+        "obs": np.array(o, np.float32), "actions": np.array(a, np.int64),
+        "rewards": np.array(r, np.float32),
+        "action_logp": np.full(n, np.log(0.5), np.float32),
+        "terminateds": np.array(d), "truncateds": np.zeros(n, bool)})
+
+
+def _ope_target_probs(obs):
+    import numpy as np
+    return np.where(np.asarray(obs)[:, :1] == 1.0, [0.2, 0.8], [0.7, 0.3])
+
+
+def _ope_exact_q(obs):
+    import numpy as np
+    v_s1 = 0.7 * 2 + 0.3 * 5
+    return np.where(np.asarray(obs)[:, :1] == 1.0,
+                    [OPE_GAMMA * v_s1, 1.0 + OPE_GAMMA * v_s1], [2.0, 5.0])
+
+
+def phase_rl_offline() -> None:
+    """The reference's offline gates on the card: BC on a JSON-logged
+    expert (BCConfig() defaults, 640 rows, 30 train_on calls, agreement
+    > 0.95 on 200 held-out states); MARWIL at beta 0 and 2 on the
+    mixed-quality log (40 epochs, seed 5: beta 2 > 0.9, beta 0 < 0.5);
+    CQL at alpha 1 against 0 on the 2-state log (the unlogged action's
+    Q below every logged action's, and a wider gap than plain TD);
+    fit_fqe at its defaults (hidden (64,), lr 1e-2, 200 iterations) into
+    DM and DR on a logged CartPole batch, and the closed forms of
+    tests/test_rllib_offline_eval.py (IS, WIS, DM, DR exact; FQE-fed DM
+    within 0.4).  Ms, launches and busy share per update (one train_on
+    of train_batch_size rows) and per FQE iteration."""
+    import tempfile
+
+    import numpy as np
+
+    from ray_tpu_torch.rllib import (BC, CQL, ESTIMATORS, MARWIL, BCConfig,
+                                     CQLConfig, JsonReader, JsonWriter,
+                                     MARWILConfig, SampleBatch, fit_fqe,
+                                     make_vector_env)
+
+    out = {}
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory() as root:
+        writer = JsonWriter(root)
+        for _ in range(40):
+            obs = rng.uniform(-0.2, 0.2, size=(16, 4)).astype(np.float32)
+            writer.write(SampleBatch({"obs": obs, "actions": (
+                obs[:, 2] > 0).astype(np.int64)}))
+        writer.close()
+        log = JsonReader(root).read_all()
+    bc = BC(4, 2, BCConfig())
+    t0 = time.perf_counter()
+    for _ in range(30):
+        m = bc.train_on(log)
+    bc_s = time.perf_counter() - t0
+    held = rng.uniform(-0.2, 0.2, size=(200, 4)).astype(np.float32)
+    bc_acc = float((bc.compute_actions(held) == (held[:, 2] > 0)).mean())
+    one = SampleBatch({k: v[:256] for k, v in log.items()})
+    out["bc"] = dict(rows=log.count, calls=30, updates=90, wall_s=bc_s,
+                     agreement=bc_acc, loss=m["bc_loss"],
+                     **_Profiled(lambda: bc.train_on(one)).fields("update"))
+    check(bc_acc > 0.95, f"rl_offline: BC agreement {bc_acc}")
+
+    mixed = _mixed_quality_log()
+    test_obs = np.random.default_rng(42).uniform(-1, 1, (400, 4)).astype(
+        np.float32)
+    expert = (test_obs[:, 2] > 0).astype(np.int64)
+    acc = {}
+    for beta in (0.0, 2.0):
+        cfg = MARWILConfig()
+        cfg.beta, cfg.num_epochs, cfg.seed = beta, 40, 5
+        algo = MARWIL(4, 2, cfg)
+        t0 = time.perf_counter()
+        algo.train_on(mixed)
+        acc[beta] = (float((algo.compute_actions(test_obs)
+                            == expert).mean()), time.perf_counter() - t0)
+    cfg.num_epochs = 1
+    one = SampleBatch({k: v[:256] for k, v in mixed.items()})
+    out["marwil"] = dict(agreement_beta0=acc[0.0][0],
+                         agreement_beta2=acc[2.0][0],
+                         wall_s=acc[0.0][1] + acc[2.0][1],
+                         updates=2 * 40 * 3, adv_norm_sq=algo.adv_norm_sq,
+                         **_Profiled(lambda: algo.train_on(one)).fields(
+                             "update"))
+    check(acc[2.0][0] > 0.9 and acc[0.0][0] < 0.5,
+          f"rl_offline: MARWIL agreement {acc}")
+
+    rng3 = np.random.default_rng(3)
+    n = 600
+    s0 = np.eye(2, dtype=np.float32)[0]
+    acts = rng3.integers(0, 2, n)
+    bandit = SampleBatch({
+        "obs": np.tile(s0, (n, 1)), "actions": acts.astype(np.int64),
+        "rewards": np.where(acts == 0, 1.0, 0.2).astype(np.float32),
+        "terminateds": np.ones(n, bool)})
+    qs = {}
+    for alpha in (1.0, 0.0):
+        cfg = CQLConfig()
+        cfg.cql_alpha, cfg.num_epochs, cfg.seed = alpha, 30, 7
+        cql = CQL(2, 3, cfg)
+        t0 = time.perf_counter()
+        cql.train_on(bandit)
+        qs[alpha] = (cql.q_values(s0[None])[0], time.perf_counter() - t0)
+    q, q_td = qs[1.0][0], qs[0.0][0]
+    cfg.num_epochs = 1
+    one = SampleBatch({k: v[:256] for k, v in bandit.items()})
+    out["cql"] = dict(q_alpha1=q.tolist(), q_alpha0=q_td.tolist(),
+                      wall_s=qs[1.0][1] + qs[0.0][1], updates=2 * 30 * 3,
+                      **_Profiled(lambda: cql.train_on(one)).fields(
+                          "update"))
+    check(q.argmax() == 0 and q[2] < q[1] < q[0]
+          and (q.max() - q[2]) > (q_td.max() - q_td[2]) + 0.2,
+          f"rl_offline: CQL Q-values {q} against TD's {q_td}")
+
+    enum = _enumerated_batch()
+    exact = {}
+    for key in ("is", "wis", "dm", "dr"):
+        est = ESTIMATORS[key](_ope_target_probs, gamma=OPE_GAMMA,
+                              q_fn=_ope_exact_q)
+        exact[key] = est.estimate(enum)["v_target"]
+    wrong = ESTIMATORS["dr"](_ope_target_probs, gamma=OPE_GAMMA,
+                             q_fn=lambda o: _ope_exact_q(o) + 1.7)
+    exact["dr_wrong_model"] = wrong.estimate(enum)["v_target"]
+    big = SampleBatch.concat_samples([enum] * 16)
+    q_fn = fit_fqe(big, _ope_target_probs, num_actions=2, gamma=OPE_GAMMA,
+                   iterations=400, lr=3e-2, hidden=(32,), seed=0)
+    fqe_dm = ESTIMATORS["dm"](_ope_target_probs, gamma=OPE_GAMMA,
+                              q_fn=q_fn).estimate(big)["v_target"]
+    check(all(abs(v - OPE_V_TRUE) < 1e-5 for v in exact.values())
+          and abs(fqe_dm - OPE_V_TRUE) < 0.4,
+          f"rl_offline: closed forms {exact}, FQE-fed DM {fqe_dm}, "
+          f"truth {OPE_V_TRUE}")
+
+    # A logged CartPole batch: 16 envs x 64 steps of a uniform behaviour
+    # policy; the target leans on the pole's angle.
+    env = make_vector_env("CartPole-v1", 16, seed=1)
+    o = env.reset_all(1)
+    acts_rng = np.random.default_rng(2)
+    cols = {k: [] for k in ("obs", "actions", "rewards", "terminateds",
+                            "truncateds")}
+    for _ in range(64):
+        a = acts_rng.integers(0, 2, 16)
+        cols["obs"].append(o)
+        cols["actions"].append(a)
+        o, r, term, trunc = env.step(a)
+        cols["rewards"].append(r)
+        cols["terminateds"].append(term)
+        cols["truncateds"].append(trunc)
+    # Env-major rows: each env's steps in order, its last step truncated.
+    rows = {k: np.stack(v, 1).reshape((16 * 64,) + np.asarray(v[0]).shape[1:])
+            for k, v in cols.items()}
+    rows["truncateds"] = rows["truncateds"].reshape(16, 64)
+    rows["truncateds"][:, -1] = True
+    rows["truncateds"] = rows["truncateds"].reshape(-1)
+    cart = SampleBatch(dict(rows, action_logp=np.full(16 * 64, np.log(0.5),
+                                                       np.float32)))
+
+    def lean(obs):
+        p1 = 1.0 / (1.0 + np.exp(-10.0 * np.asarray(obs)[:, 2]))
+        return np.stack([1.0 - p1, p1], -1)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q_cart = fit_fqe(cart, lean, num_actions=2)
+    fqe_ms = (time.perf_counter() - t0) / 200 * 1e3
+    ests = {k: ESTIMATORS[k](lean, gamma=0.99, q_fn=q_cart).estimate(cart)
+            for k in ESTIMATORS}
+    behaviour = ESTIMATORS["is"](lambda obs: np.full((len(obs), 2), 0.5),
+                                gamma=0.99).estimate(cart)
+    prof = _Profiled(lambda: fit_fqe(cart, lean, num_actions=2,
+                                     iterations=20), n=2)
+    out["fqe"] = dict(
+        closed_form=exact, fqe_dm_enumerated=fqe_dm, truth=OPE_V_TRUE,
+        cartpole_rows=cart.count,
+        cartpole_episodes=ests["dm"]["episodes"],
+        cartpole_v_behavior=ests["dm"]["v_behavior"],
+        cartpole_v_target={k: v["v_target"] for k, v in ests.items()},
+        ms_per_iteration=fqe_ms,
+        iteration_launches=prof.launches / 20,
+        iteration_device_ms=prof.device_ms / 20,
+        iteration_busy_share=prof.busy)
+    emit("rl_offline", **out)
+    # The behaviour policy evaluated as the target: every ratio 1 (to
+    # float32's rounding of log 0.5), so IS returns v_behavior.
+    check(all(math.isfinite(v["v_target"]) for v in ests.values())
+          and abs(behaviour["v_target"] - behaviour["v_behavior"])
+          <= 1e-5 * abs(behaviour["v_behavior"]),
+          f"rl_offline: CartPole estimates {out['fqe']}")
+
+
+def _coop_split(agent_id: str) -> str:
+    return {"a0": "p0", "a1": "p1"}[agent_id]
+
+
+MA_PPO_MAX_ITERS, MA_TARGET = 12, 12.0
+QMIX_MAX_CALLS, QMIX_TARGET = 20, 7.9
+
+
+def phase_rl_multi_agent() -> None:
+    """Multi-agent PPO on coop-match at the reference test's config (16
+    envs x 32, batch 1024, minibatch 256, 6 SGD iterations, lr 5e-3,
+    seed 7), policies and learners on the card: both policies at 12 or
+    more within 12 iterations.  QMIX and VDN at QMixConfig()'s defaults
+    on the two-step game: evaluate_greedy >= 7.9 within 20 train() calls.
+    A PolicyServer with its policy on the card, driven by a PolicyClient
+    over localhost for 3 episodes of 10 steps, into one PPO learner
+    update on the card."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import (PolicyClient, PolicyServer, PPOConfig,
+                                     QMixConfig, TorchLearner, VDNConfig,
+                                     ppo_loss)
+    from ray_tpu_torch.rllib.learner import batch_tensors
+
+    algo = (PPOConfig().environment("coop-match")
+            .rollouts(num_rollout_workers=0, num_envs_per_worker=16,
+                      rollout_fragment_length=32)
+            .multi_agent(policies=["p0", "p1"],
+                         policy_mapping_fn=_coop_split)
+            .training(train_batch_size=1024, sgd_minibatch_size=256,
+                      num_sgd_iter=6, lr=5e-3, entropy_coeff=0.003)
+            .debugging(seed=7).build())
+    learner = algo.learners["p0"]
+    curve, t0 = [], time.perf_counter()
+    for _ in range(MA_PPO_MAX_ITERS):
+        r = algo.train()
+        curve.append((r["policy_reward_mean/p0"],
+                      r["policy_reward_mean/p1"]))
+        if min(curve[-1]) >= MA_TARGET:
+            break
+    wall = time.perf_counter() - t0
+    batch, _ = algo.workers.local_worker.sample()
+    mb = {k: v[:256] for k, v in batch_tensors(
+        batch.policy_batches["p0"], learner.device).items()}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(20):
+        learner.minibatch_step(mb)
+    torch.cuda.synchronize()
+    mb_ms = (time.perf_counter() - t1) / 20 * 1e3
+    prof = _Profiled(lambda: learner.minibatch_step(mb))
+    algo.stop()
+    ma = dict(env="coop-match", calls=len(curve), curve=curve, wall_s=wall,
+              ms_per_minibatch=mb_ms, **prof.fields("minibatch"))
+    check(min(curve[-1]) >= MA_TARGET,
+          f"rl_multi_agent: PPO policies reached only {curve[-1]}")
+
+    qmix = {}
+    for name, cls in (("QMIX", QMixConfig), ("VDN", VDNConfig)):
+        q = cls().build()
+        calls, best, t0 = 0, 0.0, time.perf_counter()
+        for calls in range(1, QMIX_MAX_CALLS + 1):
+            q.train()
+            best = q.evaluate_greedy()
+            if best >= QMIX_TARGET:
+                break
+        wall = time.perf_counter() - t0
+        replay = q.sample_replay()
+
+        def step(q=q, replay=replay):
+            float(q.train_step(*replay))
+
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(20):
+            step()
+        step_ms = (time.perf_counter() - t1) / 20 * 1e3
+        qmix[name] = dict(calls_to_gate=calls, evaluate_greedy=best,
+                          wall_s=wall, ms_per_train_step=step_ms,
+                          **_Profiled(step).fields("train_step"))
+        check(best >= QMIX_TARGET,
+              f"rl_multi_agent: {name} reached only {best} in {calls}")
+
+    server = PolicyServer(4, 2, seed=0)
+    try:
+        client = PolicyClient(server.address)
+        rng = np.random.default_rng(0)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eid = client.start_episode()
+            obs = rng.normal(size=4)
+            for _ in range(10):
+                a = client.get_action(eid, obs)
+                client.log_returns(eid, 1.0 if a == 0 else 0.0)
+                obs = rng.normal(size=4)
+            client.end_episode(eid, obs)
+        rt_ms = (time.perf_counter() - t0) / 30 * 1e3
+        got = server.to_sample_batch(min_rows=30)
+        check(got is not None and got[0].count == 30 and len(got[1]) == 3,
+              "rl_multi_agent: the policy server drained no 30 rows")
+        ln = TorchLearner(4, 2, loss_fn=ppo_loss,
+                          config={"lr": 1e-3, "num_sgd_iter": 2,
+                                  "sgd_minibatch_size": 16})
+        metrics = ln.update(got[0])
+        server.set_weights(ln.get_weights())
+        check(math.isfinite(metrics["total_loss"])
+              and server.to_sample_batch(min_rows=1) is None,
+              f"rl_multi_agent: policy server update {metrics}")
+    finally:
+        server.stop()
+    emit("rl_multi_agent", ppo=ma, qmix=qmix,
+         policy_server=dict(episodes=3, steps=30, ms_per_step=rt_ms,
+                            returns=got[1],
+                            total_loss=metrics["total_loss"]))
+
+
+def phase_rl_tune() -> None:
+    """PPO on CartPole-v1 (tests/test_rllib.py's checkpoint config) on the
+    card: train, save(), restore into a fresh PPO on the card and one on
+    the CPU; weights and iteration bit-equal.  Then as_trainable with
+    stop_iters=3 and a list-appending report: 3 results, each with
+    episode_reward_mean."""
+    from ray_tpu_torch.rllib import PPO, PPOConfig
+
+    def config(device):
+        return (PPOConfig().environment("CartPole-v1")
+                .rollouts(num_rollout_workers=0, num_envs_per_worker=4,
+                          rollout_fragment_length=16)
+                .training(train_batch_size=64, sgd_minibatch_size=32,
+                          num_sgd_iter=2)
+                .resources(device=device, rollout_device=device))
+
+    algo = config(None).build()
+    algo.train()
+    algo.train()
+    ckpt = algo.save()
+    saved = [p.detach().cpu() for p in algo.learner.model.parameters()]
+    same = {}
+    for device in ("cuda", "cpu"):
+        other = config(device).build()
+        other.restore(ckpt)
+        params = [p.detach().cpu() for p in other.learner.model.parameters()]
+        same[device] = (all(torch.equal(a, b) for a, b in zip(saved, params))
+                        and other.iteration == algo.iteration == 2
+                        and other.learner.opt.count == algo.learner.opt.count)
+        other.stop()
+    algo.stop()
+    results = []
+    PPO.as_trainable(config(None), stop_iters=3, report=results.append)({})
+    emit("rl_tune", restore_bit_equal=same, iteration=2,
+         trainable_results=len(results),
+         episode_reward_mean=[r["episode_reward_mean"] for r in results])
+    check(all(same.values()), f"rl_tune: restore {same}")
+    check(len(results) == 3 and all("episode_reward_mean" in r
+                                    for r in results),
+          f"rl_tune: as_trainable reported {len(results)} results")
+
+
+def phase_rl_offline_parity() -> None:
+    """One update each of BC, MARWIL, CQL, QMIX, VDN and the two
+    learners of multi-agent PPO on the card and on the CPU, f32 with
+    TF32 off, from the same weights (drawn on the CPU from one seed) and
+    the same batch: every metric within 1e-5 relative + 1e-6, every
+    parameter's update within 0.05 x lr."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import (BC, CQL, MARWIL, BCConfig, CQLConfig,
+                                     MARWILConfig, MultiAgentBatch, PPOConfig,
+                                     QMixConfig, SampleBatch, VDNConfig)
+
+    _f32_exact()
+    rng = np.random.default_rng(23)
+    n = 256
+    offline = SampleBatch({
+        "obs": rng.normal(size=(n, 4)).astype(np.float32),
+        "actions": rng.integers(0, 2, n).astype(np.int64),
+        "rewards": rng.normal(size=n).astype(np.float32),
+        "terminateds": rng.random(n) < 0.1})
+    replay = (np.repeat(np.eye(3, dtype=np.float32)[rng.integers(0, 3, 128)]
+                        [:, None], 2, 1), rng.integers(0, 2, (128, 2)),
+              (4 * rng.normal(size=128)).astype(np.float32),
+              np.repeat(np.eye(3, dtype=np.float32)[rng.integers(0, 3, 128)]
+                        [:, None], 2, 1),
+              (rng.random(128) < 0.5).astype(np.float32))
+    ma_rows = None
+
+    def run(name, device):
+        """(metrics, [parameter updates]) of one update on `device`."""
+        if name in ("bc", "marwil", "cql"):
+            cls, cfg_cls = {"bc": (BC, BCConfig), "marwil": (MARWIL,
+                                                            MARWILConfig),
+                            "cql": (CQL, CQLConfig)}[name]
+            ln = cls(4, 2, cfg_cls(), device=device)
+            nets = [ln.model]
+            step = lambda: {k: v for k, v in ln.train_on(offline).items()
+                            if k != "samples"}
+            lr = ln.config.lr
+        elif name in ("qmix", "vdn"):
+            ln = (QMixConfig() if name == "qmix" else VDNConfig()).resources(
+                device=device).build()
+            nets = [ln.model]
+            step = lambda: {"td_loss": float(ln.train_step(*replay))}
+            lr = ln.config.lr
+        else:
+            algo = (PPOConfig().environment("coop-match")
+                    .rollouts(num_rollout_workers=0, num_envs_per_worker=16,
+                              rollout_fragment_length=32)
+                    .multi_agent(policies=["p0", "p1"],
+                                 policy_mapping_fn=_coop_split)
+                    .training(train_batch_size=512, sgd_minibatch_size=512,
+                              num_sgd_iter=1, lr=5e-3)
+                    .resources(device=device, rollout_device="cpu")
+                    .debugging(seed=7).build())
+            ln = algo
+            nets = [algo.learners[p].model for p in ("p0", "p1")]
+            step = lambda: {f"{p}/{k}": v for p in ("p0", "p1")
+                            for k, v in algo.learners[p].update(
+                                ma_rows.policy_batches[p]).items()}
+            lr = 5e-3
+        before = [p.detach().cpu().clone() for m in nets
+                  for p in m.parameters()]
+        metrics = step()
+        after = [p.detach().cpu() for m in nets for p in m.parameters()]
+        if hasattr(ln, "stop"):
+            ln.stop()
+        return metrics, [a - b for a, b in zip(after, before)], lr
+
+    from ray_tpu_torch.rllib import MultiAgentRolloutWorker
+    worker = MultiAgentRolloutWorker(
+        "coop-match", num_envs=16, rollout_fragment_length=32, seed=3,
+        policies={"p0": None, "p1": None}, policy_mapping_fn=_coop_split,
+        device="cpu")
+    ma_rows = MultiAgentBatch.concat_samples([worker.sample()[0]])
+    rows = {}
+    for name in ("bc", "marwil", "cql", "qmix", "vdn", "ma_ppo"):
+        (mc, uc, lr), (mp, up, _) = run(name, "cuda"), run(name, "cpu")
+        over = max(abs(mc[k] - mp[k]) - 1e-5 * abs(mp[k]) for k in mp)
+        err = max(float((a - b).abs().max()) for a, b in zip(uc, up))
+        moved = max(float(b.abs().max()) for b in up)
+        rows[name] = dict(
+            max_metric_abs_err=max(abs(mc[k] - mp[k]) for k in mp),
+            max_update_err=err, limit=0.05 * lr, max_update=moved)
+        check(over <= 1e-6 and err <= 0.05 * lr and moved > 0,
+              f"rl_offline_parity {name}: {rows[name]}")
+    emit("rl_offline_parity", learners=rows)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -3174,7 +3659,11 @@ def main() -> int:
               ("rl_continuous", lambda _: phase_rl_continuous()),
               ("rl_offpolicy", lambda _: phase_rl_offpolicy()),
               ("rl_recurrent", lambda _: phase_rl_recurrent()),
-              ("rl_breadth_parity", lambda _: phase_rl_breadth_parity()))
+              ("rl_breadth_parity", lambda _: phase_rl_breadth_parity()),
+              ("rl_offline", lambda _: phase_rl_offline()),
+              ("rl_multi_agent", lambda _: phase_rl_multi_agent()),
+              ("rl_tune", lambda _: phase_rl_tune()),
+              ("rl_offline_parity", lambda _: phase_rl_offline_parity()))
     wanted = sys.argv[1:]
     unknown = set(wanted) - {name for name, _ in phases}
     if unknown:

@@ -24,7 +24,9 @@ optax.chain(clip_by_global_norm, adam)'s tree, and `adam_state` /
 `adam_state_tree` with `model_moments` / `moments_tree` for any
 ScaleByAdamState(count, mu, nu) over one model, a tuple of models (SAC's
 and TD3's critic optimizer spans q1 and q2) or a scalar, under optax's
-namedtuple skeleton.
+namedtuple skeleton.  `qmix_state_dict` / `qmix_variables` carry QMIX's
+and VDN's plain param dict ({"agent1": {"w", "b"}, ..., "hyper_b2_2"},
+every w [in, out] on both sides).
 """
 
 from __future__ import annotations
@@ -388,3 +390,34 @@ def rl_opt_state_tree(count: int, mu, nu, model,
         adam_state_tree(count, mu, nu,
                         lambda moments: moments_tree(moments, model)),
         ScaleByScheduleState(c) if schedule else EmptyState()))
+
+
+def qmix_state_dict(params: dict, model) -> dict:
+    """The reference's QMIX / VDN param dict ({layer: {"w", "b"}}; numpy
+    or tensor leaves) as the state dict of the port's `QMixNet`, on the
+    model's device.  Raises if a key or a shape differs."""
+    want = model.state_dict()
+    flat = {f"{layer}.{name}": _tensor(leaf)
+            for layer, sub in params.items() for name, leaf in sub.items()}
+    if set(flat) != set(want):
+        raise ValueError(f"qmix params: keys {sorted(flat)} != expected "
+                         f"{sorted(want)}")
+    for key, t in flat.items():
+        if t.shape != want[key].shape:
+            raise ValueError(f"qmix params[{key!r}]: shape "
+                             f"{tuple(t.shape)} != expected "
+                             f"{tuple(want[key].shape)}")
+    return {k: flat[k].to(want[k].device, want[k].dtype) for k in want}
+
+
+def qmix_variables(tensors) -> dict:
+    """The inverse of `qmix_state_dict`: a `QMixNet` (or any {name:
+    tensor} in its state dict's names, e.g. its gradients) as the
+    reference's param dict of numpy arrays."""
+    if isinstance(tensors, torch.nn.Module):
+        tensors = tensors.state_dict()
+    out: dict = {}
+    for key, t in tensors.items():
+        layer, _, name = key.rpartition(".")
+        out.setdefault(layer, {})[name] = _numpy(t)
+    return out

@@ -11,25 +11,31 @@ cannot import passed in instead:
 - `.debugging(observer=...)`: the `util.observe.Observer` that receives
   the rl plane's events, spans and metrics.
 
-`learner_mesh` refuses anything but None (the multi-device slice), and
-multi-agent configs wait for `multi_agent.py`.  `save`, `restore` and
-`as_trainable` bind the reference's `air.Checkpoint` and Tune: they wait
-for the Tune binding (ROADMAP A9); `save_to_dict` / `restore_from_dict`
-are ported.
+`.multi_agent(policies=..., policy_mapping_fn=...)` declares a policy
+map; the algorithm then probes a multi-agent env (`multi_agent.py`) and
+sizes one model per policy.  `learner_mesh` refuses anything but None
+(the multi-device slice).
+
+`save()` returns the port's dict `Checkpoint` (`ray_tpu_torch.air`) of
+`save_to_dict()` plus `iteration` and `total_env_steps`; `restore()`
+reads any object with `to_dict()`, so the reference's checkpoints
+restore here and the port's in the reference.  `as_trainable` wraps the
+algorithm into a Tune function trainable; Tune's `report` reaches it as
+a handle (the argument, or `runtime.tune.report`), never an import.
 """
 
 from __future__ import annotations
 
 import collections
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 
 from ray_tpu_torch._device import MULTI_DEVICE
+from ray_tpu_torch.air import Checkpoint
 from ray_tpu_torch.rllib.env import make_vector_env
-
-_TUNE = "waits for the Tune binding of ROADMAP A9"
+from ray_tpu_torch.rllib.multi_agent import make_multi_agent_env
 
 
 class AlgorithmConfig:
@@ -53,6 +59,11 @@ class AlgorithmConfig:
         self.use_lstm = False
         self.lstm_size = 64
         self.seed = 0
+        # Multi-agent: policies = iterable of policy ids (None =
+        # single-agent); policy_mapping_fn: agent_id -> policy_id (default:
+        # identity).
+        self.policies: Any = None
+        self.policy_mapping_fn: Any = None
         self.runtime: Any = None
         self.device: Any = None
         self.rollout_device: Any = None
@@ -102,9 +113,12 @@ class AlgorithmConfig:
             self.rollout_device = rollout_device
         return self
 
-    def multi_agent(self, *, policies, policy_mapping_fn=None):
-        raise NotImplementedError("multi-agent configs wait for "
-                                  "multi_agent.py (ROADMAP A9)")
+    def multi_agent(self, *, policies, policy_mapping_fn=None
+                    ) -> "AlgorithmConfig":
+        """Declare the policy map."""
+        self.policies = list(policies)
+        self.policy_mapping_fn = policy_mapping_fn
+        return self
 
     def debugging(self, *, seed: Optional[int] = None,
                   observer: Any = None) -> "AlgorithmConfig":
@@ -116,7 +130,8 @@ class AlgorithmConfig:
 
     def to_dict(self) -> Dict[str, Any]:
         d = {k: v for k, v in self.__dict__.items()
-             if k not in ("algo_class", "extra", "runtime", "observer")}
+             if k not in ("algo_class", "extra", "runtime", "observer",
+                          "policy_mapping_fn")}
         d.update(self.extra)
         return d
 
@@ -131,12 +146,24 @@ class Algorithm:
 
     def __init__(self, config: AlgorithmConfig):
         self.config = config
-        # Probe the env spec once, locally, to size the model.
-        probe = make_vector_env(config.env, 1, seed=config.seed)
-        self.obs_dim = probe.observation_dim
-        self.num_actions = probe.num_actions
-        self.action_dim = getattr(probe, "action_dim", 0)
-        self.continuous = self.num_actions == 0 and self.action_dim > 0
+        self.multi_agent = config.policies is not None
+        if self.multi_agent:
+            probe = make_multi_agent_env(config.env, 1, seed=config.seed)
+            mapping = config.policy_mapping_fn or (lambda aid: aid)
+            # Per-policy model sizing from the agents each policy serves.
+            self.policy_specs: Dict[str, tuple] = {}
+            for a in probe.agent_ids:
+                self.policy_specs[mapping(a)] = (
+                    probe.observation_dims[a], probe.num_actions_by_agent[a])
+            self.obs_dim = self.num_actions = self.action_dim = 0
+            self.continuous = False
+        else:
+            # Probe the env spec once, locally, to size the model.
+            probe = make_vector_env(config.env, 1, seed=config.seed)
+            self.obs_dim = probe.observation_dim
+            self.num_actions = probe.num_actions
+            self.action_dim = getattr(probe, "action_dim", 0)
+            self.continuous = self.num_actions == 0 and self.action_dim > 0
         self.iteration = 0
         self.total_env_steps = 0
         self._episode_returns: collections.deque = collections.deque(
@@ -197,18 +224,57 @@ class Algorithm:
     def restore_from_dict(self, state: Dict[str, Any]) -> None:
         raise NotImplementedError
 
-    def save(self):
-        raise NotImplementedError(f"Algorithm.save {_TUNE}; use "
-                                  f"save_to_dict")
+    def save(self) -> Checkpoint:
+        state = self.save_to_dict()
+        state["iteration"] = self.iteration
+        state["total_env_steps"] = self.total_env_steps
+        return Checkpoint.from_dict(state)
 
     def restore(self, checkpoint) -> None:
-        raise NotImplementedError(f"Algorithm.restore {_TUNE}; use "
-                                  f"restore_from_dict")
-
-    @classmethod
-    def as_trainable(cls, config: AlgorithmConfig, **kwargs):
-        raise NotImplementedError(f"Algorithm.as_trainable {_TUNE}")
+        """Restore from any checkpoint with `to_dict()`: the port's, or
+        the reference's `air.Checkpoint`."""
+        state = checkpoint.to_dict()
+        self.iteration = state.get("iteration", 0)
+        self.total_env_steps = state.get("total_env_steps", 0)
+        self.restore_from_dict(state)
 
     def stop(self) -> None:
         if getattr(self, "workers", None) is not None:
             self.workers.stop()
+
+    # -- Tune integration --------------------------------------------------
+    @classmethod
+    def as_trainable(cls, config: AlgorithmConfig, *,
+                     stop_iters: int = 1000,
+                     stop_reward: Optional[float] = None,
+                     report: Optional[Callable[[dict], Any]] = None):
+        """Wrap into a Tune function trainable that loops train() and
+        reports each result.  `report` is Tune's report function; without
+        one, `runtime.tune.report` of the config's runtime handle
+        (`.resources(runtime=ray_tpu)`).  A Tune config's keys overwrite
+        the config's attributes of the same names."""
+        if report is None:
+            tune = getattr(config.runtime, "tune", None)
+            report = getattr(tune, "report", None)
+        if report is None:
+            raise ValueError(
+                "as_trainable needs Tune's report: pass report=, or give "
+                "the config a runtime handle with .tune.report "
+                "(config.resources(runtime=ray_tpu))")
+
+        def _trainable(tune_config: Dict[str, Any]):
+            cfg = config
+            for k, v in (tune_config or {}).items():
+                if hasattr(cfg, k):
+                    setattr(cfg, k, v)
+            algo = cls(cfg)
+            try:
+                for _ in range(stop_iters):
+                    result = algo.train()
+                    report(result)
+                    if (stop_reward is not None
+                            and result["episode_reward_mean"] >= stop_reward):
+                        break
+            finally:
+                algo.stop()
+        return _trainable

@@ -136,13 +136,15 @@ class ConvActorCritic(nn.Module):
 
 
 def make_model(obs_dim, num_actions: int, hidden: Sequence[int] = (64, 64),
-               *, seed: int = 0, device: DeviceLike = None) -> nn.Module:
+               *, seed: int = 0, device: DeviceLike = None,
+               generator: Optional[torch.Generator] = None) -> nn.Module:
     """The actor-critic for an observation space, on `device` (None ->
     CUDA): an int `obs_dim` is a flat observation (the MLP), a shape
     tuple (H, W, C) an image (the Nature-CNN), as the reference
-    dispatches.  Weights are drawn on the CPU from `seed`."""
+    dispatches.  Weights are drawn on the CPU from `generator` (a CPU
+    torch.Generator), or else from one seeded with `seed`."""
     device = resolve_device(device)
-    gen = torch.Generator().manual_seed(int(seed))
+    gen = generator or torch.Generator().manual_seed(int(seed))
     if isinstance(obs_dim, (tuple, list)) and len(obs_dim) > 1:
         model = ConvActorCritic(obs_dim, num_actions, generator=gen)
     else:

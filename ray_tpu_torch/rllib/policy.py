@@ -55,6 +55,18 @@ def _numpy(*tensors):
     return tuple(t.cpu().numpy() for t in tensors)
 
 
+def action_bounds(action_low, action_high, device: torch.device):
+    """(low, high, scale, center) of an env's action bounds as float32
+    tensors on `device`: scalars, or one value per action dimension, so
+    they broadcast over [B, action_dim].  scale = (high - low) / 2 and
+    center = (high + low) / 2 are computed in numpy at the bounds' own
+    precision, as the reference computes them, and then cast."""
+    low, high = np.asarray(action_low), np.asarray(action_high)
+    return tuple(torch.as_tensor(np.asarray(x, np.float32), device=device)
+                 for x in (low, high, (high - low) / 2.0,
+                           (high + low) / 2.0))
+
+
 class _WeightsMixin:
     """get_weights / set_weights as the reference's tree of numpy arrays
     (flax's variables tree, or the recurrent model's plain dict), under
@@ -81,13 +93,14 @@ class TorchPolicy(_WeightsMixin):
     def __init__(self, obs_dim, num_actions: int,
                  hidden: Sequence[int] = (64, 64), seed: int = 0,
                  device: DeviceLike = None, action_dim: int = 0,
-                 action_low: float = -1.0, action_high: float = 1.0):
+                 action_low=-1.0, action_high=1.0):
         self.obs_dim = obs_dim
         self.num_actions = num_actions
         self.continuous = num_actions == 0 and action_dim > 0
         self.action_dim = action_dim
-        self.action_low, self.action_high = action_low, action_high
         self.device = resolve_device(device)
+        self._low, self._high, _, _ = action_bounds(action_low, action_high,
+                                                    self.device)
         if self.continuous:
             self.model = make_continuous_model(
                 obs_dim, action_dim, hidden, seed=seed, device=self.device)
@@ -117,8 +130,7 @@ class TorchPolicy(_WeightsMixin):
                 action = mean + torch.exp(log_std) * noise
                 logp = gaussian_logp(mean, log_std, action)
             else:
-                action = torch.clamp(mean, self.action_low,
-                                     self.action_high)
+                action = torch.clamp(mean, self._low, self._high)
                 logp = torch.zeros(len(x), device=self.device)
             return _numpy(action, logp, value, mean)
         with self._lock:
@@ -152,10 +164,8 @@ class _ContinuousRolloutPolicy(_WeightsMixin):
                                           seed=seed, device=self.device)
         self._gen = torch.Generator(self.device).manual_seed(seed + 1)
         self._lock = threading.Lock()
-        low, high = np.asarray(action_low), np.asarray(action_high)
-        self._scale = float((high - low) / 2.0)
-        self._center = float((high + low) / 2.0)
-        self._low, self._high = float(low), float(high)
+        self._low, self._high, self._scale, self._center = action_bounds(
+            action_low, action_high, self.device)
 
     def value(self, obs: np.ndarray) -> np.ndarray:
         return np.zeros(len(obs), np.float32)
@@ -171,8 +181,8 @@ class SquashedGaussianRolloutPolicy(_ContinuousRolloutPolicy):
     center; greedy, tanh(mean) in env scale."""
 
     def __init__(self, obs_dim: int, action_dim: int, hidden=(256, 256),
-                 seed: int = 0, action_low: float = -1.0,
-                 action_high: float = 1.0, device: DeviceLike = None):
+                 seed: int = 0, action_low=-1.0, action_high=1.0,
+                 device: DeviceLike = None):
         super().__init__("squashed", obs_dim, action_dim, hidden, seed,
                          action_low, action_high, device)
 
@@ -195,9 +205,8 @@ class DeterministicNoiseRolloutPolicy(_ContinuousRolloutPolicy):
     either way)."""
 
     def __init__(self, obs_dim: int, action_dim: int, hidden=(256, 256),
-                 seed: int = 0, action_low: float = -1.0,
-                 action_high: float = 1.0, device: DeviceLike = None,
-                 noise_scale: float = 0.1):
+                 seed: int = 0, action_low=-1.0, action_high=1.0,
+                 device: DeviceLike = None, noise_scale: float = 0.1):
         super().__init__("deterministic", obs_dim, action_dim, hidden, seed,
                          action_low, action_high, device)
         self.noise_scale = noise_scale

@@ -37,6 +37,7 @@ from ray_tpu_torch.rllib.dqn import (OffPolicyAlgorithm, frozen_copy,
                                      metrics_to_host)
 from ray_tpu_torch.rllib.learner import ClipAdam, batch_tensors
 from ray_tpu_torch.rllib.models import make_offpolicy_model
+from ray_tpu_torch.rllib.policy import action_bounds
 from ray_tpu_torch.rllib.replay_buffer import ReplayBuffer
 from ray_tpu_torch.rllib.worker_set import WorkerSet
 
@@ -56,14 +57,6 @@ class SACConfig(AlgorithmConfig):
         self.train_batch_size = 256
         self.updates_per_step = 32
         self.model_hidden = (256, 256)
-
-
-def env_scale(action_low, action_high):
-    """(scale, center) of the env's bounds, as the reference computes
-    them (numpy, then float32)."""
-    low, high = np.asarray(action_low), np.asarray(action_high)
-    return (float(np.float32((high - low) / 2.0)),
-            float(np.float32((high + low) / 2.0)))
 
 
 @torch.no_grad()
@@ -116,11 +109,12 @@ def _noise(noise, shape, gen, device):
                            device=device)
 
 
-def squashed_sample(actor, obs, noise, scale: float, center: float):
+def squashed_sample(actor, obs, noise, scale, center):
     """Reparameterized tanh-Gaussian sample in env scale and its
     log-prob: logp of u = mean + std * noise under N(mean, std), minus
     sum(log(scale * (1 - tanh(u)^2) + 1e-6)), the 1e-6 inside the log
-    and after the scale."""
+    and after the scale.  `scale` and `center` are tensors that broadcast
+    over [B, action_dim] (`policy.action_bounds`)."""
     mean, log_std = actor(obs)
     u = mean + torch.exp(log_std) * noise
     logp_u = torch.sum(-0.5 * ((u - mean) ** 2) * torch.exp(-2 * log_std)
@@ -153,7 +147,8 @@ class _SACLearner:
         self.critic_opt = plain_adam(
             [*self.q1.parameters(), *self.q2.parameters()], cfg.critic_lr)
         self.alpha_opt = plain_adam([self.log_alpha], cfg.alpha_lr)
-        self.scale, self.center = env_scale(action_low, action_high)
+        _, _, self.scale, self.center = action_bounds(action_low,
+                                                      action_high, dev)
         self.action_dim = action_dim
         self.target_entropy = (cfg.target_entropy
                                if cfg.target_entropy is not None

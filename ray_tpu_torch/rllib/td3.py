@@ -28,8 +28,9 @@ from ray_tpu_torch.rllib.dqn import (OffPolicyAlgorithm, frozen_copy,
 from ray_tpu_torch.rllib.learner import batch_tensors
 from ray_tpu_torch.rllib.models import make_offpolicy_model
 from ray_tpu_torch.rllib.replay_buffer import ReplayBuffer
-from ray_tpu_torch.rllib.sac import (_noise, adam_opt_tree, env_scale,
-                                     load_adam, plain_adam, polyak_)
+from ray_tpu_torch.rllib.policy import action_bounds
+from ray_tpu_torch.rllib.sac import (_noise, adam_opt_tree, load_adam,
+                                     plain_adam, polyak_)
 from ray_tpu_torch.rllib.worker_set import WorkerSet
 
 
@@ -72,8 +73,8 @@ class _TD3Learner:
         self.actor_opt = plain_adam(self.actor.parameters(), cfg.actor_lr)
         self.critic_opt = plain_adam(
             [*self.q1.parameters(), *self.q2.parameters()], cfg.critic_lr)
-        self.scale, self.center = env_scale(action_low, action_high)
-        self.low, self.high = float(action_low), float(action_high)
+        self.low, self.high, self.scale, self.center = action_bounds(
+            action_low, action_high, dev)
         self.action_dim = action_dim
         self.gamma, self.tau = cfg.gamma, cfg.tau
         self.noise_sigma = cfg.target_noise

@@ -152,9 +152,8 @@ def test_engine_auto_start_streams_and_shuts_down():
         eng.submit([1])
 
 
-def test_unported_options_raise(tmp_path):
-    """No engine option raises any more: the KV spill tier, the last to
-    be ported, builds and spills.  Two 48-token prompts through a 4-block
+def test_kv_tier_engine_builds_and_spills(tmp_path):
+    """A kv_tier engine builds and spills.  Two 48-token prompts through a 4-block
     pool evict the first one's sealed blocks into the tier's host level,
     and its tier's overflow reaches the files under spill_dir."""
     eng = InferenceEngine("gpt", "nano", device="cpu", kv_tier=True,

@@ -61,6 +61,8 @@ from ray_tpu_torch.rllib import exploration as pexp
 from ray_tpu_torch.rllib import (A2CConfig, DeterministicNoiseRolloutPolicy,
                                  DQNConfig, RecurrentTorchPolicy, SACConfig,
                                  SquashedGaussianRolloutPolicy, TD3Config)
+from ray_tpu_torch.rllib import (BC, CQL, MARWIL, MultiAgentRolloutWorker,
+                                 PolicyServer, QMixConfig, VDNConfig, fit_fqe)
 from ray_tpu_torch.rllib.dqn import _QLearner
 from ray_tpu_torch.rllib.impala import IMPALAConfig, _VTraceLearner
 from ray_tpu_torch.rllib.sac import _SACLearner
@@ -279,11 +281,11 @@ def _knob_case(knob, pkg):
 
 @pytest.mark.parametrize("knob", ["epsilon_schedule", "exploration",
                                   "obs_connector", "action_connector"])
-def test_rollout_worker_refuses_the_value_based_knobs(knob):
-    """Each value-based knob, refused before, now works: two fragments
-    equal to the reference worker's (the same weights, the knob's
-    objects from each package): obs, actions, rewards and episode ends
-    exactly, the policy's outputs within 1e-5."""
+def test_rollout_worker_value_knobs_give_the_references_fragments(knob):
+    """Each value-based knob gives the reference worker's fragments: two
+    fragments from the same weights, with the knob's objects from each
+    package: obs, actions, rewards and episode ends exactly, the
+    policy's outputs within 1e-5."""
     env, kw_ref = _knob_case(knob, "ref")
     _, kw_port = _knob_case(knob, "port")
     kw = dict(num_envs=4, rollout_fragment_length=8, hidden=HIDDEN, seed=1,
@@ -622,16 +624,15 @@ def test_ppo_trains_locally_and_takes_the_references_state():
 
 
 def test_ppo_refuses_what_waits():
-    cfg = PPOConfig().rollouts(num_rollout_workers=0).resources(
-        device="cpu", rollout_device="cpu")
+    """Remote rollout workers without a runtime handle, and a learner
+    mesh (the multi-device slice).  Multi-agent configs and the Tune
+    binding no longer wait (tests/test_torch_rllib_multi_agent.py,
+    tests/test_torch_rllib_tune.py)."""
     with pytest.raises(ValueError, match="runtime"):
         PPOConfig().resources(device="cpu", rollout_device="cpu").build()
-    with pytest.raises(NotImplementedError, match="multi_agent"):
-        cfg.multi_agent(policies=["a"])
-    algo = cfg.training(train_batch_size=8).build()
-    with pytest.raises(NotImplementedError, match="Tune"):
-        algo.save()
-    algo.stop()
+    with pytest.raises(NotImplementedError, match=re.escape(MULTI_DEVICE)):
+        PPOConfig().resources(
+            learner_mesh=types.SimpleNamespace(shape={"data": 2}))
 
 
 def _local_algo(cfg, device=None):
@@ -674,7 +675,29 @@ def _entry_points():
             SACConfig().environment("Pendulum-v1"), **kw),
         "TD3": lambda **kw: _local_algo(
             TD3Config().environment("Pendulum-v1"), **kw),
+        "BC": lambda **kw: BC(4, 2, **kw),
+        "MARWIL": lambda **kw: MARWIL(4, 2, **kw),
+        "CQL": lambda **kw: CQL(4, 2, **kw),
+        "fit_fqe": lambda **kw: fit_fqe(_fqe_batch(), lambda o: np.full(
+            (len(o), 2), 0.5), 2, iterations=1, **kw),
+        "MultiAgentRolloutWorker": lambda **kw: MultiAgentRolloutWorker(
+            "coop-match", num_envs=2, hidden=HIDDEN, **kw),
+        "PPO(multi-agent)": lambda **kw: _local_algo(
+            PPOConfig().environment("coop-match").multi_agent(
+                policies=["a0", "a1"]), **kw),
+        "QMix": lambda **kw: QMixConfig().resources(**kw).build(),
+        "VDN": lambda **kw: VDNConfig().resources(**kw).build(),
+        "PolicyServer": lambda **kw: PolicyServer(4, 2, **kw),
     }
+
+
+def _fqe_batch():
+    return SampleBatch({
+        "obs": np.zeros((4, 3), np.float32),
+        "actions": np.zeros(4, np.int64),
+        "rewards": np.ones(4, np.float32),
+        "terminateds": np.array([0, 1, 0, 1], bool),
+        "truncateds": np.zeros(4, bool)})
 
 
 @pytest.mark.parametrize("name", list(_entry_points()))

@@ -16,7 +16,13 @@ CPU at small widths:
   uniform warm-up's actions equal to the reference worker's;
 - schedules, EpsilonGreedy, GaussianNoise, OrnsteinUhlenbeckNoise, Random
   and every connector equal to the reference's for the same seed;
-- PPO on Pendulum-v1 and A2C on CartPole-v1 train with device="cpu".
+- PPO on Pendulum-v1 and A2C on CartPole-v1 train with device="cpu";
+- per-dimension action bounds ((-1, -2) / (1, 2) on a registered
+  2-dimension env): the greedy and sampled actions of the three
+  continuous policies (draws rebuilt from the port's generator and the
+  reference's formula, 1e-5), the uniform warm-up of the rollout
+  worker exactly, and one SAC and two TD3 updates with the reference's
+  noise, by update at 0.05 * lr.
 """
 
 import functools
@@ -38,13 +44,27 @@ from ray_tpu.rllib.models import gaussian_logp as jgaussian_logp
 from ray_tpu.rllib.models import make_continuous_model as jmake_continuous
 from ray_tpu.rllib.models import make_model as jmake_model
 from ray_tpu.rllib.policy import JaxPolicy
+from ray_tpu.rllib.models import make_deterministic_actor as jmake_det
+from ray_tpu.rllib.models import make_squashed_actor as jmake_squashed
+from ray_tpu.rllib.policy import (DeterministicNoiseRolloutPolicy as
+                                  JDeterministicPolicy,
+                                  SquashedGaussianRolloutPolicy as
+                                  JSquashedPolicy)
 from ray_tpu.rllib.rollout_worker import RolloutWorker as JRolloutWorker
+from ray_tpu.rllib.sac import SACConfig as JSACConfig
+from ray_tpu.rllib.sac import _SACLearner as JSACLearner
+from ray_tpu.rllib.td3 import TD3Config as JTD3Config
+from ray_tpu.rllib.td3 import _TD3Learner as JTD3Learner
 from ray_tpu_torch.models import convert
-from ray_tpu_torch.rllib import (A2CConfig, PPOConfig, RolloutWorker,
-                                 SampleBatch, TorchLearner, TorchPolicy,
+from ray_tpu_torch.rllib import (A2CConfig, DeterministicNoiseRolloutPolicy,
+                                 PPOConfig, RolloutWorker, SACConfig,
+                                 SampleBatch, SquashedGaussianRolloutPolicy,
+                                 TD3Config, TorchLearner, TorchPolicy,
                                  a2c_loss, gaussian_logp,
                                  make_continuous_model, make_model,
                                  ppo_loss_continuous)
+from ray_tpu_torch.rllib.sac import _SACLearner
+from ray_tpu_torch.rllib.td3 import _TD3Learner
 from ray_tpu_torch.rllib import connectors as pconn
 from ray_tpu_torch.rllib import env as penv
 from ray_tpu_torch.rllib import exploration as pexp
@@ -416,3 +436,204 @@ def test_a2c_trains_one_pass_over_the_batch():
         assert algo.learner.config["sgd_minibatch_size"] == 64
     finally:
         algo.stop()
+
+
+# ------------------------------------------------ per-dimension bounds
+
+LOW2 = np.asarray([-1.0, -2.0], np.float32)
+HIGH2 = np.asarray([1.0, 2.0], np.float32)
+
+
+def _box2(base):
+    """A 2-dimension continuous env over `base` (either package's
+    VectorEnv) with per-dimension bounds (-1, -2) / (1, 2): observations
+    N(0, 1) from the env's generator, reward -|a - obs[:, :2]|^2 on the
+    clipped action, 20-step episodes."""
+
+    class Box2(base):
+        observation_dim, num_actions, action_dim = 3, 0, 2
+        action_low, action_high = LOW2, HIGH2
+
+        def __init__(self, num_envs, seed=0):
+            super().__init__(num_envs)
+            self._rng = np.random.default_rng(seed)
+            self._t = np.zeros(num_envs, np.int64)
+
+        def _draw(self):
+            self._obs = self._rng.normal(size=(self.num_envs, 3)).astype(
+                np.float32)
+            return self._obs
+
+        def reset_all(self, seed=None):
+            if seed is not None:
+                self._rng = np.random.default_rng(seed)
+            self._t[:] = 0
+            return self._draw()
+
+        def step_batch(self, actions):
+            a = np.clip(actions, self.action_low, self.action_high)
+            rew = -((a - self._obs[:, :2]) ** 2).sum(-1).astype(np.float32)
+            self._t += 1
+            trunc = self._t >= 20
+            self._t[trunc] = 0
+            return (self._draw(), rew, np.zeros(self.num_envs, bool),
+                    trunc)
+
+    return Box2
+
+
+jenv.register_env("Box2-v0", _box2(jenv.VectorEnv))
+penv.register_env("Box2-v0", _box2(penv.VectorEnv))
+
+
+def _scaled_head(weights, layer, factor):
+    """The weights with one Dense layer's kernel scaled, so the actions
+    reach past the bounds."""
+    weights["params"][layer]["kernel"] = (
+        weights["params"][layer]["kernel"] * factor)
+    return weights
+
+
+def test_gaussian_policy_clips_and_draws_per_dimension():
+    rng = np.random.default_rng(11)
+    kw = dict(action_dim=2, action_low=LOW2, action_high=HIGH2)
+    jp = JaxPolicy(3, 0, HIDDEN, seed=2, **kw)
+    pp = TorchPolicy(3, 0, HIDDEN, seed=2, device="cpu", **kw)
+    weights = _scaled_head(jp.get_weights(), "Dense_2", 400.0)
+    jp.set_weights(weights)
+    pp.set_weights(weights)
+    x = rng.normal(size=(256, 3)).astype(np.float32)
+    ja, _, _, jmean = jp.compute_actions(x, explore=False)
+    pa, _, _, pmean = pp.compute_actions(x, explore=False)
+    np.testing.assert_allclose(pmean, jmean, rtol=RTOL, atol=1e-6)
+    np.testing.assert_allclose(pa, ja, rtol=RTOL, atol=1e-6)
+    # Each dimension is clipped to its own bound, and the means pass both.
+    assert (np.abs(pa) <= HIGH2).all()
+    assert (np.abs(pa[:, 1]) > 1.0).any() and (np.abs(jmean) > HIGH2).any()
+    a, logp, _, mean = pp.compute_actions(x)
+    noise = torch.randn((256, 2), generator=torch.Generator().manual_seed(3))
+    std = np.exp(weights["params"]["log_std"])
+    np.testing.assert_allclose(a, jmean + std * noise.numpy(), rtol=RTOL,
+                               atol=1e-5)
+    np.testing.assert_allclose(
+        logp, np.asarray(jgaussian_logp(jnp.asarray(jmean),
+                                        weights["params"]["log_std"], a)),
+        rtol=RTOL)
+
+
+@pytest.mark.parametrize("kind", ["squashed", "deterministic"])
+def test_offpolicy_policies_scale_per_dimension(kind):
+    """Greedy actions equal the reference's; a draw equals the
+    reference's formula on the port generator's noise: tanh(mean + std *
+    noise) * scale + center, or clip(actor * scale + center + 0.1 *
+    scale * noise, low, high), each per dimension."""
+    rng = np.random.default_rng(12)
+    kw = dict(action_low=LOW2, action_high=HIGH2)
+    if kind == "squashed":
+        jp, pp = (JSquashedPolicy(3, 2, HIDDEN, seed=4, **kw),
+                  SquashedGaussianRolloutPolicy(3, 2, HIDDEN, seed=4,
+                                                device="cpu", **kw))
+        apply = jmake_squashed(3, 2, HIDDEN)[1]
+    else:
+        jp, pp = (JDeterministicPolicy(3, 2, HIDDEN, seed=4, **kw),
+                  DeterministicNoiseRolloutPolicy(3, 2, HIDDEN, seed=4,
+                                                  device="cpu", **kw))
+        apply = jmake_det(3, 2, HIDDEN)[1]
+    weights = _scaled_head(jp.get_weights(), "Dense_2", 30.0)
+    jp.set_weights(weights)
+    pp.set_weights(weights)
+    x = rng.normal(size=(256, 3)).astype(np.float32)
+    # The scaled head's outputs are O(10) sums that cancel: 1e-5 absolute
+    # (a few ulps of their terms), 1e-5 relative.
+    for got, want in zip(pp.compute_actions(x, explore=False),
+                         jp.compute_actions(x, explore=False)):
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-5)
+    gen = torch.Generator().manual_seed(5)
+    if kind == "deterministic":          # the greedy call drew once too
+        torch.randn((256, 2), generator=gen)
+    noise = torch.randn((256, 2), generator=gen).numpy()
+    a = pp.compute_actions(x)[0]
+    scale, center = (HIGH2 - LOW2) / 2, (HIGH2 + LOW2) / 2
+    if kind == "squashed":
+        mean, log_std = (np.asarray(t) for t in apply(weights, x))
+        want = np.tanh(mean + np.exp(log_std) * noise) * scale + center
+    else:
+        det = np.asarray(apply(weights, x)) * scale + center
+        want = np.clip(det + 0.1 * scale * noise, LOW2, HIGH2)
+    np.testing.assert_allclose(a, want, rtol=RTOL, atol=1e-5)
+    assert (np.abs(a) <= HIGH2).all() and (np.abs(a[:, 1]) > 1.0).any()
+
+
+@pytest.mark.parametrize("kind", ["squashed_gaussian", "deterministic_noise",
+                                  "actor_critic"])
+def test_rollout_warmup_draws_within_each_dimensions_bounds(kind):
+    kw = dict(num_envs=4, rollout_fragment_length=8, hidden=HIDDEN, seed=6,
+              postprocess=False, policy_kind=kind, random_warmup_steps=64)
+    ref = JRolloutWorker("Box2-v0", **kw)
+    port = RolloutWorker("Box2-v0", device="cpu", **kw)
+    port.set_weights(ref.get_weights())
+    rb, _ = ref.sample()
+    pb, _ = port.sample()
+    for k in ("obs", "actions", "rewards", "truncateds"):
+        np.testing.assert_array_equal(pb[k], rb[k])
+    acts = pb["actions"]
+    assert acts.shape == (8, 4, 2)
+    assert (acts >= LOW2).all() and (acts <= HIGH2).all()
+    assert np.abs(acts[..., 1]).max() > 1.0
+
+
+def _box2_transitions(rng, n=64):
+    return SampleBatch({
+        "obs": rng.normal(size=(n, 3)).astype(np.float32),
+        "next_obs": rng.normal(size=(n, 3)).astype(np.float32),
+        "actions": rng.uniform(LOW2, HIGH2, (n, 2)).astype(np.float32),
+        "rewards": rng.normal(size=n).astype(np.float32),
+        "dones": rng.random(n) < 0.1})
+
+
+def _offpolicy_pair(kind, lr=1e-2, seed=3):
+    jcfg, pcfg = ((JSACConfig(), SACConfig()) if kind == "sac"
+                  else (JTD3Config(), TD3Config()))
+    for cfg in (jcfg, pcfg):
+        cfg.model_hidden = HIDDEN
+        cfg.actor_lr = cfg.critic_lr = lr
+        if kind == "sac":
+            cfg.alpha_lr = lr
+    jcls, pcls = ((JSACLearner, _SACLearner) if kind == "sac"
+                  else (JTD3Learner, _TD3Learner))
+    ref = jcls(3, 2, jcfg, LOW2, HIGH2, seed)
+    port = pcls(3, 2, pcfg, LOW2, HIGH2, seed, device="cpu")
+    port.set_state(_np(ref.get_state()))
+    return ref, port
+
+
+@pytest.mark.parametrize("kind", ["sac", "td3"])
+def test_offpolicy_updates_match_the_reference_per_dimension(kind):
+    """One SAC update, or two TD3 updates (its delayed actor step and
+    polyak on the second), with the reference's own noise: metrics
+    within 1e-4 relative, every network by update at 0.05 * lr."""
+    rng = np.random.default_rng(13)
+    lr = 1e-2
+    ref, port = _offpolicy_pair(kind, lr)
+    key = "sac_state" if kind == "sac" else "td3_state"
+    for _ in range(1 if kind == "sac" else 2):
+        batch = _box2_transitions(rng)
+        if kind == "sac":
+            _, k_next, k_pi = jax.random.split(ref.state.rng, 3)
+            noise = (np.asarray(jax.random.normal(k_next, (64, 2))),
+                     np.asarray(jax.random.normal(k_pi, (64, 2))))
+        else:
+            _, k = jax.random.split(ref.state.rng)
+            noise = np.asarray(jax.random.normal(k, (64, 2)))
+        r0, p0 = _leaves(ref.get_state()[key]), _leaves(
+            port.get_state()[key])
+        rm, pm = ref.update(batch), port.update(batch, noise=noise)
+        assert set(pm) == set(rm)
+        for k in rm:
+            np.testing.assert_allclose(pm[k], rm[k], rtol=1e-4, atol=1e-6)
+        r1, p1 = _leaves(ref.get_state()[key]), _leaves(
+            port.get_state()[key])
+        assert len(p1) == len(r1)
+        for a0, a1, b0, b1 in zip(p0, p1, r0, r1):
+            np.testing.assert_allclose(a1 - a0, b1 - b0, rtol=0,
+                                       atol=0.05 * lr)
