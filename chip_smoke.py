@@ -185,6 +185,26 @@ run with a nonzero exit code and no result line:
            1e-5 relative + 1e-6, every update within 0.05 x lr; deterministic
            continuous actions within 1e-5, greedy recurrent actions
            equal.
+  rl_offline, rl_multi_agent, rl_tune, rl_offline_parity  the offline
+           gates (BC, MARWIL, CQL, FQE into DM / DR), multi-agent PPO,
+           QMIX and VDN to their gates and the policy server, a PPO
+           checkpoint restored bit for bit, and one update of each
+           learner card vs CPU.
+  rl_es    ES (24 directions, horizon 300, sigma 0.08, lr 0.05, seed 0)
+           and ARS (16 directions, top 8, sigma 0.1, seed 1) on
+           CartPole-v1 at the reference's learning tests' configs, 2
+           evaluation workers of the in-process runtime, the population
+           forward on the card: each must pass 150 within 30 / 35
+           train() calls, ES's checkpoint must restore theta bit for
+           bit, ARS's filter must have seen > 1000 observations.  ES at
+           its defaults (32 directions, 64 lanes): 3 timed calls and one
+           worker's evaluate profiled, which must run one batched
+           product per layer per env step.  LinUCB and LinTS at their
+           defaults: 15 calls, then the reference's near-oracle gate.
+  rl_es_parity  f32, TF32 off, card against CPU: one ES evaluate (24
+           directions) with equal returns and lengths and every step's
+           forward within 1e-5; LinUCB's arms equal over 3 calls, A^-1
+           and b within 1e-12.
 
 Each phase's wall seconds follow it on a line of their own.  Then, on
 lines of their own: the kernels' JSON record, the card's name and power
@@ -2480,7 +2500,9 @@ class _InlineRuntime:
     def put(self, value):
         return self.Ref(value=value)
 
-    def get(self, ref):
+    def get(self, ref, timeout=None):
+        if isinstance(ref, list):
+            return [r.resolve() for r in ref]
         return ref.resolve()
 
     def wait(self, refs, num_returns=1, timeout=None):
@@ -2691,6 +2713,8 @@ class _Profiled:
                   if e.device_type.name == "CUDA"]
         self.device_ms = sum(e.self_device_time_total
                              for e in events) / n / 1e3
+        self.ops = {e.key: e.count / n for e in prof.key_averages()
+                    if e.device_type.name == "CPU"}
         self.launches = sum(e.count for e in events) / n
         self.busy = self.device_ms / self.host_ms
 
@@ -3619,6 +3643,215 @@ def phase_rl_offline_parity() -> None:
     emit("rl_offline_parity", learners=rows)
 
 
+ES_MAX_CALLS, ARS_MAX_CALLS, ES_TARGET = 30, 35, 150.0
+ES_TIMED_CALLS, BANDIT_ITERS = 3, 15
+
+
+def _es_config(cfg, seed: int, **settings):
+    """CartPole-v1, 2 workers of the in-process runtime, the card."""
+    cfg = (cfg.environment("CartPole-v1")
+           .rollouts(num_rollout_workers=2)
+           .resources(runtime=_InlineRuntime()).debugging(seed=seed))
+    for k, v in settings.items():
+        setattr(cfg, k, v)
+    return cfg.build()
+
+
+def _to_gate(algo, max_calls: int) -> dict:
+    """train() until episode_reward_mean > ES_TARGET: calls, best, the
+    curve, ms per call and env frames/s."""
+    best, curve = -math.inf, []
+    t0 = time.perf_counter()
+    for _ in range(max_calls):
+        r = algo.train()
+        curve.append(r["episode_reward_mean"])
+        best = max(best, r["episode_reward_mean"])
+        if best > ES_TARGET:
+            break
+    wall = time.perf_counter() - t0
+    return dict(calls=len(curve), best=best, target=ES_TARGET,
+                reward_curve=curve, ms_per_train_call=wall / len(curve) * 1e3,
+                env_frames_per_s=r["timesteps_total"] / wall)
+
+
+def _eval_profile(worker, theta, seeds, sigma) -> dict:
+    """One worker's evaluate under _Profiled: per env step its host ms,
+    device ms, launches and batched products (aten::baddbmm)."""
+    steps = []
+
+    def run():
+        steps.append(int(worker.evaluate(theta, seeds, sigma)["lengths"]
+                         .max()))
+    prof = _Profiled(run, n=2)
+    n = steps[-1]
+    return dict(lanes=2 * len(seeds), steps_per_evaluate=n,
+                step_host_ms=prof.host_ms / n,
+                step_device_ms=prof.device_ms / n,
+                launches_per_step=prof.launches / n,
+                products_per_step=prof.ops.get("aten::baddbmm", 0) / n,
+                busy_share=prof.busy)
+
+
+def _near_oracle(algo) -> tuple:
+    """tests/test_rllib.py's bandit gate: 50 fresh batches of contexts;
+    (oracle, random, chosen) mean expected reward."""
+    import numpy as np
+
+    env = algo.env
+    oracle, rnd, mine = [], [], []
+    for _ in range(50):
+        exp = env.expected_rewards()
+        oracle.append(exp.max(-1).mean())
+        rnd.append(exp.mean())
+        arms = algo.compute_actions(algo._obs)
+        mine.append(exp[np.arange(exp.shape[0]), arms].mean())
+        algo._obs, _, _, _ = env.step(arms)
+    return tuple(float(np.mean(x)) for x in (oracle, rnd, mine))
+
+
+def phase_rl_es() -> None:
+    """ES and ARS on CartPole-v1 at the reference's learning tests'
+    configs (tests/test_rllib.py: ES 24 directions, horizon 300, sigma
+    0.08, lr 0.05, seed 0, up to 30 calls; ARS 16 directions, top 8,
+    sigma 0.1, seed 1, up to 35 calls), 2 evaluation workers of the
+    in-process runtime, the population forward on the card: each must
+    pass 150; ES's checkpoint restores theta bit for bit, ARS's filter
+    must have seen > 1000 observations.  ES at ESConfig's defaults (32
+    directions, 64 lanes over 2 workers, hidden (32, 32), horizon 500):
+    3 timed train() calls and one worker's evaluate profiled (launches
+    and batched products per env step, busy share).  LinUCB and LinTS at
+    their defaults on the card: 15 calls, then the near-oracle gate."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import (ARSConfig, ESConfig, LinTSConfig,
+                                     LinUCBConfig)
+
+    algo = _es_config(ESConfig(), 0, episodes_per_batch=24,
+                      episode_horizon=300, noise_stdev=0.08, lr=0.05)
+    es = _to_gate(algo, ES_MAX_CALLS)
+    ckpt = algo.save()
+    theta = algo.theta.copy()
+    algo.train()
+    algo.restore(ckpt)
+    es["restore_bit_equal"] = bool((algo.theta == theta).all()
+                                   and algo.theta.dtype == theta.dtype)
+    algo.stop()
+    emit("rl_es", algo="ES", config="tests/test_rllib.py:751", **es)
+    check(es["best"] > ES_TARGET, f"rl_es: ES reached only {es['best']}")
+    check(es["restore_bit_equal"], "rl_es: ES restore changed theta")
+
+    algo = _es_config(ARSConfig(), 1, episodes_per_batch=16,
+                      top_directions=8, episode_horizon=300,
+                      noise_stdev=0.1, lr=0.05)
+    ars = _to_gate(algo, ARS_MAX_CALLS)
+    ars["obs_n"] = float(algo._obs_n)
+    algo.stop()
+    emit("rl_es", algo="ARS", config="tests/test_rllib.py:782", **ars)
+    check(ars["best"] > ES_TARGET, f"rl_es: ARS reached only {ars['best']}")
+    check(ars["obs_n"] > 1000, f"rl_es: ARS filter saw {ars['obs_n']}")
+
+    algo = _es_config(ESConfig(), 0)
+    warm = algo.train()["timesteps_total"]
+    times = []
+    for _ in range(ES_TIMED_CALLS):
+        t0 = time.perf_counter()
+        r = algo.train()
+        times.append(time.perf_counter() - t0)
+    frames = r["timesteps_total"] - warm
+    worker = algo.workers[0].obj
+    seeds = [int(s) for s in np.random.default_rng(0).integers(
+        0, 2 ** 31 - 1, size=algo.config.episodes_per_batch // 2)]
+    evals = _eval_profile(worker, algo.theta, seeds,
+                          algo.config.noise_stdev)
+    layers = len(algo.config.model_hidden) + 1
+    algo.stop()
+    emit("rl_es", algo="ES", config="ESConfig defaults",
+         directions=algo.config.episodes_per_batch,
+         lanes=2 * algo.config.episodes_per_batch,
+         ms_per_train_call=[t * 1e3 for t in times],
+         env_frames_per_s=frames / sum(times), frames=frames,
+         evaluate=evals,
+         episode_reward_mean=r["episode_reward_mean"])
+    check(evals["products_per_step"] == layers,
+          f"rl_es: {evals['products_per_step']} batched products per step "
+          f"for {layers} layers")
+
+    # The reference tests' seeds and gates (tests/test_rllib.py:810, :847).
+    for name, cfg, seed, share in (("LinUCB", LinUCBConfig(), 7, 0.7),
+                                   ("LinTS", LinTSConfig(), 11, 0.6)):
+        algo = cfg.debugging(seed=seed).build()
+        t0 = time.perf_counter()
+        for _ in range(BANDIT_ITERS):
+            algo.train()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / BANDIT_ITERS * 1e3
+        prof = _Profiled(algo.train, n=2)
+        oracle, rnd, mine = _near_oracle(algo)
+        algo.stop()
+        emit("rl_es", algo=name, config=f"{name}Config defaults",
+             ms_per_train_call=ms, oracle=oracle, random=rnd, chosen=mine,
+             gate=rnd + share * (oracle - rnd), **prof.fields("train"))
+        check(mine > rnd + share * (oracle - rnd),
+              f"rl_es: {name} chose {mine} (random {rnd}, oracle {oracle})")
+
+
+def phase_rl_es_parity() -> None:
+    """f32 with TF32 off, the card against the CPU: one ES evaluate on
+    the same theta and seeds (CartPole-v1, 24 directions, hidden (32,
+    32)) gives the same returns and lengths, every step's forward within
+    1e-5; LinUCB makes the same arms for 3 calls, A_inv and b within
+    1e-12."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import LinUCBConfig
+    from ray_tpu_torch.rllib import es as pes
+
+    _f32_exact()
+    outs = {"cuda": [], "cpu": []}
+    forward = pes.population_forward
+    theta = pes._init_flat(4, (32, 32), 2, seed=0)
+    seeds = [int(s) for s in
+             np.random.default_rng(0).integers(0, 2 ** 31 - 1, size=24)]
+    res = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            pes.population_forward = (
+                lambda layers, x, out=outs[dev]:
+                out.append(forward(layers, x).cpu()) or out[-1])
+            res[dev] = pes.EvalWorker("CartPole-v1", (32, 32), 7919, 500,
+                                      device=dev).evaluate(theta, seeds, 0.08)
+    finally:
+        pes.population_forward = forward
+    same = all(np.array_equal(res["cuda"][k], res["cpu"][k])
+               for k in ("r_plus", "r_minus", "lengths", "obs_n"))
+    fwd_err = max(float((a - b).abs().max())
+                  for a, b in zip(outs["cuda"], outs["cpu"]))
+    steps = (len(outs["cuda"]), len(outs["cpu"]))
+
+    arms, algos = {}, {}
+    for dev in ("cuda", "cpu"):
+        algo = algos[dev] = (LinUCBConfig().resources(device=dev)
+                             .debugging(seed=7).build())
+        chosen, choose = arms.setdefault(dev, []), algo._choose
+        algo._choose = lambda obs, c=choose, out=chosen: (
+            out.append(c(obs)) or out[-1])
+        for _ in range(3):
+            algo.train()
+    arms_same = all(np.array_equal(a, b)
+                    for a, b in zip(arms["cuda"], arms["cpu"]))
+    state = {k: float(np.abs(algos["cuda"].save_to_dict()[k]
+                             - algos["cpu"].save_to_dict()[k]).max())
+             for k in ("A_inv", "b")}
+    emit("rl_es_parity", evaluate_equal=same, forward_max_abs_err=fwd_err,
+         steps=steps, bandit_arms_equal=arms_same,
+         bandit_decisions=len(arms["cuda"]) * 16, bandit_state_err=state)
+    check(same and steps[0] == steps[1],
+          f"rl_es_parity: evaluate differs ({steps})")
+    check(fwd_err <= 1e-5, f"rl_es_parity: forward error {fwd_err}")
+    check(arms_same, "rl_es_parity: LinUCB arms differ")
+    check(max(state.values()) <= 1e-12, f"rl_es_parity: state {state}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -3663,7 +3896,9 @@ def main() -> int:
               ("rl_offline", lambda _: phase_rl_offline()),
               ("rl_multi_agent", lambda _: phase_rl_multi_agent()),
               ("rl_tune", lambda _: phase_rl_tune()),
-              ("rl_offline_parity", lambda _: phase_rl_offline_parity()))
+              ("rl_offline_parity", lambda _: phase_rl_offline_parity()),
+              ("rl_es", lambda _: phase_rl_es()),
+              ("rl_es_parity", lambda _: phase_rl_es_parity()))
     wanted = sys.argv[1:]
     unknown = set(wanted) - {name for name, _ in phases}
     if unknown:

@@ -12,27 +12,35 @@ replay buffer.  Offline: JSON and Parquet experience IO, `BC`, `MARWIL`
 and `CQL` over logged batches, and the off-policy estimators (IS, WIS,
 DM, DR, `fit_fqe`).  Multi-agent: `MultiAgentRolloutWorker` with one
 policy per policy id, PPO's per-policy learners, `QMix` / VDN, and the
-`PolicyServer` that external envs drive over HTTP.  Weights and batches cross the object plane as the
-reference's (flax variables trees, the recurrent model's plain dict,
-SampleBatches of numpy), so either package's workers and learners
-interoperate.  The runtime reaches the port only as a handle that the
-caller passes (`AlgorithmConfig.resources(runtime=ray_tpu)`), and so
-do Tune's `report` (`Algorithm.as_trainable`) and the Data layer
+`PolicyServer` that external envs drive over HTTP.  Black-box search:
+`ES` and `ARS` over seed-coded antithetic perturbations, each worker's
+population forward one batched product per layer on the device.  Linear
+bandits: `LinUCB` and `LinTS` with f64 ridge state on the device.
+Weights and batches cross the object plane as the reference's (flax
+variables trees, the recurrent model's plain dict, SampleBatches of
+numpy), so either package's workers and learners interoperate.  The
+runtime reaches the port only as a handle that the caller passes
+(`AlgorithmConfig.resources(runtime=ray_tpu)`), and so do Tune's
+`report` (`Algorithm.as_trainable`) and the Data layer
 (`DatasetReader.from_path`, `JsonReader.to_dataset`).
 
-Waiting for later slices: ES / ARS, bandits and the data-parallel
-learners of the multi-device slice (`learner_mesh`).
+Waiting for a later slice: the data-parallel learners of the
+multi-device slice (`learner_mesh`).
 """
 
 from ray_tpu_torch.rllib.a2c import A2C, A2CConfig, a2c_loss  # noqa: F401
 from ray_tpu_torch.rllib.algorithm import (  # noqa: F401
     Algorithm, AlgorithmConfig)
 from ray_tpu_torch.rllib.appo import APPO, APPOConfig  # noqa: F401
+from ray_tpu_torch.rllib.ars import ARS, ARSConfig  # noqa: F401
+from ray_tpu_torch.rllib.bandit import (  # noqa: F401
+    LinearBanditVector, LinTS, LinTSConfig, LinUCB, LinUCBConfig)
 from ray_tpu_torch.rllib.cql import CQL, CQLConfig  # noqa: F401
 from ray_tpu_torch.rllib.dqn import DQN, DQNConfig  # noqa: F401
 from ray_tpu_torch.rllib.env import (  # noqa: F401
     CartPoleVector, Env, PendulumVector, RepeatPrevVector,
     SyntheticPixelVector, VectorEnv, make_vector_env, register_env)
+from ray_tpu_torch.rllib.es import ES, ESConfig  # noqa: F401
 from ray_tpu_torch.rllib.estimators import (  # noqa: F401
     ESTIMATORS, DirectMethod, DoublyRobust, ImportanceSampling,
     WeightedImportanceSampling, fit_fqe, split_episodes)

@@ -355,6 +355,16 @@ def register_env(name: str, creator: Callable[..., VectorEnv]) -> None:
     _ENV_REGISTRY[name] = creator
 
 
+def shippable_env(env: Any) -> Any:
+    """What to ship to a remote worker for `env`: a registered name's
+    creator, by value (a worker process has a fresh registry, where the
+    name would resolve to whatever that registry holds); anything else
+    as it is."""
+    if isinstance(env, str) and env in _ENV_REGISTRY:
+        return _ENV_REGISTRY[env]
+    return env
+
+
 def make_vector_env(name_or_creator: Any, num_envs: int,
                     seed: int = 0) -> VectorEnv:
     if callable(name_or_creator):

@@ -38,13 +38,8 @@ class WorkerSet:
                 f"{num_workers} remote rollout workers need a runtime "
                 f"handle (e.g. config.resources(runtime=ray_tpu)); "
                 f"without one use num_rollout_workers=0")
-        # Ship registered env creators by value: a remote worker process
-        # has a fresh registry, so a NAME would resolve there to whatever
-        # that process's registry holds.
-        env = worker_kwargs.get("env")
-        if isinstance(env, str) and env in env_mod._ENV_REGISTRY:
-            worker_kwargs = dict(worker_kwargs,
-                                 env=env_mod._ENV_REGISTRY[env])
+        worker_kwargs = dict(worker_kwargs, env=env_mod.shippable_env(
+            worker_kwargs.get("env")))
         self.runtime = runtime
         self._worker_kwargs = worker_kwargs
         self._consecutive_failed_rounds = 0

@@ -41,6 +41,7 @@ torch.set_num_threads(1)
 
 HIDDEN = (8,)
 LR = 5e-3
+TIMEOUT = 120       # seconds for any one runtime call
 
 
 class Recorder(Observer):
@@ -181,7 +182,7 @@ def test_engine_adopt_mid_flight_keeps_lanes():
         assert actor.adopt(7, weights) == 7
         while eng.step():
             pass
-        toks = [h.tokens() for h in hs]     # a handle drains once
+        toks = [h.tokens(timeout=TIMEOUT) for h in hs]  # drains once
         assert all(len(t) == 8 and len(h.logps) == 8
                    for t, h in zip(toks, hs))
         assert all(np.isfinite(lp) and lp <= 0.0 for h in hs
@@ -365,13 +366,16 @@ def test_podracer_k0_through_the_runtime_and_a_worker_kill(cluster):
         # settles, its version and weights are the learner's.
         (worker,) = algo.workers.remote_workers
         for _ in range(50):
-            if ray_tpu.get(worker.get_version.remote()) == \
+            if ray_tpu.get(worker.get_version.remote(),
+                           timeout=TIMEOUT) == \
                     algo.publisher.version:
                 break
             time.sleep(0.1)
-        assert ray_tpu.get(worker.get_version.remote()) == \
+        assert ray_tpu.get(worker.get_version.remote(),
+                           timeout=TIMEOUT) == \
             algo.publisher.version == algo.learner.version
-        for x, y in zip(_leaves(ray_tpu.get(worker.get_weights.remote())),
+        for x, y in zip(_leaves(ray_tpu.get(worker.get_weights.remote(),
+                                            timeout=TIMEOUT)),
                         _leaves(algo.learner.get_weights())):
             np.testing.assert_array_equal(x, y)
     finally:

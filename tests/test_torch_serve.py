@@ -59,7 +59,7 @@ def _prompt(start):
 def test_llm_deployment_streams_the_engines_tokens(port_handles, mode):
     prompt = _prompt(1 if mode == "greedy" else 60)
     handle = port_handles["llm"]
-    streamed = list(handle.options("generate").stream(
+    streamed = list(handle.options("generate", timeout_s=TIMEOUT).stream(
         prompt, max_new_tokens=8, **MODES[mode]))
     want = port_engine(max_lanes=4).generate(prompt, 8, **MODES[mode])
     assert streamed == want
