@@ -205,6 +205,25 @@ run with a nonzero exit code and no result line:
            directions) with equal returns and lengths and every step's
            forward within 1e-5; LinUCB's arms equal over 3 calls, A^-1
            and b within 1e-12.
+  pipeline gpt2-small with an untied head (fp32 params, bf16
+           activations) in four stage-chunks (embeddings + blocks 0-2,
+           3-5, 6-8, 9-11 + final LayerNorm and head) through the port's
+           PipelineTrainer on an in-process runtime (_PumpRuntime: every
+           gang on this thread and this card), 6 microbatches of 4 x 1024
+           a step, SGD, one warm-up and 3 timed steps: (a) 1F1B, (b)
+           GPipe, (c) interleave 2 with prefetch, (d) (a) with gang 1
+           killed mid-step 2 and replayed from its committed checkpoint.
+           All four must give the same losses and params bit for bit;
+           step 0 must agree with the single-program SGD step
+           (`gpt.loss_fn`) on the same weights and batch; K1, K2 and K3
+           must each run 72 times a step.  Prints ms a step for each and
+           for the single-program step, the bytes and host ms of the
+           chunk-boundary copies (one more step of (a)), the pump's
+           bubble fraction, peak memory.
+  pipeline_parity  the same pipeline at gpt2-small widths with 2 layers
+           in f32, 2 steps, on the card and on the CPU: losses within
+           1e-4 relative, each leaf's update within 2e-4 of its largest
+           after one step and 4e-4 after two; K1-K3 8 launches each.
 
 Each phase's wall seconds follow it on a line of their own.  Then, on
 lines of their own: the kernels' JSON record, the card's name and power
@@ -452,6 +471,9 @@ FLASH_CASES = {
                           dtype=torch.bfloat16),
     "draft-12-bf16": dict(b=1, lq=12, lk=12, h=12, d=64, causal=True,
                           dtype=torch.bfloat16),
+    # The pipeline phase's microbatch: gpt2-small, 4 x 1024.
+    "pipeline-bf16": dict(b=4, lq=1024, lk=1024, h=12, d=64, causal=True,
+                          dtype=torch.bfloat16),
 }
 # Every length the draft forward can give K1 (window 64), checked at
 # the draft path's shape beside the two timed cases above.
@@ -658,7 +680,8 @@ def phase_flash(report: dict) -> None:
             name=fn, route="cuda",
             source="ray_tpu_torch/ops/csrc/flash_attention.cu",
             replaces=f"ray_tpu/ops/attention.py:{line}", **train[kern],
-            llama_1b=dict(llama_train[kern]))
+            llama_1b=dict(llama_train[kern]),
+            pipeline=dict(results["pipeline-bf16"][kern]))
         if kern != "K1":
             report[fn]["library_note"] = (
                 "scaled_dot_product_attention backward: dq, dk and dv "
@@ -3852,6 +3875,615 @@ def phase_rl_es_parity() -> None:
     check(max(state.values()) <= 1e-12, f"rl_es_parity: state {state}")
 
 
+# ---------------------------------------------------------------- pipeline
+
+class _PumpRuntime:
+    """The runtime calls the MPMD pipeline pump makes (the module
+    docstring of ray_tpu_torch/train/pipeline_stage.py), run in this
+    process: an actor method runs when it is called, on the caller's
+    thread, so every gang shares one thread and one card; its refs hold
+    the result, or the error of a dead actor or a method that raised.
+    `wait` hands back refs in order (all are done), `prefetch` runs in
+    line, and placement groups reserve nothing.  `kill_when(ordinal,
+    name, args)`, asked before each actor call, kills that actor
+    (ordinal: 1-based creation order) the way a lost worker dies: the
+    call and every later one fail with ActorDiedError, and the actor's
+    state (its graphs, banked gradients and params) is dropped."""
+
+    class ObjectRef:
+        def __init__(self, value=None, error=None):
+            self.value, self.error = value, error
+
+    class exceptions:
+        class RayTpuError(Exception):
+            pass
+
+        class RayTpuTimeoutError(RayTpuError, TimeoutError):
+            pass
+
+        class TaskError(RayTpuError):
+            pass
+
+        class WorkerCrashedError(RayTpuError):
+            pass
+
+        class ActorError(RayTpuError):
+            pass
+
+        class ActorDiedError(ActorError):
+            pass
+
+        class ObjectLostError(RayTpuError):
+            pass
+
+    class util:
+        class _Reservation:
+            @staticmethod
+            def wait(timeout=None):
+                return True
+
+        @staticmethod
+        def placement_group(bundles, strategy="PACK"):
+            return _PumpRuntime.util._Reservation()
+
+        @staticmethod
+        def remove_placement_group(pg):
+            pass
+
+    class Actor:
+        def __init__(self, rt, obj, ordinal):
+            self.rt, self.obj, self.ordinal = rt, obj, ordinal
+
+        def __getattr__(self, name):
+            return _PumpRuntime.Method(self, name, 1)
+
+    class Method:
+        def __init__(self, actor, name, num_returns):
+            self.actor, self.name, self.n = actor, name, num_returns
+
+        def options(self, num_returns=1, **_):
+            return _PumpRuntime.Method(self.actor, self.name, num_returns)
+
+        def remote(self, *args):
+            return self.actor.rt._call(self.actor, self.name, args, self.n)
+
+    def __init__(self, kill_when=None):
+        self.kill_when = kill_when
+        self.created = 0
+        self.killed: list = []
+
+    def remote(self, **_):
+        rt = self
+
+        def bind(cls):
+            class Bound:
+                @staticmethod
+                def options(**_):
+                    return Bound
+
+                @staticmethod
+                def remote(*args, **kwargs):
+                    rt.created += 1
+                    return rt.Actor(rt, cls(*args, **kwargs), rt.created)
+            return Bound
+        return bind
+
+    def _refs(self, n, values=None, error=None):
+        if n == 1:
+            return self.ObjectRef(values, error)
+        return tuple(self.ObjectRef(None if values is None else v, error)
+                     for v in (values if values is not None else [None] * n))
+
+    def _call(self, actor, name, args, n):
+        if actor.obj is not None and self.kill_when is not None \
+                and self.kill_when(actor.ordinal, name, args):
+            self.killed.append((actor.ordinal, name, args[:3]))
+            self.kill(actor)
+        if actor.obj is None:
+            return self._refs(n, error=self.exceptions.ActorDiedError(
+                f"actor {actor.ordinal} is dead ({name})"))
+        try:
+            args = [self.get(a) if isinstance(a, self.ObjectRef) else a
+                    for a in args]
+            return self._refs(n, getattr(actor.obj, name)(*args))
+        except Exception as e:
+            err = self.exceptions.TaskError(f"{name}: {e!r}")
+            err.__cause__ = e
+            return self._refs(n, error=err)
+
+    def get(self, refs, timeout=None):
+        if isinstance(refs, list):
+            return [self.get(r) for r in refs]
+        if refs.error is not None:
+            raise refs.error
+        return refs.value
+
+    def wait(self, refs, num_returns=1, timeout=None):
+        return list(refs[:num_returns]), list(refs[num_returns:])
+
+    def put(self, value):
+        return self.ObjectRef(value)
+
+    def kill(self, actor):
+        actor.obj = None
+
+
+# gpt2-small in four stage-chunks: the embeddings and blocks 0-2, blocks
+# 3-5, 6-8, then 9-11 with the final LayerNorm and the (untied) head.
+PP_BOUNDS = ((0, 3), (3, 6), (6, 9), (9, 12))
+PP_MICRO, PP_MICRO_BATCH, PP_SEQ = 6, 4, 1024
+PP_STEPS, PP_LR = 4, 0.1               # one warm-up step, then 3 timed
+# (a)-(d) against the single-program step from the same weights and
+# batch: the first loss within 1e-3 relative, and each leaf's first
+# update within 2**-5 of its largest.  Both run bf16 activations; the
+# pipeline's weight gradients are rounded to bf16 once per microbatch
+# and summed, the single program's once over the batch, and the loss's
+# bf16 dlogits carry another scale (1 / (4 x 1023) against
+# 1 / (24 x 1023)), so the two part by a few bf16 ulps of a gradient.
+PP_LOSS_TOL, PP_UPDATE_TOL = 1e-3, 2 ** -5
+# (d): gang 1 dies as its backward for microbatch 2 of step 2 is sent.
+PP_KILL = dict(ordinal=2, method="backward", step=2, mb=2)
+
+
+def _gpt_chunk_params(params: dict, bounds) -> list:
+    """One param tree per stage-chunk: chunk c holds blocks
+    bounds[c][0]:bounds[c][1] (views of the stacked leaves), chunk 0
+    also the embeddings, the last chunk the final LayerNorm and the
+    head."""
+    last = len(bounds) - 1
+    chunks = []
+    for c, (lo, hi) in enumerate(bounds):
+        p = {}
+        if c == 0:
+            p["tok_embed"], p["pos_embed"] = (params["tok_embed"],
+                                              params["pos_embed"])
+        if hi > lo:
+            p["blocks"] = {k: v[lo:hi] for k, v in params["blocks"].items()}
+        if c == last:
+            p.update(final_ln_scale=params["final_ln_scale"],
+                     final_ln_bias=params["final_ln_bias"],
+                     lm_head=params["lm_head"])
+        chunks.append(p)
+    return chunks
+
+
+def _gpt_join(chunks: list) -> dict:
+    """The chunks' params as one gpt param tree (blocks concatenated)."""
+    params = {k: v for p in chunks for k, v in p.items() if k != "blocks"}
+    blocks = [p["blocks"] for p in chunks if "blocks" in p]
+    params["blocks"] = {k: torch.cat([b[k] for b in blocks])
+                        for k in blocks[0]}
+    return params
+
+
+def _gpt_stage_fns(config, device):
+    """The stage quartet of the four-chunk gpt: a chunk embeds the
+    tokens (chunk 0) or casts the f32 it receives back to the
+    activation dtype (exact for bf16), runs its blocks through
+    `gpt._block`, and the last chunk hands the loss (final LayerNorm
+    output, head); the loss is `fused_cross_entropy` on the rolled
+    tokens with the last position masked, as `gpt.loss_fn` computes
+    it."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops.cross_entropy import fused_cross_entropy
+    from ray_tpu_torch.train import torch_stage_fns
+
+    c = config
+
+    def stage_fn(p, x):
+        if "tok_embed" in p:
+            x = p["tok_embed"][x.long()].to(c.dtype) + \
+                p["pos_embed"][:x.shape[1]][None].to(c.dtype)
+        else:
+            x = x.to(c.dtype)
+        if "blocks" in p:
+            layers = {k: v.unbind(0) for k, v in p["blocks"].items()}
+            for i in range(len(layers["wq"])):
+                x, _ = gpt._block(x, {k: v[i] for k, v in layers.items()},
+                                  c)
+        if "lm_head" in p:
+            return (gpt._layernorm(x, p["final_ln_scale"],
+                                   p["final_ln_bias"]),
+                    p["lm_head"].to(c.dtype))
+        return x
+
+    def loss_fn(y, tokens):
+        x, head = y
+        targets = torch.roll(tokens, -1, dims=1)
+        valid = torch.ones(tokens.shape, dtype=torch.float32,
+                           device=tokens.device)
+        valid[:, -1] = 0.0
+        b, l, d = x.shape
+        return fused_cross_entropy(x.reshape(b * l, d), head,
+                                   targets.reshape(-1), valid.reshape(-1))
+
+    return torch_stage_fns(stage_fn, loss_fn, device=device)
+
+
+def _pp_data(n_micro: int, batch: int, seq: int, vocab: int):
+    """data_fn(step): n_micro microbatches of random tokens from a seed
+    per step; the targets are the tokens (the loss rolls them)."""
+    import numpy as np
+
+    def data_fn(step):
+        rng = np.random.default_rng(7000 + step)
+        xs = [rng.integers(0, vocab, (batch, seq)) for _ in range(n_micro)]
+        return xs, xs
+    return data_fn
+
+
+def _actor_params(trainer) -> list:
+    """Every chunk's params, read from the gangs' leaders (the in-process
+    runtime's actors), in chunk order."""
+    out = {}
+    for grp in trainer.groups:
+        out.update(grp.members[0].obj.params)
+    return [out[c] for c in sorted(out)]
+
+
+def _flash_launches() -> dict:
+    from ray_tpu_torch.ops import attention as A
+    return {fn.__name__: fn.launches
+            for fn in (A.flash_forward, A.flash_dq, A.flash_dkv)}
+
+
+def _zero_flash_launches() -> None:
+    from ray_tpu_torch.ops import attention as A
+    for fn in (A.flash_forward, A.flash_dq, A.flash_dkv):
+        fn.launches = 0
+
+
+class _CrossingMeter:
+    """Times what crosses a chunk boundary: the producer's copy to a
+    numpy array (`pipeline_stage.to_host`, after a synchronize, so only
+    the cast and the copy are timed) and the consumer's copy of a
+    floating array back to the card (`pipeline_trainer._leaf`), with
+    their bytes.  Installed around one step, then taken out."""
+
+    def __init__(self):
+        from ray_tpu_torch.train import pipeline_stage, pipeline_trainer
+
+        self.mods = (pipeline_stage, pipeline_trainer)
+        self.orig = (pipeline_stage.to_host, pipeline_trainer._leaf)
+        self.d2h_bytes = self.h2d_bytes = 0
+        self.d2h_s = self.h2d_s = 0.0
+        self.copies = 0
+
+    def __enter__(self):
+        import numpy as np
+
+        to_host, leaf = self.orig
+
+        def timed_to_host(x):
+            if not isinstance(x, torch.Tensor):
+                return to_host(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = to_host(x)
+            self.d2h_s += time.perf_counter() - t0
+            self.d2h_bytes += out.nbytes
+            self.copies += 1
+            return out
+
+        def timed_leaf(x, device, grad):
+            if not (isinstance(x, np.ndarray) and x.dtype.kind == "f"
+                    and torch.device(device).type == "cuda"):
+                return leaf(x, device, grad)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = leaf(x, device, grad)
+            torch.cuda.synchronize()
+            self.h2d_s += time.perf_counter() - t0
+            self.h2d_bytes += x.nbytes
+            return out
+
+        self.mods[0].to_host = timed_to_host
+        self.mods[1]._leaf = timed_leaf
+        return self
+
+    def __exit__(self, *exc):
+        self.mods[0].to_host, self.mods[1]._leaf = self.orig
+
+
+def _pp_fit(fns, chunks, data_fn, steps, *, runtime, meter_last=False,
+            **kw) -> dict:
+    """PipelineTrainer over `chunks` on `runtime`: `steps` steps, the
+    first a warm-up.  The flash counts are set to 0 and the clock
+    started once step 0 is done (data_fn asks for step 1's batch then)
+    and read when the last timed step is done; with `meter_last` one
+    more step runs after that under a _CrossingMeter.  Returns the
+    losses, the params after step 0 and at the end of the timed steps,
+    ms a step, launches, peak memory and the pump's bubble fractions."""
+    from ray_tpu_torch.train import PipelineTrainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out: dict = {}
+    meter = _CrossingMeter() if meter_last else None
+
+    def stop():
+        out["seconds"] = time.perf_counter() - out["t1"]
+        out["launches"] = _flash_launches()
+        out["final"] = _clone(_actor_params(tr))
+
+    def fed(step):
+        if step in (1, steps):
+            torch.cuda.synchronize()
+            if step == 1:
+                out["after_one"] = _clone(_actor_params(tr))
+                _zero_flash_launches()
+                out["t1"] = time.perf_counter()
+            else:
+                stop()
+                meter.__enter__()
+        return data_fn(step)
+
+    tr = PipelineTrainer(fns, chunks, runtime=runtime, lr=PP_LR, **kw)
+    try:
+        hist = tr.fit(fed, steps + (meter is not None))
+        torch.cuda.synchronize()
+        if meter is None:
+            stop()
+        recoveries = tr._recoveries
+    finally:
+        if meter is not None:
+            meter.__exit__()
+        tr.shutdown()
+    timed = steps - 1
+    return dict(losses=[h["loss"] for h in hist[:steps]],
+                after_one=out["after_one"], final=out["final"],
+                step_ms=out["seconds"] / timed * 1e3,
+                launches=out["launches"], timed_steps=timed,
+                peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                bubble_fraction=[h["bubble_fraction"] for h in hist],
+                recoveries=recoveries, meter=meter)
+
+
+def _flat_items(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_items(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def _clone(chunks: list) -> list:
+    from ray_tpu_torch.models import gpt
+    return [gpt._map(p, lambda t: t.detach().clone()) for p in chunks]
+
+
+def _bit_equal(a: list, b: list) -> bool:
+    return all(torch.equal(x, y) for pa, pb in zip(a, b)
+               for x, y in zip(_tree_leaves(pa), _tree_leaves(pb)))
+
+
+def _update_errors(start: dict, got: dict, want: dict) -> tuple:
+    """Per leaf, max |(got - start) - (want - start)| over
+    max |want - start|; returns (worst, its leaf)."""
+    worst, where = 0.0, None
+    s, g, w = (dict(_flat_items(t)) for t in (start, got, want))
+    for k in w:
+        dw = (w[k] - s[k]).float()
+        dg = (g[k] - s[k]).float()
+        rel = float((dg - dw).abs().max() / dw.abs().max().clamp_min(1e-30))
+        if rel >= worst:
+            worst, where = rel, k
+    return worst, where
+
+
+def _single_program_sgd(params: dict, config, tokens, steps: int) -> dict:
+    """The port's single-program step on the same weights and batch:
+    `gpt.loss_fn` (the untied config) and SGD with PP_LR.  Returns the
+    first loss, the params after one step and ms a step over the steps
+    after the first."""
+    from ray_tpu_torch.models import gpt
+
+    p = gpt._map(params, lambda t: t.detach().clone().requires_grad_())
+    leaves = _tree_leaves(p)
+    losses = []
+    after_one = None
+    for step in range(steps):
+        if step == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        loss = gpt.loss_fn(p, {"tokens": tokens}, config)
+        loss.backward()
+        with torch.no_grad():
+            for t in leaves:
+                t.sub_(PP_LR * t.grad)
+                t.grad = None
+        losses.append(loss.detach())
+        if step == 0:
+            after_one = gpt._map(p, lambda t: t.detach().clone())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (steps - 1) * 1e3
+    return dict(loss=float(losses[0]), after_one=after_one, step_ms=ms)
+
+
+def phase_pipeline(report: dict) -> None:
+    """gpt2-small (untied head), fp32 params, bf16 activations, in four
+    stage-chunks through the port's PipelineTrainer on _PumpRuntime:
+    6 microbatches of 4 x 1024 a step, SGD at PP_LR, one warm-up step
+    and 3 timed.  (a) 1F1B over 4 gangs, (b) GPipe, (c) interleave=2
+    with prefetch, (d) (a) with gang 1 killed in step 2 and replayed
+    from its committed checkpoint: the same losses and params bit for
+    bit.  Step 0 against the single-program SGD step on the same
+    weights and batch; K1-K3 launched 12 x 6 times a pipelined step;
+    one more step of (a) measures the chunk-boundary copies."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from ray_tpu_torch.models import gpt
+
+    config = dataclasses.replace(gpt.CONFIGS["gpt2-small"],
+                                 tie_embeddings=False)
+    params = gpt.init_params(config, torch.Generator(
+        device="cuda").manual_seed(13), device="cuda")
+    chunks = _gpt_chunk_params(params, PP_BOUNDS)
+    fns = _gpt_stage_fns(config, "cuda")
+    data_fn = _pp_data(PP_MICRO, PP_MICRO_BATCH, PP_SEQ, config.vocab_size)
+
+    runs = {"1f1b": _pp_fit(fns, chunks, data_fn, PP_STEPS,
+                            runtime=_PumpRuntime(), meter_last=True,
+                            n_microbatches=PP_MICRO)}
+    runs["gpipe"] = _pp_fit(fns, chunks, data_fn, PP_STEPS,
+                            runtime=_PumpRuntime(), n_microbatches=PP_MICRO,
+                            schedule="gpipe")
+    runs["interleave2_prefetch"] = _pp_fit(
+        fns, chunks, data_fn, PP_STEPS, runtime=_PumpRuntime(),
+        n_microbatches=PP_MICRO, interleave=2, prefetch=True)
+    k = PP_KILL
+    killer = _PumpRuntime(kill_when=lambda ordinal, name, args: (
+        ordinal == k["ordinal"] and name == k["method"]
+        and args[0] == k["step"] and args[2] == k["mb"]))
+    with tempfile.TemporaryDirectory() as root:
+        runs["1f1b_killed"] = _pp_fit(
+            fns, chunks, data_fn, PP_STEPS, runtime=killer,
+            n_microbatches=PP_MICRO, storage_path=root, ckpt_every=1)
+    check(killer.killed and runs["1f1b_killed"]["recoveries"] == 1,
+          f"pipeline: the kill {PP_KILL} did not happen or recover once "
+          f"({killer.killed}, {runs['1f1b_killed']['recoveries']})")
+    base = runs["1f1b"]
+    for name, run in runs.items():
+        check(run["losses"] == base["losses"],
+              f"pipeline {name}: losses {run['losses']} != 1f1b's "
+              f"{base['losses']}")
+        check(_bit_equal(run["final"], base["final"]),
+              f"pipeline {name}: final params differ from 1f1b's")
+    check(all(math.isfinite(x) for x in base["losses"])
+          and base["losses"][-1] < base["losses"][0],
+          f"pipeline losses {base['losses']}")
+    want = PP_MICRO * config.n_layers
+    for name, n in base["launches"].items():
+        check(n == want * base["timed_steps"],
+              f"pipeline: {name} launched {n} times in "
+              f"{base['timed_steps']} steps, want {want} a step")
+
+    xs, _ = data_fn(0)
+    tokens = torch.from_numpy(np.concatenate(xs)).cuda()
+    single = _single_program_sgd(params, config, tokens, PP_STEPS)
+    loss_rel = abs(base["losses"][0] - single["loss"]) / abs(single["loss"])
+    start = _gpt_join(_gpt_chunk_params(params, PP_BOUNDS))
+    pipe_one = _gpt_join(base["after_one"])
+    upd_err, upd_leaf = _update_errors(start, pipe_one, single["after_one"])
+    check(loss_rel <= PP_LOSS_TOL,
+          f"pipeline step 0 loss {base['losses'][0]} vs single program "
+          f"{single['loss']} (rel {loss_rel})")
+    check(upd_err <= PP_UPDATE_TOL,
+          f"pipeline step 0 update of {upd_leaf} vs single program: "
+          f"{upd_err} of its largest")
+
+    meter = base["meter"]
+    for name, n in base["launches"].items():
+        entry = report.setdefault(name, {}).setdefault("pipeline", {})
+        entry.update(launches=n, launches_per_step=n // base["timed_steps"],
+                     timed_steps=base["timed_steps"])
+    emit("pipeline", config="gpt2-small, tie_embeddings=False",
+         chunks=[list(b) for b in PP_BOUNDS], n_microbatches=PP_MICRO,
+         micro_batch=[PP_MICRO_BATCH, PP_SEQ], lr=PP_LR,
+         timed_steps=base["timed_steps"],
+         step_ms={name: run["step_ms"] for name, run in runs.items()},
+         single_program_sgd_step_ms=single["step_ms"],
+         losses=base["losses"], single_program_loss=single["loss"],
+         loss_rel_err=loss_rel, loss_tolerance=PP_LOSS_TOL,
+         max_update_err_of_leaf_max=upd_err, worst_leaf=upd_leaf,
+         update_tolerance=PP_UPDATE_TOL, bit_equal_across_runs=True,
+         kill=dict(PP_KILL, at=[list(map(str, c)) for c in killer.killed],
+                   recoveries=runs["1f1b_killed"]["recoveries"]),
+         crossing=dict(d2h_bytes=meter.d2h_bytes, d2h_ms=meter.d2h_s * 1e3,
+                       h2d_bytes=meter.h2d_bytes, h2d_ms=meter.h2d_s * 1e3,
+                       copies=meter.copies,
+                       note="one step of (a), each copy after a "
+                            "synchronize"),
+         bubble_fraction={name: run["bubble_fraction"]
+                          for name, run in runs.items()},
+         bubble_note="every gang shares one thread and one card here: "
+                     "1 - busy / (gangs x wall), not a pipeline's bubble",
+         peak_memory_gib={name: run["peak_memory_gib"]
+                          for name, run in runs.items()},
+         flash_launches_per_step={n: v // base["timed_steps"]
+                                  for n, v in base["launches"].items()})
+
+
+# gpt2-small widths at 2 layers in four chunks: the embeddings; block 0;
+# block 1; the final LayerNorm and the head.
+PP_PARITY_BOUNDS = ((0, 0), (0, 1), (1, 2), (2, 2))
+
+
+def phase_pipeline_parity() -> None:
+    """gpt2-small widths at 2 layers in f32 (TF32 off), untied, in four
+    chunks through PipelineTrainer on _PumpRuntime: 2 microbatches of
+    2 x 256 a step, 2 steps, on the card (K1-K3, counted) and on the CPU
+    (their plain versions).  The losses within 1e-4 relative; each
+    leaf's update within GRAD_TOLERANCE of its largest after the first
+    step (train_parity's bound on one gradient) and within twice that
+    after the second (two gradients, the second taken at params that
+    already differ)."""
+    import dataclasses
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.train import PipelineTrainer
+
+    _f32_exact()
+    config = dataclasses.replace(gpt.CONFIGS["gpt2-small"], n_layers=2,
+                                 dtype=torch.float32, tie_embeddings=False)
+    params = gpt.init_params(config, torch.Generator().manual_seed(8),
+                             device="cpu")
+    data_fn = _pp_data(2, 2, 256, config.vocab_size)
+    out = {}
+    for device in ("cuda", "cpu"):
+        chunks = [gpt._map(p, lambda t: t.to(device))
+                  for p in _gpt_chunk_params(params, PP_PARITY_BOUNDS)]
+        _zero_flash_launches()
+        tr = PipelineTrainer(_gpt_stage_fns(config, device), chunks,
+                             runtime=_PumpRuntime(), lr=PP_LR,
+                             n_microbatches=2)
+        snaps = []
+
+        def snapshot():
+            # A copy: the CPU run's params are updated in place.
+            snaps.append(_gpt_join([
+                gpt._map(p, lambda t: t.to("cpu", copy=True))
+                for p in _actor_params(tr)]))
+
+        def fed(step):
+            snapshot()
+            return data_fn(step)
+        try:
+            losses = [h["loss"] for h in tr.fit(fed, 2)]
+            snapshot()
+        finally:
+            tr.shutdown()
+        out[device] = (losses, snaps, _flash_launches())
+    (cuda_losses, cuda_snaps, launches), (cpu_losses, cpu_snaps, _) = \
+        out["cuda"], out["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(cuda_losses,
+                                                       cpu_losses))
+    start = cpu_snaps[0]
+    errs = [_update_errors(start, cuda_snaps[s], cpu_snaps[s]) + (
+        s * GRAD_TOLERANCE,) for s in (1, 2)]
+    emit("pipeline_parity", config="gpt2-small widths, 2 layers, float32",
+         chunks=[list(b) for b in PP_PARITY_BOUNDS], n_microbatches=2,
+         micro_batch=[2, 256], steps=2, losses_cuda=cuda_losses,
+         losses_cpu=cpu_losses, loss_rel_err=loss_rel,
+         update_err_of_leaf_max=[dict(after_steps=s, err=e, leaf=leaf,
+                                      tolerance=tol)
+                                 for s, (e, leaf, tol) in zip((1, 2), errs)],
+         flash_launches=launches)
+    check(loss_rel <= 1e-4, f"pipeline_parity losses CUDA {cuda_losses} vs "
+                            f"CPU {cpu_losses}")
+    for s, (err, leaf, tol) in zip((1, 2), errs):
+        check(err <= tol, f"pipeline_parity update of {leaf} after {s} "
+                          f"steps: CUDA vs CPU {err} of its largest")
+    for name, n in launches.items():
+        check(n == 2 * 2 * config.n_layers,
+              f"pipeline_parity: {name} launched {n} times, want "
+              f"{2 * 2 * config.n_layers}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -3898,7 +4530,9 @@ def main() -> int:
               ("rl_tune", lambda _: phase_rl_tune()),
               ("rl_offline_parity", lambda _: phase_rl_offline_parity()),
               ("rl_es", lambda _: phase_rl_es()),
-              ("rl_es_parity", lambda _: phase_rl_es_parity()))
+              ("rl_es_parity", lambda _: phase_rl_es_parity()),
+              ("pipeline", phase_pipeline),
+              ("pipeline_parity", lambda _: phase_pipeline_parity()))
     wanted = sys.argv[1:]
     unknown = set(wanted) - {name for name, _ in phases}
     if unknown:

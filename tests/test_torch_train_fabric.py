@@ -139,6 +139,9 @@ def test_fed_loop_resumes_from_the_ports_checkpoint(cluster, tmp_path):
                 continue
             if ctx.restart_count == 0 and i == config["fail_at"]:
                 mgr.wait_until_finished()    # the save of step 4 commits
+                # Once every rank's part of it is written: a rank that
+                # raised first would have its peers torn down mid-write.
+                dist.barrier()
                 raise RuntimeError("injected failure")
             loss = config["step_fn"](state, [batch["tokens"]], cfg,
                                      dist.all_reduce)
