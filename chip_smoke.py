@@ -28,9 +28,10 @@ run with a nonzero exit code and no result line:
            (dk, dv) against their plain versions at the train shape
            (B 24, L 1024, 12 heads of 64, causal; bf16 and f32), at the
            llama-1b train shape (B 4, L 2048, 32 heads of 64, causal,
-           bf16), at D 128 and 256, non-causal with q_len != kv_len, and
-           at a length that is no multiple of a tile; then timed the same
-           way, beside
+           bf16), at D 128 and 256, non-causal with q_len != kv_len, at
+           a length that is no multiple of a tile, and at one rank's
+           shard of each mesh phase (B 2, L 1024, 6 heads; B 2, L 2048,
+           16 heads); then timed the same way, beside
            scaled_dot_product_attention's forward (K1) and backward (K2
            and K3 together).  Each case names the design K1-K3 ran (bf16
            at D 64/128: the tensor cores, with P and dS rounded to bf16,
@@ -224,6 +225,28 @@ run with a nonzero exit code and no result line:
            in f32, 2 steps, on the card and on the CPU: losses within
            1e-4 relative, each leaf's update within 2e-4 of its largest
            after one step and 4e-4 after two; K1-K3 8 launches each.
+  train_mesh  gpt2-small at full width and depth (bf16 activations, fp32
+           params, the single-device init on seed 0) on
+           MeshConfig(data=2, fsdp=2, tensor=2): eight ranks spawned by
+           the port's launcher, sharing card 0 over gloo (NCCL, one card
+           each, where there are enough cards), a global batch of 8 x
+           1024, 3 AdamW(1e-4) steps.  Against the single-device train
+           step on the same weights and batches: every rank's losses
+           (and one more step's on the last batch) within 3e-3, and
+           each leaf's update on each rank's shard within 0.35 of the
+           single device's in L2 norm (the limits sit between the sound
+           runs' readings and those of runs with a fault injected,
+           scripts/mesh_controls.py); with_logical_constraint's round
+           trip of the token table exact; K1, K2 and K3 must each have
+           run 12 times per step on every rank (counts set to 0 just
+           before the steps and read just after, in each rank).  Prints
+           the backend, the median step ms, the share of a step spent in
+           collectives (one more step with a synchronize around each
+           collective) and peak memory per rank.
+  train_mesh_llama  llama-1b's widths at 2 layers on MeshConfig(data=2,
+           tensor=2): four ranks, each with 16 query heads over 2 kv
+           heads, a global batch of 4 x 2048, 3 AdamW steps; the same
+           checks (K1-K3 2 launches per step per rank).
 
 Each phase's wall seconds follow it on a line of their own.  Then, on
 lines of their own: the kernels' JSON record, the card's name and power
@@ -474,6 +497,13 @@ FLASH_CASES = {
     # The pipeline phase's microbatch: gpt2-small, 4 x 1024.
     "pipeline-bf16": dict(b=4, lq=1024, lk=1024, h=12, d=64, causal=True,
                           dtype=torch.bfloat16),
+    # One rank's shard in the mesh phases: gpt2-small's 8 x 1024 over
+    # data x fsdp = 4 with 12 heads over tensor = 2; llama-1b's 4 x 2048
+    # over data = 2 with 32 (repeated) heads over tensor = 2.
+    "mesh-bf16": dict(b=2, lq=1024, lk=1024, h=6, d=64, causal=True,
+                      dtype=torch.bfloat16),
+    "mesh-llama-bf16": dict(b=2, lq=2048, lk=2048, h=16, d=64, causal=True,
+                            dtype=torch.bfloat16),
 }
 # Every length the draft forward can give K1 (window 64), checked at
 # the draft path's shape beside the two timed cases above.
@@ -681,7 +711,9 @@ def phase_flash(report: dict) -> None:
             source="ray_tpu_torch/ops/csrc/flash_attention.cu",
             replaces=f"ray_tpu/ops/attention.py:{line}", **train[kern],
             llama_1b=dict(llama_train[kern]),
-            pipeline=dict(results["pipeline-bf16"][kern]))
+            pipeline=dict(results["pipeline-bf16"][kern]),
+            train_mesh=dict(results["mesh-bf16"][kern]),
+            train_mesh_llama=dict(results["mesh-llama-bf16"][kern]))
         if kern != "K1":
             report[fn]["library_note"] = (
                 "scaled_dot_product_attention backward: dq, dk and dv "
@@ -4484,6 +4516,182 @@ def phase_pipeline_parity() -> None:
               f"{2 * 2 * config.n_layers}")
 
 
+# The mesh phases: ranks spawned by the port's launcher, each on card 0
+# over gloo (or one card each over NCCL where there are enough).
+MESH_TIMEOUT_S = 420
+MESH_LR = 1e-4
+# Each rank against the single-device run on the same weights and
+# batches, bf16: its losses (the three steps' and one more step's on
+# the last batch, the first that sees the third update) within
+# MESH_LOSS_TOL, and each leaf's update (final - start) on its shard
+# within MESH_UPDATE_TOL of the single device's in L2 norm.  Set from
+# the sound runs' readings and those of the same runs with a fault
+# injected (scripts/mesh_controls.py; both in PERF.md): the limits sit
+# above the first and below the second.
+MESH_LOSS_TOL = 3e-3
+MESH_UPDATE_TOL = 0.35
+
+
+def _mesh_run(family: str, config, sizes: dict, batches: list,
+              control=None) -> dict:
+    """`rank_bodies.train` on every rank of a `sizes` mesh (with
+    `control`, a fault injected there), and the port's single-device
+    train step on the card from the same weights (the family's init on
+    seed 0) on the same global batches, its start and final params
+    handed to the ranks in a file.  Returns the readings; `_mesh_faults`
+    judges them."""
+    import tempfile
+
+    from ray_tpu_torch.models import gpt, llama
+    from ray_tpu_torch.models._functional import adamw
+    from ray_tpu_torch.parallel import rank_bodies
+    from ray_tpu_torch.parallel.launch import run_ranks
+
+    model = {"gpt": gpt, "llama": llama}[family]
+    world = math.prod(sizes.values())
+
+    def host(params):
+        return {k: v.detach().cpu().clone()
+                for k, v in rank_bodies._flat(params).items()}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_state, train_step = model.make_train_step(config, adamw(MESH_LR),
+                                                   device="cuda")
+    state = init_state(0)
+    start = host(state["params"])
+    single = []
+    for b in batches + batches[-1:]:
+        if len(single) == len(batches):
+            final = host(state["params"])
+        state, metrics = train_step(state, {"tokens": torch.from_numpy(b)})
+        single.append(float(metrics["loss"]))
+    del state, init_state, train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        reference = os.path.join(tmp, "single.pt")
+        torch.save({"start": start, "final": final}, reference)
+        del start, final
+        t0 = time.perf_counter()
+        ranks = run_ranks(rank_bodies.train, world, args=(
+            family, config, sizes, None, batches, MESH_LR, "cuda", False,
+            None, reference, control), device="cuda",
+            init_dir=os.path.join(tmp, "init"), timeout_s=MESH_TIMEOUT_S)
+        wall_s = time.perf_counter() - t0
+    loss_diff = max(abs(a - b) for r in ranks
+                    for a, b in zip(r["losses"] + [r["final_loss"]], single))
+    update_err, update_leaf = max(
+        (err, f"rank {rank} {leaf}") for rank, r in enumerate(ranks)
+        for leaf, err in r["update_rel_err"].items())
+    shares = [r["collectives"]["share"] for r in ranks]
+    return dict(
+        mesh=sizes, ranks=world, control=control,
+        backend=ranks[0]["backend"], devices=torch.cuda.device_count(),
+        global_batch=list(batches[0].shape), steps=len(batches),
+        lr=MESH_LR, losses=ranks[0]["losses"] + [ranks[0]["final_loss"]],
+        single_device_losses=single, max_loss_diff=loss_diff,
+        loss_tolerance=MESH_LOSS_TOL, max_update_rel_err=update_err,
+        max_update_rel_err_at=update_leaf,
+        update_tolerance=MESH_UPDATE_TOL,
+        constraint_round_trip=all(r["constraint_round_trip"]
+                                  for r in ranks),
+        median_step_ms=statistics.median(r["median_step_ms"]
+                                         for r in ranks),
+        step_ms_by_rank=[r["median_step_ms"] for r in ranks],
+        collective_share_median=statistics.median(shares),
+        collective_share_by_rank=shares,
+        collectives_rank0=ranks[0]["collectives"],
+        peak_memory_gib_by_rank=[r["peak_memory_gib"] for r in ranks],
+        launches_by_rank=[r["launches"] for r in ranks],
+        ranks_wall_s=wall_s,
+        note=("ranks share card 0 over gloo: every collective passes "
+              "through host memory" if ranks[0]["backend"] == "gloo" else
+              "one card per rank over NCCL") + "; collective share from "
+             "one extra step with a synchronize around each collective")
+
+
+def _mesh_faults(out: dict, n_layers: int) -> list:
+    """What `_mesh_run`'s readings fail of the mesh phases' checks."""
+    faults = []
+    if not out["max_loss_diff"] <= MESH_LOSS_TOL:
+        faults.append(f"losses {out['losses']} vs one device "
+                      f"{out['single_device_losses']}: "
+                      f"{out['max_loss_diff']} apart")
+    if not out["max_update_rel_err"] <= MESH_UPDATE_TOL:
+        faults.append(f"update of {out['max_update_rel_err_at']} "
+                      f"{out['max_update_rel_err']} of one device's")
+    if not out["constraint_round_trip"]:
+        faults.append("with_logical_constraint's round trip differs")
+    want = out["steps"] * n_layers
+    for rank, launches in enumerate(out["launches_by_rank"]):
+        for name, n in launches.items():
+            if n != want:
+                faults.append(f"rank {rank}: {name} launched {n} times, "
+                              f"want {want}")
+    return faults
+
+
+def _mesh_batches(vocab: int, batch: int, seq: int, steps: int) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(14)
+    return [rng.integers(0, vocab, (batch, seq)).astype(np.int32)
+            for _ in range(steps)]
+
+
+def _gpt_mesh_run():
+    from ray_tpu_torch.models import gpt
+
+    config = gpt.CONFIGS["gpt2-small"]
+    return (config, dict(data=2, fsdp=2, tensor=2),
+            _mesh_batches(config.vocab_size, 8, 1024, 3))
+
+
+def _llama_mesh_run():
+    from ray_tpu_torch.models import llama
+
+    config = dataclasses.replace(llama.CONFIGS["llama-1b"], n_layers=2)
+    return (config, dict(data=2, tensor=2),
+            _mesh_batches(config.vocab_size, 4, 2048, 3))
+
+
+# (config, mesh sizes, global batches) of each mesh phase.
+MESH_RUNS = {"gpt": _gpt_mesh_run, "llama": _llama_mesh_run}
+
+
+def _mesh_report(report: dict, key: str, out: dict) -> None:
+    for name in out["launches_by_rank"][0]:
+        entry = report.setdefault(name, {}).setdefault(key, {})
+        entry.update(launches_by_rank=[r[name]
+                                       for r in out["launches_by_rank"]],
+                     steps=out["steps"])
+
+
+def phase_train_mesh(report: dict) -> None:
+    """gpt2-small at full width and depth (bf16, fp32 params) on
+    MeshConfig(data=2, fsdp=2, tensor=2): eight ranks, a global batch of
+    8 x 1024, 3 AdamW steps."""
+    config, sizes, batches = MESH_RUNS["gpt"]()
+    out = _mesh_run("gpt", config, sizes, batches)
+    _mesh_report(report, "train_mesh", out)
+    emit("train_mesh", config="gpt2-small", **out)
+    for fault in _mesh_faults(out, config.n_layers):
+        check(False, f"train_mesh: {fault}")
+
+
+def phase_train_mesh_llama(report: dict) -> None:
+    """llama-1b's widths at 2 layers (bf16, fp32 params) on
+    MeshConfig(data=2, tensor=2): four ranks, each with 16 query heads
+    over 2 kv heads, a global batch of 4 x 2048, 3 AdamW steps."""
+    config, sizes, batches = MESH_RUNS["llama"]()
+    out = _mesh_run("llama", config, sizes, batches)
+    _mesh_report(report, "train_mesh_llama", out)
+    emit("train_mesh_llama", config="llama-1b widths, 2 layers", **out)
+    for fault in _mesh_faults(out, config.n_layers):
+        check(False, f"train_mesh_llama: {fault}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -4532,7 +4740,9 @@ def main() -> int:
               ("rl_es", lambda _: phase_rl_es()),
               ("rl_es_parity", lambda _: phase_rl_es_parity()),
               ("pipeline", phase_pipeline),
-              ("pipeline_parity", lambda _: phase_pipeline_parity()))
+              ("pipeline_parity", lambda _: phase_pipeline_parity()),
+              ("train_mesh", phase_train_mesh),
+              ("train_mesh_llama", phase_train_mesh_llama))
     wanted = sys.argv[1:]
     unknown = set(wanted) - {name for name, _ in phases}
     if unknown:

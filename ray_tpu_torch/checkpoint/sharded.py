@@ -1,5 +1,5 @@
 """Sharded save and restore of a tree of torch tensors (port of
-ray_tpu/checkpoint/sharded.py, single device).
+ray_tpu/checkpoint/sharded.py).
 
 The on-disk layout is the reference's, byte for byte, so either
 package restores the other's directories and the reference trainer's
@@ -8,9 +8,13 @@ package restores the other's directories and the reference trainer's
     checkpoint_000042/
       manifest.json        tree skeleton + per-array shape/dtype/spec +
                            chunk->file inventory (written by rank 0)
-      a0_c0.bin            raw C-order bytes of array 0 (one full-extent
-      a1_c0.bin            chunk per array: every rank holds a whole
-                           replica, so rank 0 writes them all)
+      a0_c0.bin            raw C-order bytes of array 0, chunk 0: one
+      a0_c1.bin            file per distinct shard of a DTensor leaf
+      a1_c0.bin            (chunks numbered in the order of their
+                           sorted indices, as the reference numbers
+                           them), written by the lowest rank holding
+                           it; a plain tensor is one full-extent chunk,
+                           written by rank 0
       DONE.0.<save_id>     per-rank completion markers
       DONE.1.<save_id>
       COMMIT               atomic commit marker — written only after every
@@ -23,6 +27,13 @@ is the linearisation point.  The ranks are the `torch.distributed`
 group's when one is initialised, else the process is rank 0 of 1.  The
 last rank to write its DONE marker commits, as the reference's
 replica_id==0 rule does.
+
+A DTensor leaf (a mesh's params, `parallel.sharding`) records its
+global shape and its spec, and each rank writes the shards it owns.
+`restore_sharded(mesh=)` re-binds each saved spec to the current mesh
+(axes it lacks, or of size 1, are dropped) and reads each rank's window
+from whichever chunks overlap it, so a tree saved by the reference's
+8-device mesh restores on 8 ranks, and the reverse.
 
 Spans and events go to the caller's `Observer` under the reference's
 plane and kinds: ("ckpt", "stage") around the synchronous half,
@@ -39,11 +50,14 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ray_tpu_torch._device import MULTI_DEVICE, DeviceLike, resolve_device
+from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.checkpoint.manifest import (
-    COMMIT_FILE, FORMAT, MANIFEST_FILE, decode_tree, dtype_name,
-    encode_tree, fsync_dir, read_manifest, torch_dtype, write_bytes_atomic,
-    write_json_atomic)
+    COMMIT_FILE, FORMAT, MANIFEST_FILE, LeafRef, decode_tree, dtype_name,
+    encode_tree, fsync_dir, read_manifest, skeleton_refs, torch_dtype,
+    write_bytes_atomic, write_json_atomic)
+from ray_tpu_torch.parallel.mesh import axis_sizes
+from ray_tpu_torch.parallel.sharding import (NamedSharding, local_index,
+                                             spec_of)
 from ray_tpu_torch.util.observe import NOOP, Observer
 
 
@@ -105,21 +119,33 @@ def stage(tree: Any, *, save_id: str = "0", step: Optional[int] = None,
     for i, leaf in enumerate(leaves):
         shape = tuple(int(s) for s in leaf.shape)
         name = dtype_name(leaf)
-        fname = f"a{i}_c0.bin"
-        if pidx == 0:
-            local.append((fname, _host_copy(leaf)))
+        itemsize = torch_dtype(name).itemsize
+        if _is_dtensor(leaf):
+            spec = spec_of(leaf)
+            unique, owned = _chunks_of(leaf, spec, pidx)
+            ordinal = {idx: n for n, idx in enumerate(unique)}
+            for idx in owned:
+                local.append((f"a{i}_c{ordinal[idx]}.bin",
+                              _host_copy(leaf.to_local())))
+            spec_json = [None if e is None else
+                         [e] if isinstance(e, str) else list(e)
+                         for e in spec]
+        else:
+            unique = [tuple((0, d) for d in shape)]
+            if pidx == 0:
+                local.append((f"a{i}_c0.bin", _host_copy(leaf)))
+            spec_json = None
         arrays.append({
             "id": i,
             "path": _leaf_path(skeleton, i),
             "shape": list(shape),
             "dtype": name,
-            "spec": None,
+            "spec": spec_json,
             "chunks": [{
-                "file": fname,
-                "index": [[0, d] for d in shape],
-                "nbytes": int(math.prod(shape)
-                              * torch_dtype(name).itemsize),
-            }],
+                "file": f"a{i}_c{n}.bin",
+                "index": [[a, b] for a, b in idx],
+                "nbytes": int(math.prod(b - a for a, b in idx) * itemsize),
+            } for n, idx in enumerate(unique)],
         })
     manifest = {
         "format": FORMAT,
@@ -137,6 +163,30 @@ def stage(tree: Any, *, save_id: str = "0", step: Optional[int] = None,
     return Staged(manifest=manifest, local_chunks=local,
                   process_index=pidx, process_count=pcount,
                   save_id=str(save_id))
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _chunks_of(leaf, spec: tuple, rank: int):
+    """(the sorted distinct shard indices of a DTensor leaf over its
+    whole mesh, the ones `rank` writes): a shard held by several ranks
+    is written by the lowest of them."""
+    mesh = leaf.device_mesh
+    layout = mesh.mesh.cpu().numpy()
+    owner: dict = {}
+    mine = None
+    for coord in np.ndindex(layout.shape):
+        idx = tuple((s.start, s.stop) for s in local_index(
+            leaf.shape, spec, mesh, coord))
+        r = int(layout[coord])
+        owner[idx] = min(owner.get(idx, r), r)
+        if r == rank:
+            mine = idx
+    owned = [mine] if mine is not None and owner[mine] == rank else []
+    return sorted(owner), owned
 
 
 def _leaf_path(skeleton: dict, leaf_id: int) -> str:
@@ -244,47 +294,110 @@ def save_sharded(path: str, tree: Any, *, save_id: str = "0",
     return write_staged(staged, path, commit=commit, observer=observer)
 
 
-def _read_leaf(path: str, entry: dict) -> torch.Tensor:
-    """One saved array as a host tensor, from its chunks (a chunk of
-    another layout, from a sharded JAX save, lands at its index)."""
+def _read_window(path: str, entry: dict, window: tuple) -> torch.Tensor:
+    """The slices `window` of one saved array as a host tensor, from
+    every chunk that overlaps it."""
     shape = tuple(entry["shape"])
     dtype = torch_dtype(entry["dtype"])
-    out = torch.empty(shape, dtype=dtype)
+    req = [(0 if w.start is None else w.start,
+            n if w.stop is None else w.stop) for w, n in zip(window, shape)]
+    out = torch.empty([b - a for a, b in req], dtype=dtype)
     for chunk in entry["chunks"]:
-        index = tuple(slice(s, e) for s, e in chunk["index"])
-        cshape = tuple(e - s for s, e in chunk["index"])
-        if math.prod(cshape) == 0:
+        cidx = [tuple(x) for x in chunk["index"]]
+        cshape = tuple(e - s for s, e in cidx)
+        inter = [(max(a, c), min(b, e)) for (a, b), (c, e) in zip(req,
+                                                                 cidx)]
+        if math.prod(cshape) == 0 or any(a >= b for a, b in inter):
             continue
         raw = np.fromfile(os.path.join(path, chunk["file"]), dtype=np.uint8)
         if raw.size != chunk["nbytes"]:
             raise ValueError(f"{path}/{chunk['file']}: {raw.size} bytes, "
                              f"the manifest says {chunk['nbytes']}")
         data = torch.from_numpy(raw).view(dtype).reshape(cshape)
-        if cshape == shape:
+        src = tuple(slice(a - c, b - c) for (a, b), (c, _) in zip(inter,
+                                                                 cidx))
+        dst = tuple(slice(a - r, b - r) for (a, b), (r, _) in zip(inter, req))
+        if cshape == tuple(out.shape) and cidx == req:
             return data
-        out[index] = data
+        out[dst] = data[src]
+    return out
+
+
+def _spec_for_mesh(entry: dict, mesh) -> tuple:
+    """Re-bind the SAVED spec to the CURRENT mesh: axis names that the
+    mesh lacks (or of size 1) are dropped, so a tree saved on a
+    ("data", "tensor") mesh restores onto a ("data",) mesh with the
+    tensor split gone."""
+    sizes = axis_sizes(mesh)
+    out = []
+    for dim in entry.get("spec") or []:
+        axes = tuple(a for a in (dim or []) if sizes.get(a, 1) > 1)
+        out.append(None if not axes else axes[0] if len(axes) == 1
+                   else axes)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def _leaf_shardings(man: dict, shardings) -> dict:
+    """{leaf id: NamedSharding} from one sharding or a tree of them
+    congruent with the saved tree."""
+    if isinstance(shardings, NamedSharding):
+        return {e["id"]: shardings for e in man["arrays"]}
+    out: dict = {}
+
+    def walk(ref, sh):
+        if isinstance(ref, LeafRef):
+            out[ref.id] = sh
+        elif isinstance(ref, dict):
+            for k, v in ref.items():
+                walk(v, sh[k])
+        elif isinstance(ref, (list, tuple)):
+            for r, s_ in zip(ref, sh):
+                walk(r, s_)
+    walk(skeleton_refs(man["tree"]), shardings)
     return out
 
 
 def restore_sharded(path: str, *, device: DeviceLike = None, mesh=None,
                     shardings=None, allow_uncommitted: bool = False) -> Any:
-    """Re-materialise a saved tree from `path` as tensors on `device`
-    (None -> CUDA), python scalars and containers as saved (a namedtuple
-    as a namedtuple of the recorded name and fields).  Only committed
-    directories restore unless `allow_uncommitted`.  `mesh=` and
-    `shardings=` (the reference's elastic restore) raise: they wait for
-    the multi-device slice."""
-    if mesh is not None or shardings is not None:
-        raise NotImplementedError(f"restoring onto a mesh or shardings "
-                                  f"waits for {MULTI_DEVICE}")
-    device = resolve_device(device)
+    """Re-materialise a saved tree from `path`, python scalars and
+    containers as saved (a namedtuple as a namedtuple of the recorded
+    name and fields).  Only committed directories restore unless
+    `allow_uncommitted`.
+
+    - default: whole tensors on `device` (None -> CUDA);
+    - `mesh=` (a DeviceMesh): each array as a DTensor holding this
+      rank's window, laid out by its saved spec re-bound to the mesh
+      (the reference's elastic restore); on the mesh's card unless
+      `device` says otherwise;
+    - `shardings=`: one `parallel.sharding.NamedSharding`, or a tree of
+      them congruent with the saved tree (where it has no entry, the
+      leaf restores whole)."""
+    if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
+        raise TypeError(f"restore_sharded(mesh=) takes a DeviceMesh, got "
+                        f"{type(mesh).__name__}")
     if not allow_uncommitted and not is_committed(path):
         raise FileNotFoundError(
             f"{path}: no COMMIT marker — checkpoint is torn or still "
             f"being written (pass allow_uncommitted=True to override)")
     man = read_manifest(path)
-    leaves = {entry["id"]: _read_leaf(path, entry).to(device)
-              for entry in man["arrays"]}
+    per_leaf = _leaf_shardings(man, shardings) if shardings is not None \
+        else {}
+    leaves = {}
+    for entry in man["arrays"]:
+        sharding = per_leaf.get(entry["id"])
+        if sharding is None and mesh is not None:
+            sharding = NamedSharding(mesh, _spec_for_mesh(entry, mesh))
+        if sharding is None:
+            full = tuple(slice(0, n) for n in entry["shape"])
+            leaves[entry["id"]] = _read_window(path, entry, full).to(
+                resolve_device(device))
+            continue
+        window = local_index(entry["shape"], sharding.spec, sharding.mesh)
+        leaves[entry["id"]] = sharding.wrap(
+            _read_window(path, entry, window), tuple(entry["shape"]),
+            device)
     return decode_tree(man["tree"], leaves)
 
 

@@ -20,6 +20,12 @@ overlap here, as in the reference:
     and every tensor is marked as used by the consumer's stream.  A
     staging buffer is written again only after its copy's event has
     completed.  A CPU device takes plain tensors over the numpy batch.
+    With `sharding=` (a DeviceMesh, a `parallel.sharding.NamedSharding`
+    for every column, or a dict of them by column) each batch is the
+    global batch, the same on every rank: only this rank's rows are
+    copied, and each column is handed out as a DTensor of the global
+    batch.  A bare mesh resolves through `batch_shardings`, so every
+    column splits over the data axes, as in the reference.
 
 Batches are numerically identical to the numpy batches.  Metering goes
 to the caller's `Observer` under the reference's names: counters
@@ -292,6 +298,34 @@ class _Staging:
         self._free.put((slot, event))
 
 
+def _resolve_sharding(sharding, batch: dict) -> Optional[dict]:
+    """{column: NamedSharding} from a DeviceMesh (the ("batch",
+    "length") layout of `batch_shardings`), one NamedSharding, or a dict
+    of them by column."""
+    from ray_tpu_torch.parallel.sharding import batch_shardings
+
+    if sharding is None:
+        return None
+    if hasattr(sharding, "mesh_dim_names"):
+        return batch_shardings(sharding, batch)
+    if isinstance(sharding, dict):
+        return {k: sharding[k] for k in batch}
+    return {k: sharding for k in batch}
+
+
+def _rows_of(batch: dict, shardings: Optional[dict]):
+    """(this rank's slice of each column of a global batch, {column:
+    (sharding, global shape)} or None)."""
+    from ray_tpu_torch.parallel.sharding import local_index
+
+    if shardings is None:
+        return batch, None
+    return ({k: v[local_index(v.shape, shardings[k].spec,
+                              shardings[k].mesh)]
+             for k, v in batch.items()},
+            {k: (shardings[k], tuple(v.shape)) for k, v in batch.items()})
+
+
 class DeviceBatchIterator:
     """Keeps up to `buffers` batches in flight on the device: while the
     step consumes batch k, batch k+1's copy has already been enqueued.
@@ -301,7 +335,8 @@ class DeviceBatchIterator:
                  device: DeviceLike = None, drop_last: bool = False,
                  queue_depth: Optional[int] = None,
                  buffers: Optional[int] = None,
-                 observer: Optional[Observer] = None):
+                 observer: Optional[Observer] = None, sharding=None):
+        self._sharding = sharding
         self._device = resolve_device(device)
         self._buffers = max(1, int(buffers if buffers is not None
                                    else DEVICE_BUFFERS))
@@ -319,28 +354,38 @@ class DeviceBatchIterator:
         self._max_inflight = 0
 
     def _to_device(self, item):
+        """(this rank's columns on the device, the copy's event or None,
+        {column: (sharding, global shape)} or None)."""
         tok = self._obs.begin("ingest", "h2d")
         try:
             if self._staging is None:
-                return {k: _plain(v) for k, v in item.items()}, None
+                host = {k: _plain(v) for k, v in item.items()}
+                rows, global_ = _rows_of(host, _resolve_sharding(
+                    self._sharding, host))
+                return rows, None, global_
             slot, pinned = item
+            rows, global_ = _rows_of(pinned, _resolve_sharding(
+                self._sharding, pinned))
             side = self._side
             with torch.cuda.stream(side):
                 batch = {k: v.to(self._device, non_blocking=True)
-                         for k, v in pinned.items()}
+                         for k, v in rows.items()}
                 event = torch.cuda.Event()
                 event.record(side)
             self._staging.release(slot, event)
-            return batch, event
+            return batch, event, global_
         finally:
             self._obs.end(tok)
 
-    def _hand_out(self, batch, event):
+    def _hand_out(self, batch, event, global_):
         if event is not None:
             consumer = torch.cuda.current_stream(self._device)
             consumer.wait_event(event)
             for t in batch.values():
                 t.record_stream(consumer)
+        if global_ is not None:
+            batch = {k: global_[k][0].wrap(v, global_[k][1], v.device)
+                     for k, v in batch.items()}
         return batch
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
@@ -372,17 +417,21 @@ def iter_device_batches(source, *, device: DeviceLike = None,
                         batch_size: int = 256, drop_last: bool = False,
                         queue_depth: Optional[int] = None,
                         device_buffers: Optional[int] = None,
-                        observer: Optional[Observer] = None
-                        ) -> DeviceBatchIterator:
+                        observer: Optional[Observer] = None,
+                        sharding=None) -> DeviceBatchIterator:
     """The overlapped device feed over `source` on `device` (None ->
     CUDA): an iterable of blocks (dicts of numpy columns), or a shard —
     anything with `iter_batches(batch_size=, batch_format="numpy",
     drop_last=)`, such as the reference's `session.get_dataset_shard`.
-    Batches of `batch_size` rows, as dicts of tensors on the device."""
+    Batches of `batch_size` rows, as dicts of tensors on the device;
+    with `sharding=` (a DeviceMesh, a NamedSharding, or a dict of them
+    by column), of DTensors holding this rank's rows of each global
+    batch."""
     if hasattr(source, "iter_batches"):
         source = source.iter_batches(batch_size=batch_size,
                                      batch_format="numpy",
                                      drop_last=drop_last)
     return DeviceBatchIterator(source, batch_size, device=device,
                                drop_last=drop_last, queue_depth=queue_depth,
-                               buffers=device_buffers, observer=observer)
+                               buffers=device_buffers, observer=observer,
+                               sharding=sharding)

@@ -1,13 +1,25 @@
 """Shared train-step factory for the functional LM families (port of
-ray_tpu/models/_functional.py, single device), and what the families'
-modules share besides: the engine's working copy of the params and the
-single-device check.
+ray_tpu/models/_functional.py), and what the families' modules share
+besides: the engine's working copy of the params, the mesh checks and
+the mesh plan of the forward.
 
 The reference's contract: `init_state` gives {"params", "opt_state",
 "step"} and `train_step(state, batch)` gives (state, {"loss"}).  JAX's
 step is a pure function; here the parameters and the optimizer's
 moments are updated in place (the returned state holds the same
 tensors), which saves a second copy of both.
+
+Under a mesh of data, fsdp and tensor (`make_train_step(mesh=...)`) the
+params are DTensors placed by `tree_shardings(mesh, param_specs)`, and
+AdamW's moments, made like them, take the same placements.  Each rank
+computes on its local shards, and `MeshPlan` puts in the collectives
+that GSPMD puts into the reference's program: a parameter sharded over
+fsdp is gathered where it is used (its gradient reduce-scattered in the
+backward), the tensor-parallel products sum their partial outputs over
+`tensor`, the embedding looks tokens up in the rank's vocab slice, and
+after the backward each gradient is summed over the row axes that its
+parameter is not sharded over.  `OneDevice` is the same interface with
+no collective, so the families' forward is one code path.
 """
 
 from __future__ import annotations
@@ -18,6 +30,12 @@ from typing import Optional, Union
 import torch
 
 from ray_tpu_torch._device import MULTI_DEVICE, DeviceLike, resolve_device
+from ray_tpu_torch.ops.cross_entropy import ROW_AXES, spmd_ce_applicable
+from ray_tpu_torch.parallel import collectives
+from ray_tpu_torch.parallel.mesh import axis_sizes
+from ray_tpu_torch.parallel.sharding import (
+    _entry_axes, _is_spec, local_shard, logical_to_spec, mesh_device,
+    redistribute, spec_axes, tree_map, tree_shardings)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,12 +49,59 @@ class AdamW:
     eps: float = 1e-8
     weight_decay: float = 1e-4
 
-    def init(self, params: dict) -> torch.optim.Optimizer:
+    def init(self, params: dict):
+        """A torch AdamW over the leaves of `params`; over DTensor leaves,
+        a `ShardedAdamW`."""
+        from torch.distributed.tensor import DTensor
+
         leaves = _leaves(params)
-        return torch.optim.AdamW(
-            leaves, lr=self.learning_rate, betas=(self.b1, self.b2),
-            eps=self.eps, weight_decay=self.weight_decay,
-            fused=leaves[0].is_cuda)
+        kw = dict(lr=self.learning_rate, betas=(self.b1, self.b2),
+                  eps=self.eps, weight_decay=self.weight_decay,
+                  fused=leaves[0].is_cuda)
+        if isinstance(leaves[0], DTensor):
+            return ShardedAdamW(leaves, **kw)
+        return torch.optim.AdamW(leaves, **kw)
+
+
+class ShardedAdamW:
+    """torch's AdamW stepping the local shards of DTensor parameters in
+    place (the DTensors see the update: they share the storage).  AdamW
+    is elementwise, so each rank's step on its shards is the step on the
+    whole; DTensor's own dispatch of the fused op, on its first call,
+    enumerates placement strategies over the six mesh axes for every
+    tensor of the call, which takes minutes.  `moments()` gives the
+    first and second moments as DTensors laid out like their
+    parameters."""
+
+    def __init__(self, params: list, **kw):
+        self.params = params
+        with torch.no_grad():
+            self.shards = [p.to_local() for p in params]
+        self.optimizer = torch.optim.AdamW(self.shards, **kw)
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p in self.params:
+            p.grad = None
+        self.optimizer.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        with torch.no_grad():
+            for p, shard in zip(self.params, self.shards):
+                shard.grad = None if p.grad is None else p.grad.to_local()
+        self.optimizer.step()
+
+    def moments(self) -> list:
+        """[(exp_avg, exp_avg_sq)] per parameter, as DTensors."""
+        from torch.distributed.tensor import DTensor
+
+        out = []
+        for p, shard in zip(self.params, self.shards):
+            st = self.optimizer.state[shard]
+            out.append(tuple(DTensor.from_local(
+                st[k], p.device_mesh, p.placements, run_check=False,
+                shape=p.shape, stride=p.stride())
+                for k in ("exp_avg", "exp_avg_sq")))
+        return out
 
 
 def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
@@ -76,45 +141,258 @@ def working_params(params: dict, dtype: torch.dtype, matmul_keys,
 
 
 def check_single_device(mesh) -> None:
-    """The port runs one device: a mesh with any axis above 1 raises.
-    `mesh` is None or anything with a `.shape` mapping of axis sizes (a
-    one-device mesh is accepted)."""
-    if mesh is not None and any(s > 1 for s in dict(mesh.shape).values()):
+    """For what runs one device only (ResNet, the RL learners): a mesh
+    with any axis above 1 raises.  `mesh` is None or anything with a
+    `.shape` mapping of axis sizes, or a DeviceMesh (a one-device mesh
+    is accepted)."""
+    if multi_device(mesh):
         raise NotImplementedError(f"a mesh with an axis above 1 waits for "
                                   f"{MULTI_DEVICE}")
 
 
+# The mesh axes the LM families still refuse above 1, and what each
+# waits for.
+WAITING_AXES = {
+    "seq": "ring attention over the seq axis (ops/ring_attention.py)",
+    "expert": "expert parallelism (GPT's MoE over the expert axis)",
+    "stage": "pipeline_apply over the stage axis",
+}
+
+
+def multi_device(mesh) -> bool:
+    return mesh is not None and any(s > 1 for s in
+                                    axis_sizes(mesh).values())
+
+
+def check_mesh_loss(mesh, vocab: int, shape) -> None:
+    """Under a mesh the LM loss is the vocab-parallel cross-entropy
+    (`spmd_ce_applicable`).  The reference falls back to materialised
+    logits where the mesh does not divide the batch, the length or the
+    vocab; the port places shards evenly only, so such a batch or
+    config raises here, before any collective."""
+    if not multi_device(mesh):
+        return
+    check_mesh(mesh)
+    if not spmd_ce_applicable(mesh, vocab, *tuple(shape)[:2]):
+        raise NotImplementedError(
+            f"a batch of {tuple(shape)} over vocab {vocab} does not split "
+            f"evenly over the mesh {axis_sizes(mesh)}: the reference's "
+            f"fallback to materialised logits waits for uneven shards in "
+            f"{MULTI_DEVICE}")
+
+
+def check_mesh(mesh) -> None:
+    """The LM families run a mesh of data, fsdp and tensor; `seq`,
+    `expert` or `stage` above 1 raises, naming what it waits for."""
+    if mesh is None:
+        return
+    sizes = axis_sizes(mesh)
+    for axis, item in WAITING_AXES.items():
+        if sizes.get(axis, 1) > 1:
+            raise NotImplementedError(
+                f"a mesh with {axis} = {sizes[axis]} waits for {item} in "
+                f"{MULTI_DEVICE}")
+
+
+class OneDevice:
+    """The forward's plan on one device: no collective, whole params."""
+
+    tensor = None
+
+    def local(self, params: dict) -> dict:
+        return params
+
+    def rows(self, x):
+        return x
+
+    def leaf(self, t, name: str):
+        return t
+
+    def layer(self, t, name: str):
+        return t
+
+    def embed(self, table, tokens, dtype):
+        return table[tokens.long()].to(dtype)
+
+    def place(self, params: dict, device) -> dict:
+        return _map(params, lambda t: t.detach().to(
+            device=device, dtype=torch.float32, copy=True).requires_grad_())
+
+    def sync_grads(self, params: dict) -> None:
+        pass
+
+
+ONE_DEVICE = OneDevice()
+
+
+class MeshPlan(OneDevice):
+    """The forward's plan on this rank of `mesh`, for params laid out by
+    the logical spec tree `logical_specs` (see the module docstring).
+    Building one makes the process groups it needs: every rank of the
+    mesh builds it at the same point."""
+
+    def __init__(self, mesh, logical_specs: dict):
+        check_mesh(mesh)
+        self.mesh = mesh
+        self.specs = tree_map(lambda s: logical_to_spec(s, mesh=mesh),
+                              logical_specs, is_leaf=_is_spec)
+        self.shardings = tree_shardings(mesh, logical_specs)
+        self.tensor = collectives.axis_group(mesh, ("tensor",))
+        self.fsdp = collectives.axis_group(mesh, ("fsdp",))
+        # The groups `sync_grads` sums over, made here by every rank.
+        for axes in (("data",), ROW_AXES):
+            collectives.axis_group(mesh, axes)
+        self.coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        self.sizes = axis_sizes(mesh)
+        self.device = mesh_device(mesh)
+
+    def local(self, params: dict) -> dict:
+        return _map(params, lambda t: t.to_local())
+
+    def rows(self, x):
+        """This rank's rows of a batch leaf: a DTensor's local tensor, or
+        the rows of a plain (global) tensor, on the mesh's device."""
+        return local_shard(x, self.mesh, logical_to_spec(
+            ("batch",), mesh=self.mesh)).to(self.device)
+
+    def _gather(self, t, spec: tuple):
+        """`t` gathered over fsdp on the dim that fsdp shards (fsdp must
+        be that dim's minor axis, so the pieces join contiguously)."""
+        for d, entry in enumerate(spec):
+            axes = _entry_axes(entry)
+            if "fsdp" in axes:
+                if axes[-1] != "fsdp":
+                    raise ValueError(f"fsdp must be the minor axis of "
+                                     f"{entry}")
+                return collectives.all_gather_value(t, self.fsdp, d)
+        return t
+
+    def leaf(self, t, name: str):
+        return self._gather(t, self.specs[name])
+
+    def layer(self, t, name: str):
+        """A stacked block leaf's layer (the "layers" dim dropped)."""
+        return self._gather(t, self.specs["blocks"][name][1:])
+
+    def embed(self, table, tokens, dtype):
+        """The vocab-parallel lookup: the rank's slice of the table
+        ("vocab" over (tensor, fsdp)) serves the tokens of its fsdp
+        group's rows; the partial rows are summed over fsdp back onto
+        each rank's rows and over tensor.  Every output row has one
+        non-zero term, so the sums are exact."""
+        axes = _entry_axes(self.specs["tok_embed"][0])
+        index = 0
+        for a in axes:
+            index = index * self.sizes[a] + self.coord[a]
+        lo = index * table.shape[0]
+        group = self.fsdp if "fsdp" in axes else None
+        ids = collectives.all_gather(tokens.long(), group, 0) - lo
+        inside = (ids >= 0) & (ids < table.shape[0])
+        x = table[ids.clamp(0, table.shape[0] - 1)].to(dtype)
+        x = torch.where(inside[..., None], x, 0)
+        x = collectives.reduce_scatter_value(x, group, 0)
+        if "tensor" in axes:
+            x = collectives.all_reduce_value(x, self.tensor)
+        return x
+
+    def place(self, params: dict, device) -> dict:
+        """Each leaf as a DTensor leaf of fp32 on `device`, laid out by
+        the plan's specs: a plain (global) tensor is sliced, a DTensor is
+        copied, and one laid out otherwise (other rules, another saved
+        layout) is moved into the plan's layout first, as the
+        reference's jit reshards its arguments."""
+        from torch.distributed.tensor import DTensor
+
+        def put(t, sharding):
+            if isinstance(t, DTensor):
+                t = redistribute(t.detach(), sharding.spec, self.mesh)
+                t = DTensor.from_local(
+                    t.to_local().to(device, torch.float32, copy=True),
+                    self.mesh, t.placements, run_check=False,
+                    shape=t.shape, stride=t.stride())
+            else:
+                t = sharding.shard(t.detach().float(), device)
+            return t.requires_grad_()
+        return tree_map(put, params, self.shardings)
+
+    def sync_grads(self, params: dict) -> None:
+        """Sum each gradient over the row axes its parameter is not
+        sharded over (fsdp-sharded ones were reduce-scattered over fsdp
+        in the backward), one all-reduce per set of axes."""
+        buckets: dict = {}
+
+        def bucket(p, spec):
+            axes = tuple(a for a in ROW_AXES if a not in spec_axes(spec))
+            group = collectives.axis_group(self.mesh, axes)
+            if group is not None:
+                buckets.setdefault(axes, (group, []))[1].append(p.grad)
+        tree_map(bucket, params, self.specs)
+        with torch.no_grad():
+            for group, grads in buckets.values():
+                local = [g.to_local() for g in grads]
+                flat = collectives.all_reduce(
+                    torch.cat([t.reshape(-1) for t in local]), group)
+                for t, part in zip(local, flat.split(
+                        [t.numel() for t in local])):
+                    t.copy_(part.view_as(t))
+
+
+_plans: dict = {}
+
+
+def plan_for(mesh, logical_specs: Optional[dict]) -> OneDevice:
+    """`ONE_DEVICE` without a mesh (or with every axis 1), else the
+    mesh's `MeshPlan` for `logical_specs` (made once per mesh and spec
+    tree)."""
+    if not multi_device(mesh):
+        return ONE_DEVICE
+    check_mesh(mesh)
+    key = (mesh, repr(logical_specs))
+    if key not in _plans:
+        _plans[key] = MeshPlan(mesh, logical_specs)
+    return _plans[key]
+
 
 def make_train_step(config, optimizer: AdamW, *, init_params, loss_fn,
-                    device: DeviceLike = None):
-    """`init_params(config, generator, device)` and
-    `loss_fn(params, batch, config, mesh)` define the family.
+                    device: DeviceLike = None, mesh=None,
+                    param_specs=None):
+    """`init_params(config, generator, device)`,
+    `loss_fn(params, batch, config, mesh)` and `param_specs(config)`
+    define the family.
 
     `init_state(key=0, params=None)`: params from `init_params` with a
     generator seeded by `key` (an int or a torch.Generator), or a copy of
     `params` when given (e.g. weights carried across from the reference
-    with convert.params_from_numpy).  `train_step(state, batch)` runs the
-    loss, its backward and one optimizer step; the loss it returns is a
-    device scalar (reading it waits for the step)."""
+    with convert.params_from_numpy).  Under a mesh the params are drawn
+    on the CPU (the same on every rank) and each rank keeps its shards:
+    DTensor leaves on `device`.  `train_step(state, batch)` runs the
+    loss, its backward, the gradient sums over the row axes and one
+    optimizer step; the loss it returns is a device scalar (reading it
+    waits for the step).  Under a mesh a batch leaf is a DTensor (from
+    `shard_batch` or `global_batch`) or the global batch."""
     device = resolve_device(device)
+    plan = plan_for(mesh, param_specs(config) if param_specs else None)
 
     def init_state(key: Union[int, torch.Generator] = 0,
                    params: Optional[dict] = None) -> dict:
         if params is None:
             gen = key if isinstance(key, torch.Generator) \
                 else torch.Generator().manual_seed(int(key))
-            params = init_params(config, gen, device=device)
-        params = _map(params, lambda t: t.detach().to(
-            device=device, dtype=torch.float32, copy=True).requires_grad_())
+            params = init_params(config, gen, device=device
+                                 if plan is ONE_DEVICE else "cpu")
+        params = plan.place(params, device)
         return {"params": params, "opt_state": optimizer.init(params),
                 "step": 0}
 
     def train_step(state: dict, batch: dict):
         params, opt = state["params"], state["opt_state"]
         opt.zero_grad(set_to_none=True)
-        batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
-        loss = loss_fn(params, batch, config, None)
+        if plan is ONE_DEVICE:
+            batch = {k: v.to(device, non_blocking=True)
+                     for k, v in batch.items()}
+        loss = loss_fn(params, batch, config, mesh)
         loss.backward()
+        plan.sync_grads(params)
         opt.step()
         return ({"params": params, "opt_state": opt,
                  "step": state["step"] + 1},

@@ -10,12 +10,21 @@ where it uses them, inside the graph, so the fp32 leaves get the
 gradients.  A Python loop over the stacked layers takes the place of
 `lax.scan`.
 
-Ported: the config table, `init_params`, `num_params`, `_layernorm`,
-the Switch MoE MLP (`_moe_mlp`, single device), `_block`,
-`forward_trunk`, `forward`, `loss_fn` (single device),
-`make_train_step`, `_block_cached`, `forward_cached` and `lm_head`.
-Every mesh with an axis above 1 waits for the multi-device slice and
-raises `NotImplementedError`.
+Ported: the config table, `param_specs`, `init_params`,
+`shard_params`, `num_params`, `_layernorm`, the Switch MoE MLP
+(`_moe_mlp`, single device), `_block`, `forward_trunk`, `forward`,
+`loss_fn`, `make_train_step`, `_block_cached`, `forward_cached` and
+`lm_head`.
+
+Under a mesh of data, fsdp and tensor (models/_functional.py) the
+training forward runs on each rank's shards: its rows of the batch,
+its heads and MLP columns of each block (Megatron's column- then
+row-parallel products, the partial outputs summed over `tensor`), each
+layer's weights gathered over fsdp where used; flash attention (K1-K3)
+runs unchanged on the local [B / (data x fsdp), L, H / tensor, D]
+shard, and the loss is the vocab-parallel `fused_cross_entropy_spmd`.
+A mesh with seq, expert or stage above 1, or a MoE config under a
+mesh, raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -33,7 +42,10 @@ from ray_tpu_torch.models import _functional
 from ray_tpu_torch.models._functional import _map
 from ray_tpu_torch.ops.attention import (flash_attention, paged_attention,
                                          paged_kv_update)
-from ray_tpu_torch.ops.cross_entropy import fused_cross_entropy
+from ray_tpu_torch.ops.cross_entropy import (fused_cross_entropy,
+                                             fused_cross_entropy_spmd)
+from ray_tpu_torch.parallel import collectives
+from ray_tpu_torch.parallel.sharding import tree_map, tree_shardings
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +85,44 @@ CONFIGS = {
 # Leaves that the forward only ever uses cast to the activation dtype.
 _MATMUL_KEYS = ("wq", "wk", "wv", "wo", "w_up", "w_down", "tok_embed",
                 "pos_embed", "lm_head")
+
+
+def param_specs(config: GPTConfig) -> dict:
+    """Logical sharding spec tree, congruent with init_params output."""
+    blocks = {
+        "ln1_scale": ("layers", "embed"),
+        "ln1_bias": ("layers", "embed"),
+        "wq": ("layers", "embed", "heads", "kv"),
+        "wk": ("layers", "embed", "heads", "kv"),
+        "wv": ("layers", "embed", "heads", "kv"),
+        "wo": ("layers", "heads", "kv", "embed"),
+        "ln2_scale": ("layers", "embed"),
+        "ln2_bias": ("layers", "embed"),
+    }
+    if config.n_experts:
+        blocks.update({
+            "router": ("layers", "embed", "experts"),
+            "w_up": ("layers", "experts", "embed", "expert_mlp"),
+            "w_down": ("layers", "experts", "expert_mlp", "embed"),
+        })
+    else:
+        blocks.update({
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        })
+    specs = {
+        # Table embed dims stay unsharded (vocab carries tensor+fsdp, see
+        # parallel/sharding.py DEFAULT_RULES["vocab"]); pos_embed is tiny
+        # and replicated.
+        "tok_embed": ("vocab", None),
+        "pos_embed": (None, None),
+        "blocks": blocks,
+        "final_ln_scale": ("embed",),
+        "final_ln_bias": ("embed",),
+    }
+    if not config.tie_embeddings:
+        specs["lm_head"] = ("embed", "vocab")
+    return specs
 
 
 def param_shapes(config: GPTConfig) -> dict:
@@ -150,6 +200,17 @@ def init_params(config: GPTConfig, generator: Optional[torch.Generator] = None,
     if not c.tie_embeddings:
         params["lm_head"] = dense((d, c.vocab_size), d)
     return _map(params, lambda t: t.to(device))
+
+
+def shard_params(params: dict, mesh, config: GPTConfig, rules=None,
+                 device: DeviceLike = None) -> dict:
+    """This rank's shards of the global `params` (the same on every
+    rank) as DTensors on `device` (default: the mesh's card), placed by
+    `param_specs` under `rules` (default `DEFAULT_RULES`).  The train
+    step moves leaves placed by other rules into its own layout
+    (`MeshPlan.place`)."""
+    return tree_map(lambda t, s: s.shard(t, device), params,
+                    tree_shardings(mesh, param_specs(config), rules))
 
 
 def num_params(config: GPTConfig) -> int:
@@ -235,37 +296,79 @@ def _moe_mlp(x, router, w_up, w_down, config: GPTConfig):
     return out.view(b, l, d), aux
 
 
-def _check_single_device(config: GPTConfig, mesh) -> None:
-    """The port runs one device: a mesh with any axis above 1 raises
-    (`_functional.check_single_device`)."""
-    _functional.check_single_device(mesh)
+def _plan(config: GPTConfig, mesh):
+    """The forward's plan (`_functional.plan_for`): a mesh runs dense
+    configs of data, fsdp and tensor only."""
+    if config.n_experts and _functional.multi_device(mesh):
+        raise NotImplementedError(
+            f"a MoE config under a mesh waits for "
+            f"{_functional.WAITING_AXES['expert']} in "
+            f"{_functional.MULTI_DEVICE}")
+    return _functional.plan_for(mesh, param_specs(config))
 
 
-def _block(x, p, config: GPTConfig):
+def _block(x, p, config: GPTConfig, tp=None):
     """One training block: x [B, L, D] -> (x, aux).  Attention is
     `flash_attention` (K1 forward, K2/K3 backward) with causal=True; the
     MLP is dense (aux None), or the Switch MoE when `config.n_experts`
-    (aux is its load-balancing loss)."""
+    (aux is its load-balancing loss).  Under tensor parallelism (`tp`,
+    the tensor group) `p` holds this rank's heads and MLP columns: the
+    normed input enters the column-parallel products (its gradient
+    summed over `tp`) and the row-parallel outputs are summed over
+    `tp`."""
     b, l, d = x.shape
-    nh, dh = config.n_heads, config.head_dim
-    h = _layernorm(x, p["ln1_scale"], p["ln1_bias"])
+    dh = config.head_dim
+    h = collectives.all_reduce_grad(
+        _layernorm(x, p["ln1_scale"], p["ln1_bias"]), tp)
 
     def heads(w):                    # "bld,dhk->blhk"
-        return (h @ w.reshape(d, nh * dh).to(h.dtype)).view(b, l, nh, dh)
+        return (h @ w.reshape(d, -1).to(h.dtype)).view(b, l, -1, dh)
 
     attn = flash_attention(heads(p["wq"]), heads(p["wk"]), heads(p["wv"]),
                            causal=True)
-    x = x + attn.reshape(b, l, nh * dh) @ p["wo"].reshape(nh * dh, d).to(
-        h.dtype)
+    nh = attn.shape[2]
+    x = x + collectives.all_reduce_value(
+        attn.reshape(b, l, nh * dh) @ p["wo"].reshape(nh * dh, d).to(
+            h.dtype), tp)
 
     h = _layernorm(x, p["ln2_scale"], p["ln2_bias"])
     if config.n_experts:
         mlp_out, aux = _moe_mlp(h, p["router"], p["w_up"], p["w_down"],
                                 config)
         return x + mlp_out, aux
+    h = collectives.all_reduce_grad(h, tp)
     # jax.nn.gelu's default is the tanh approximation.
     hidden = F.gelu(h @ p["w_up"].to(h.dtype), approximate="tanh")
-    return x + hidden @ p["w_down"].to(h.dtype), None
+    return x + collectives.all_reduce_value(
+        hidden @ p["w_down"].to(h.dtype), tp), None
+
+
+def _trunk(p, tokens, config: GPTConfig, plan, position_offset: int = 0):
+    """The stack on this rank's local params `p` and token rows."""
+    c = config
+    l = tokens.shape[1]
+    x = plan.embed(p["tok_embed"], tokens, c.dtype)
+    pos = p["pos_embed"][position_offset:position_offset + l]
+    x = x + pos[None].to(c.dtype)
+    # One unbind per leaf: its backward stacks the per-layer gradients
+    # into one tensor, as lax.scan's does, where indexing a layer per
+    # block would add a zero-padded gradient of the whole stack per layer.
+    layers = {k: v.unbind(0) for k, v in p["blocks"].items()}
+    auxes = []
+    for layer in range(c.n_layers):
+        lp = {k: plan.layer(v[layer], k) for k, v in layers.items()}
+        if c.remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _block, x, lp, c, plan.tensor, use_reentrant=False)
+        else:
+            x, aux = _block(x, lp, c, plan.tensor)
+        if aux is not None:
+            auxes.append(aux)
+    x = _layernorm(x, plan.leaf(p["final_ln_scale"], "final_ln_scale"),
+                   plan.leaf(p["final_ln_bias"], "final_ln_bias"))
+    aux = torch.stack(auxes).sum() if auxes else torch.zeros(
+        (), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def forward_trunk(params: dict, tokens: torch.Tensor, config: GPTConfig,
@@ -273,67 +376,68 @@ def forward_trunk(params: dict, tokens: torch.Tensor, config: GPTConfig,
     """Transformer stack up to (excluding) the lm head.
     tokens [B, L] -> (x [B, L, D], moe_aux_loss f32 scalar summed over
     the layers, as the reference's `jnp.sum(auxes)`; 0 for a dense MLP).
+    Under a mesh, x is this rank's rows.
 
     position_offset shifts the learned position table: a suffix call at
     absolute position p reads pos_embed[p:p+l].  With `config.remat` each
     block is recomputed in the backward (non-reentrant checkpoint), so
     its flash forward runs twice per step."""
-    c = config
-    _check_single_device(c, mesh)
-    l = tokens.shape[1]
-    x = params["tok_embed"][tokens.long()].to(c.dtype)
-    pos = params["pos_embed"][position_offset:position_offset + l]
-    x = x + pos[None].to(c.dtype)
-    # One unbind per leaf: its backward stacks the per-layer gradients
-    # into one tensor, as lax.scan's does, where indexing a layer per
-    # block would add a zero-padded gradient of the whole stack per layer.
-    layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
-    auxes = []
-    for layer in range(c.n_layers):
-        p = {k: v[layer] for k, v in layers.items()}
-        if c.remat:
-            x, aux = torch.utils.checkpoint.checkpoint(
-                _block, x, p, c, use_reentrant=False)
-        else:
-            x, aux = _block(x, p, c)
-        if aux is not None:
-            auxes.append(aux)
-    x = _layernorm(x, params["final_ln_scale"], params["final_ln_bias"])
-    aux = torch.stack(auxes).sum() if auxes else torch.zeros(
-        (), dtype=torch.float32, device=x.device)
-    return x, aux
+    plan = _plan(config, mesh)
+    return _trunk(plan.local(params), plan.rows(tokens), config, plan,
+                  position_offset)
+
+
+def _head(p, config: GPTConfig, plan):
+    """The lm head [D, V] (under a mesh, this tensor rank's vocab
+    slice) in the activation dtype."""
+    if config.tie_embeddings:
+        return plan.leaf(p["tok_embed"], "tok_embed").T.to(config.dtype)
+    return plan.leaf(p["lm_head"], "lm_head").to(config.dtype)
 
 
 def forward(params: dict, tokens: torch.Tensor, config: GPTConfig,
             mesh=None, position_offset: int = 0):
-    """tokens [B, L] -> (logits [B, L, V], moe_aux_loss scalar)."""
-    x, aux = forward_trunk(params, tokens, config, mesh, position_offset)
-    return lm_head(params, x, config), aux
+    """tokens [B, L] -> (logits [B, L, V], moe_aux_loss scalar); under a
+    mesh, this rank's rows and vocab slice of the logits."""
+    plan = _plan(config, mesh)
+    p = plan.local(params)
+    x, aux = _trunk(p, plan.rows(tokens), config, plan, position_offset)
+    return x @ _head(p, config, plan), aux
 
 
 def loss_fn(params: dict, batch: dict, config: GPTConfig, mesh=None):
     """batch = {"tokens": [B, L], optional "loss_mask": [B, L]} ->
-    next-token cross-entropy (f32 scalar), single device.
+    next-token cross-entropy (f32 scalar).
 
     As in the reference, the model runs on the full length and the
     targets are the tokens rolled left by one; the last position, which
     would predict the rolled-around token 0, is always masked.  The loss
     is the fused chunked cross-entropy on the (tied) head, which never
     materialises [B, L, V], plus the reference's `0.01 * aux` (the MoE
-    load-balancing loss summed over layers; 0 for a dense MLP)."""
+    load-balancing loss summed over layers; 0 for a dense MLP).  Under a
+    mesh it is the vocab-parallel `fused_cross_entropy_spmd` on this
+    rank's rows and vocab slice, equal on every rank.  The reference
+    falls back to materialised logits where the mesh does not divide the
+    batch, the length or the vocab (`spmd_ce_applicable`); the port's
+    shards are even, so such a batch raises here
+    (`_functional.check_mesh_loss`)."""
     c = config
-    tokens = batch["tokens"]
+    _functional.check_mesh_loss(mesh, c.vocab_size, batch["tokens"].shape)
+    plan = _plan(c, mesh)
+    tokens = plan.rows(batch["tokens"])
     targets = torch.roll(tokens, -1, dims=1)
     valid = torch.ones(tokens.shape, dtype=torch.float32,
                        device=tokens.device)
     valid[:, -1] = 0.0
     mask = batch.get("loss_mask")
     if mask is not None:
-        valid = valid * mask
-    x, aux = forward_trunk(params, tokens, c, mesh)
+        valid = valid * plan.rows(mask)
+    p = plan.local(params)
+    x, aux = _trunk(p, tokens, c, plan)
+    head = _head(p, c, plan)
+    if plan is not _functional.ONE_DEVICE:
+        return fused_cross_entropy_spmd(x, head, targets, valid, mesh)
     b, l, d = x.shape
-    head = (params["tok_embed"].T if c.tie_embeddings
-            else params["lm_head"]).to(c.dtype)
     loss = fused_cross_entropy(x.reshape(b * l, d), head,
                                targets.reshape(-1), valid.reshape(-1))
     return loss + 0.01 * aux
@@ -342,12 +446,15 @@ def loss_fn(params: dict, batch: dict, config: GPTConfig, mesh=None):
 def make_train_step(config: GPTConfig, optimizer, mesh=None, *,
                     device: DeviceLike = None):
     """Returns (init_state, train_step), the shared functional-LM
-    contract (models/_functional.py), on `device` (None -> CUDA).  A mesh
-    with an axis above 1 raises: the multi-device slice is not ported."""
-    _check_single_device(config, mesh)
+    contract (models/_functional.py), on `device` (None -> CUDA).  Under
+    a mesh of data, fsdp and tensor the params and AdamW's moments are
+    DTensors placed by `param_specs`; seq, expert or stage above 1, or a
+    MoE config, raises."""
+    _plan(config, mesh)
     return _functional.make_train_step(config, optimizer,
                                        init_params=init_params,
-                                       loss_fn=loss_fn, device=device)
+                                       loss_fn=loss_fn, device=device,
+                                       mesh=mesh, param_specs=param_specs)
 
 
 def _block_cached(x, p, k_pool, v_pool, config: GPTConfig, block_tables,

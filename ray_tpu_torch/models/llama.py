@@ -17,9 +17,13 @@ and autograd sums the gradients back through it; the cached path keeps
 the kv heads un-repeated in the pool and the paged attention path (K4 at
 T=1) expands the groups itself.
 
-Every mesh with an axis above 1 (ring attention over a seq axis, the
-SPMD cross-entropy) waits for the multi-device slice and raises
-`NotImplementedError`.
+Under a mesh of data, fsdp and tensor the training forward runs on
+each rank's shards as gpt.py's does (models/_functional.py): the kv
+heads split over `tensor` like the query heads, so the GQA repeat runs
+on the rank's own kv heads (`n_kv_heads % tensor == 0`, else the
+placement raises), and the loss is the vocab-parallel
+`fused_cross_entropy_spmd` on the untied head.  A mesh with seq,
+expert or stage above 1 raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -37,7 +41,10 @@ from ray_tpu_torch.models import _functional
 from ray_tpu_torch.models._functional import _map
 from ray_tpu_torch.ops.attention import (flash_attention, paged_attention,
                                          paged_kv_update)
-from ray_tpu_torch.ops.cross_entropy import fused_cross_entropy
+from ray_tpu_torch.ops.cross_entropy import (fused_cross_entropy,
+                                             fused_cross_entropy_spmd)
+from ray_tpu_torch.parallel import collectives
+from ray_tpu_torch.parallel.sharding import tree_map, tree_shardings
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +89,27 @@ CONFIGS = {
 # Leaves that the forward only ever uses cast to the activation dtype.
 _MATMUL_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                 "tok_embed", "lm_head")
+
+
+def param_specs(config: LlamaConfig) -> dict:
+    """Logical sharding spec tree, congruent with init_params output."""
+    blocks = {
+        "attn_norm": ("layers", "embed"),
+        "wq": ("layers", "embed", "heads", "kv"),
+        "wk": ("layers", "embed", "kv_heads", "kv"),
+        "wv": ("layers", "embed", "kv_heads", "kv"),
+        "wo": ("layers", "heads", "kv", "embed"),
+        "mlp_norm": ("layers", "embed"),
+        "w_gate": ("layers", "embed", "mlp"),
+        "w_up": ("layers", "embed", "mlp"),
+        "w_down": ("layers", "mlp", "embed"),
+    }
+    return {
+        "tok_embed": ("vocab", None),
+        "blocks": blocks,
+        "final_norm": ("embed",),
+        "lm_head": ("embed", "vocab"),
+    }
 
 
 def param_shapes(config: LlamaConfig) -> dict:
@@ -142,6 +170,15 @@ def init_params(config: LlamaConfig,
         "lm_head": dense((d, c.vocab_size), d),
     }
     return _map(params, lambda t: t.to(device))
+
+
+def shard_params(params: dict, mesh, config: LlamaConfig, rules=None,
+                 device: DeviceLike = None) -> dict:
+    """This rank's shards of the global `params` as DTensors on
+    `device` (default: the mesh's card), placed by `param_specs` under
+    `rules`, as gpt.shard_params."""
+    return tree_map(lambda t, s: s.shard(t, device), params,
+                    tree_shardings(mesh, param_specs(config), rules))
 
 
 def num_params(config: LlamaConfig) -> int:
@@ -210,54 +247,75 @@ def _attn_out(x, attn, wo, dtype):
     return x + attn.reshape(b, l, h * k) @ wo.reshape(h * k, -1).to(dtype)
 
 
-def _mlp(x, p, config: LlamaConfig):
-    """x + SwiGLU(RMSNorm(x))."""
-    h = _rmsnorm(x, p["mlp_norm"], config.norm_eps)
+def _mlp(x, p, config: LlamaConfig, tp=None):
+    """x + SwiGLU(RMSNorm(x)); under tensor parallelism `p` holds this
+    rank's MLP columns and the output is summed over `tp`."""
+    h = collectives.all_reduce_grad(
+        _rmsnorm(x, p["mlp_norm"], config.norm_eps), tp)
     gate = F.silu(h @ p["w_gate"].to(h.dtype))
     up = h @ p["w_up"].to(h.dtype)
-    return x + (gate * up) @ p["w_down"].to(h.dtype)
+    return x + collectives.all_reduce_value(
+        (gate * up) @ p["w_down"].to(h.dtype), tp)
 
 
-def _block(x, p, config: LlamaConfig, position_offset=0):
+def _block(x, p, config: LlamaConfig, position_offset=0, tp=None):
     """One training block: x [B, L, D] -> x.  Attention is
     `flash_attention` (K1 forward, K2/K3 backward) with causal=True over
-    the repeated kv heads."""
+    the repeated kv heads.  Under tensor parallelism (`tp`) `p` holds
+    this rank's query and kv heads and MLP columns (gpt._block)."""
     c = config
-    h = _rmsnorm(x, p["attn_norm"], c.norm_eps)
+    h = collectives.all_reduce_grad(
+        _rmsnorm(x, p["attn_norm"], c.norm_eps), tp)
     q = _rope(_project(h, p["wq"]), c.rope_theta, position_offset)
     k = _rope(_project(h, p["wk"]), c.rope_theta, position_offset)
     v = _project(h, p["wv"])
     attn = flash_attention(q, _repeat_kv(k, c.q_per_kv),
                            _repeat_kv(v, c.q_per_kv), causal=True)
-    x = _attn_out(x, attn, p["wo"], h.dtype)
-    return _mlp(x, p, c)
+    b, l, nh, dh = attn.shape
+    x = x + collectives.all_reduce_value(
+        attn.reshape(b, l, nh * dh) @ p["wo"].reshape(nh * dh, -1).to(
+            h.dtype), tp)
+    return _mlp(x, p, c, tp)
+
+
+def _trunk(p, tokens, config: LlamaConfig, plan, position_offset=0):
+    """The stack on this rank's local params `p` and token rows."""
+    c = config
+    x = plan.embed(p["tok_embed"], tokens, c.dtype)
+    # Unbind each stacked leaf once: its backward stacks the layers'
+    # gradients into one tensor, as lax.scan's does.  Indexing a layer
+    # per block would instead add a zero-padded gradient of the whole
+    # stack per layer (a third of llama-1b's train step on the card).
+    layers = {k: v.unbind(0) for k, v in p["blocks"].items()}
+    for layer in range(c.n_layers):
+        lp = {k: plan.layer(v[layer], k) for k, v in layers.items()}
+        if c.remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _block, x, lp, c, position_offset, plan.tensor,
+                use_reentrant=False)
+        else:
+            x = _block(x, lp, c, position_offset, plan.tensor)
+    return _rmsnorm(x, plan.leaf(p["final_norm"], "final_norm"),
+                    c.norm_eps)
+
+
+def _plan(config: LlamaConfig, mesh):
+    return _functional.plan_for(mesh, param_specs(config))
 
 
 def forward_trunk(params: dict, tokens: torch.Tensor, config: LlamaConfig,
                   mesh=None, position_offset=0) -> torch.Tensor:
-    """tokens [B, L] -> hidden states [B, L, D] (pre-head, normed).
+    """tokens [B, L] -> hidden states [B, L, D] (pre-head, normed);
+    under a mesh, this rank's rows.
 
     position_offset rotates RoPE as if the tokens started at that
     absolute position (a scalar, or a per-lane [B] tensor).  With
     `config.remat` each block is recomputed in the backward
     (non-reentrant checkpoint), so its flash forward runs twice per
     step."""
-    c = config
-    _functional.check_single_device(mesh)
-    x = params["tok_embed"][tokens.long()].to(c.dtype)
-    # Unbind each stacked leaf once: its backward stacks the layers'
-    # gradients into one tensor, as lax.scan's does.  Indexing a layer
-    # per block would instead add a zero-padded gradient of the whole
-    # stack per layer (a third of llama-1b's train step on the card).
-    layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
-    for layer in range(c.n_layers):
-        p = {k: v[layer] for k, v in layers.items()}
-        if c.remat:
-            x = torch.utils.checkpoint.checkpoint(
-                _block, x, p, c, position_offset, use_reentrant=False)
-        else:
-            x = _block(x, p, c, position_offset)
-    return _rmsnorm(x, params["final_norm"], c.norm_eps)
+    plan = _plan(config, mesh)
+    return _trunk(plan.local(params), plan.rows(tokens), config, plan,
+                  position_offset)
 
 
 def lm_head(params: dict, x: torch.Tensor,
@@ -269,43 +327,55 @@ def lm_head(params: dict, x: torch.Tensor,
 
 def forward(params: dict, tokens: torch.Tensor, config: LlamaConfig,
             mesh=None, position_offset=0) -> torch.Tensor:
-    """tokens [B, L] -> logits [B, L, V]."""
-    x = forward_trunk(params, tokens, config, mesh, position_offset)
-    return lm_head(params, x, config)
+    """tokens [B, L] -> logits [B, L, V]; under a mesh, this rank's rows
+    and vocab slice."""
+    plan = _plan(config, mesh)
+    p = plan.local(params)
+    x = _trunk(p, plan.rows(tokens), config, plan, position_offset)
+    return x @ plan.leaf(p["lm_head"], "lm_head").to(config.dtype)
 
 
 def loss_fn(params: dict, batch: dict, config: LlamaConfig, mesh=None):
     """batch = {"tokens": [B, L], optional "loss_mask": [B, L]} ->
-    next-token cross-entropy (f32 scalar), single device: the model runs
-    on the full length, the targets are the tokens rolled left by one and
-    the last position is masked, as in gpt.loss_fn; the loss is the fused
+    next-token cross-entropy (f32 scalar): the model runs on the full
+    length, the targets are the tokens rolled left by one and the last
+    position is masked, as in gpt.loss_fn; the loss is the fused
     chunked cross-entropy on the head, which never materialises
-    [B, L, V]."""
+    [B, L, V] (under a mesh the vocab-parallel one, equal on every
+    rank)."""
     c = config
-    tokens = batch["tokens"]
+    _functional.check_mesh_loss(mesh, c.vocab_size, batch["tokens"].shape)
+    plan = _plan(c, mesh)
+    tokens = plan.rows(batch["tokens"])
     targets = torch.roll(tokens, -1, dims=1)
     valid = torch.ones(tokens.shape, dtype=torch.float32,
                        device=tokens.device)
     valid[:, -1] = 0.0
     mask = batch.get("loss_mask")
     if mask is not None:
-        valid = valid * mask
-    x = forward_trunk(params, tokens, c, mesh)
+        valid = valid * plan.rows(mask)
+    p = plan.local(params)
+    x = _trunk(p, tokens, c, plan)
+    head = plan.leaf(p["lm_head"], "lm_head").to(c.dtype)
+    if plan is not _functional.ONE_DEVICE:
+        return fused_cross_entropy_spmd(x, head, targets, valid, mesh)
     b, l, d = x.shape
-    return fused_cross_entropy(x.reshape(b * l, d),
-                               params["lm_head"].to(c.dtype),
+    return fused_cross_entropy(x.reshape(b * l, d), head,
                                targets.reshape(-1), valid.reshape(-1))
 
 
 def make_train_step(config: LlamaConfig, optimizer, mesh=None, *,
                     device: DeviceLike = None):
     """Returns (init_state, train_step), the shared functional-LM
-    contract (models/_functional.py), on `device` (None -> CUDA).  A mesh
-    with an axis above 1 raises: the multi-device slice is not ported."""
-    _functional.check_single_device(mesh)
+    contract (models/_functional.py), on `device` (None -> CUDA).  Under
+    a mesh of data, fsdp and tensor the params and AdamW's moments are
+    DTensors placed by `param_specs`; seq, expert or stage above 1
+    raises."""
+    _plan(config, mesh)
     return _functional.make_train_step(config, optimizer,
                                        init_params=init_params,
-                                       loss_fn=loss_fn, device=device)
+                                       loss_fn=loss_fn, device=device,
+                                       mesh=mesh, param_specs=param_specs)
 
 
 def _block_cached(x, p, k_pool, v_pool, config: LlamaConfig, block_tables,

@@ -161,8 +161,10 @@ def test_uncommitted_directory_never_restores(tmp_path):
 
 
 def test_restore_refuses_a_mesh_and_needs_a_card(tmp_path):
+    """A mesh restore takes a DeviceMesh (tests/test_torch_mesh.py
+    restores onto 8 ranks); anything else is refused."""
     path = ckpt.save_sharded(str(tmp_path / "c"), {"x": torch.ones(1)})
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ckpt.restore_sharded(path, device="cpu", mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -31,6 +31,10 @@ def test_port_and_chip_smoke_import_neither_jax_nor_the_reference():
     assert run.returncode == 0, run.stderr[-4000:]
     got = json.loads(run.stdout.strip().splitlines()[-1])
     for name in ("ray_tpu_torch.parallel.mesh",
+                 "ray_tpu_torch.parallel.sharding",
+                 "ray_tpu_torch.parallel.collectives",
+                 "ray_tpu_torch.parallel.launch",
+                 "ray_tpu_torch.parallel.rank_bodies",
                  "ray_tpu_torch.parallel.pipeline",
                  "ray_tpu_torch.train.pipeline_stage",
                  "ray_tpu_torch.train.pipeline_trainer"):
