@@ -29,9 +29,11 @@ run with a nonzero exit code and no result line:
            (B 24, L 1024, 12 heads of 64, causal; bf16 and f32), at the
            llama-1b train shape (B 4, L 2048, 32 heads of 64, causal,
            bf16), at D 128 and 256, non-causal with q_len != kv_len, at
-           a length that is no multiple of a tile, and at one rank's
+           a length that is no multiple of a tile, at one rank's
            shard of each mesh phase (B 2, L 1024, 6 heads; B 2, L 2048,
-           16 heads); then timed the same way, beside
+           16 heads) and at a block of the seq phases' ring (B 4, L 256,
+           12 heads; B 4, L 1024, 16 heads; causal and full); then timed
+           the same way, beside
            scaled_dot_product_attention's forward (K1) and backward (K2
            and K3 together).  Each case names the design K1-K3 ran (bf16
            at D 64/128: the tensor cores, with P and dS rounded to bf16,
@@ -247,6 +249,25 @@ run with a nonzero exit code and no result line:
            tensor=2): four ranks, each with 16 query heads over 2 kv
            heads, a global batch of 4 x 2048, 3 AdamW steps; the same
            checks (K1-K3 2 launches per step per rank).
+  train_mesh_seq  gpt2-small at full width and depth on MeshConfig(
+           seq=4): four ranks, each with a quarter of every row, a
+           global batch of 4 x 1024, 3 AdamW steps; attention is the
+           ring (ops/ring_attention.py: K1 per block held, K2 and K3 per
+           block in the backward).  The same checks, with K1-K3 held to
+           (r + 1) x 12 launches per step on seq rank r (the causal ring
+           skips later blocks).  First, in the same ranks, the ring on
+           bf16 inputs at the run's shape (4 x 1024, 12 heads) against
+           flash attention on the whole sequence on one card and
+           against the plain ring in f32 (RING_TOLERANCE); the rotations'
+           bytes and ms a step are printed apart.
+  train_mesh_seq_llama  llama-1b's widths at 2 layers on MeshConfig(
+           tensor=2, seq=2): four ranks, 16 query heads (the repeated
+           kv heads ride the ring) and half of every row each, 4 x 2048,
+           3 AdamW steps; the ring checked first at 4 x 2048, 32 heads.
+  train_mesh_moe  gpt2-small with 8 Switch experts on MeshConfig(
+           data=2, expert=2): four ranks, 4 experts each, the global
+           capacity and queue order, 8 x 1024, 3 AdamW steps; the same
+           checks (K1-K3 12 launches per step per rank).
 
 Each phase's wall seconds follow it on a line of their own.  Then, on
 lines of their own: the kernels' JSON record, the card's name and power
@@ -504,6 +525,19 @@ FLASH_CASES = {
                       dtype=torch.bfloat16),
     "mesh-llama-bf16": dict(b=2, lq=2048, lk=2048, h=16, d=64, causal=True,
                             dtype=torch.bfloat16),
+    # A block of the ring in the seq phases (ops/ring_attention.py):
+    # gpt2-small's 4 x 1024 over seq = 4, llama-1b's 4 x 2048 over seq =
+    # 2 with 32 (repeated) heads over tensor = 2.  The rank's own block
+    # is causal, the earlier ones full.  (train_mesh_moe's shard, 4 x
+    # 1024 with 12 heads, is pipeline-bf16's.)
+    "ring-bf16": dict(b=4, lq=256, lk=256, h=12, d=64, causal=True,
+                      dtype=torch.bfloat16),
+    "ring-full-bf16": dict(b=4, lq=256, lk=256, h=12, d=64, causal=False,
+                           dtype=torch.bfloat16),
+    "ring-llama-bf16": dict(b=4, lq=1024, lk=1024, h=16, d=64, causal=True,
+                            dtype=torch.bfloat16),
+    "ring-llama-full-bf16": dict(b=4, lq=1024, lk=1024, h=16, d=64,
+                                 causal=False, dtype=torch.bfloat16),
 }
 # Every length the draft forward can give K1 (window 64), checked at
 # the draft path's shape beside the two timed cases above.
@@ -713,7 +747,13 @@ def phase_flash(report: dict) -> None:
             llama_1b=dict(llama_train[kern]),
             pipeline=dict(results["pipeline-bf16"][kern]),
             train_mesh=dict(results["mesh-bf16"][kern]),
-            train_mesh_llama=dict(results["mesh-llama-bf16"][kern]))
+            train_mesh_llama=dict(results["mesh-llama-bf16"][kern]),
+            train_mesh_seq=dict(causal=results["ring-bf16"][kern],
+                                full=results["ring-full-bf16"][kern]),
+            train_mesh_seq_llama=dict(
+                causal=results["ring-llama-bf16"][kern],
+                full=results["ring-llama-full-bf16"][kern]),
+            train_mesh_moe=dict(results["pipeline-bf16"][kern]))
         if kern != "K1":
             report[fn]["library_note"] = (
                 "scaled_dot_product_attention backward: dq, dk and dv "
@@ -1241,16 +1281,18 @@ def _logits(model, config, wparams, tokens) -> torch.Tensor:
     attention through flash_forward_plain: the reference that near-ties
     and captured log-probs are held to must not run K1, the kernel that
     the draft path checks."""
+    from ray_tpu_torch.models import _functional
     from ray_tpu_torch.ops import attention as A
 
+    # The families attend through the plan (`OneDevice.attend`).
     x = torch.tensor([list(tokens)], dtype=torch.int64, device="cuda")
-    launches, kernel = A.flash_forward.launches, model.flash_attention
-    model.flash_attention = _plain_attention
+    launches, kernel = A.flash_forward.launches, _functional.flash_attention
+    _functional.flash_attention = _plain_attention
     try:
         with torch.no_grad():
             out = model.forward(wparams, x, config)
     finally:
-        model.flash_attention = kernel
+        _functional.flash_attention = kernel
     check(A.flash_forward.launches == launches,
           "the reference forward launched K1")
     return (out[0] if isinstance(out, tuple) else out)[0].float()
@@ -1986,11 +2028,11 @@ def _moe_probe(config):
         aux, dropped = [], []
         original = gpt._moe_mlp
 
-        def record(x, router, w_up, w_down, c):
+        def record(x, router, w_up, w_down, c, *plan):
             _, _, _, rank, cap = gpt._route(x.reshape(-1, x.shape[-1]),
                                             router, c)
             dropped.append(float((rank >= cap).float().mean()))
-            out, layer_aux = original(x, router, w_up, w_down, c)
+            out, layer_aux = original(x, router, w_up, w_down, c, *plan)
             aux.append(float(layer_aux))
             return out, layer_aux
 
@@ -4533,19 +4575,22 @@ MESH_UPDATE_TOL = 0.35
 
 
 def _mesh_run(family: str, config, sizes: dict, batches: list,
-              control=None) -> dict:
+              control=None, ring=None) -> dict:
     """`rank_bodies.train` on every rank of a `sizes` mesh (with
     `control`, a fault injected there), and the port's single-device
     train step on the card from the same weights (the family's init on
     seed 0) on the same global batches, its start and final params
-    handed to the ranks in a file.  Returns the readings; `_mesh_faults`
-    judges them."""
+    handed to the ranks in a file.  With `ring` (a global [B, L, H, D]),
+    the ranks first run `rank_bodies.ring` on bf16 inputs of that shape,
+    held by `_ring_check`.  Returns the readings; `_mesh_faults` judges
+    them."""
     import tempfile
 
     from ray_tpu_torch.models import gpt, llama
     from ray_tpu_torch.models._functional import adamw
     from ray_tpu_torch.parallel import rank_bodies
     from ray_tpu_torch.parallel.launch import run_ranks
+    from ray_tpu_torch.parallel.mesh import AXES
 
     model = {"gpt": gpt, "llama": llama}[family]
     world = math.prod(sizes.values())
@@ -4573,12 +4618,20 @@ def _mesh_run(family: str, config, sizes: dict, batches: list,
         reference = os.path.join(tmp, "single.pt")
         torch.save({"start": start, "final": final}, reference)
         del start, final
+        train = ("train", (family, config, sizes, None, batches, MESH_LR,
+                           "cuda", False, None, reference, control))
+        calls = [train]
+        if ring is not None:
+            calls.insert(0, ("ring", (sizes,) + _ring_inputs(ring)
+                             + (True, "cuda", "bfloat16")))
         t0 = time.perf_counter()
-        ranks = run_ranks(rank_bodies.train, world, args=(
-            family, config, sizes, None, batches, MESH_LR, "cuda", False,
-            None, reference, control), device="cuda",
-            init_dir=os.path.join(tmp, "init"), timeout_s=MESH_TIMEOUT_S)
+        ranks = run_ranks(rank_bodies.sequence, world, args=(calls,),
+                          device="cuda", init_dir=os.path.join(tmp, "init"),
+                          timeout_s=MESH_TIMEOUT_S)
         wall_s = time.perf_counter() - t0
+    ring_check = None if ring is None else _ring_check(
+        ring, [r[0] for r in ranks])
+    ranks = [r[-1] for r in ranks]
     loss_diff = max(abs(a - b) for r in ranks
                     for a, b in zip(r["losses"] + [r["final_loss"]], single))
     update_err, update_leaf = max(
@@ -4604,6 +4657,9 @@ def _mesh_run(family: str, config, sizes: dict, batches: list,
         collectives_rank0=ranks[0]["collectives"],
         peak_memory_gib_by_rank=[r["peak_memory_gib"] for r in ranks],
         launches_by_rank=[r["launches"] for r in ranks],
+        seq_rank_by_rank=[r["coordinate"][AXES.index("seq")]
+                          for r in ranks],
+        ring_check=ring_check,
         ranks_wall_s=wall_s,
         note=("ranks share card 0 over gloo: every collective passes "
               "through host memory" if ranks[0]["backend"] == "gloo" else
@@ -4623,13 +4679,84 @@ def _mesh_faults(out: dict, n_layers: int) -> list:
                       f"{out['max_update_rel_err']} of one device's")
     if not out["constraint_round_trip"]:
         faults.append("with_logical_constraint's round trip differs")
-    want = out["steps"] * n_layers
-    for rank, launches in enumerate(out["launches_by_rank"]):
+    # Under the causal ring seq rank r attends r + 1 blocks of every
+    # layer: K1, K2 and K3 once each per block (r = 0 off a seq axis).
+    for rank, (launches, r) in enumerate(zip(out["launches_by_rank"],
+                                             out["seq_rank_by_rank"])):
+        want = out["steps"] * n_layers * (r + 1)
         for name, n in launches.items():
             if n != want:
-                faults.append(f"rank {rank}: {name} launched {n} times, "
-                              f"want {want}")
+                faults.append(f"rank {rank} (seq rank {r}): {name} "
+                              f"launched {n} times, want {want}")
+    for what, used in ((out["ring_check"] or {}).get("used") or {}).items():
+        if not used <= 1.0:
+            faults.append(f"ring {what}: {used} of its tolerance")
     return faults
+
+
+# The ring on the card (bf16, K1-K3 per block, partial outputs merged in
+# f32) against flash attention (K1-K3) on the whole sequence on one
+# device, and against the plain ring (the reference's block functions
+# in f32 on the same bf16 values: the exact function), in units of
+# `tensor_core_limit` of the plain ring's value, for out, dq, dk and dv:
+# - against flash, within 3: one limit for each side's tensor-core
+#   rounding, one for the ring's merge of partials that K1 (or K2, K3)
+#   rounded to bf16 once each;
+# - against the plain ring, no further than flash on one device is, plus
+#   2 (the tensor cores and the merge).  Flash's own distance from the
+#   exact gradients is not bounded by the limit: K2 and K3 take delta =
+#   rowsum(dO * O) from O rounded to bf16 (the reference's residual),
+#   which moves dq rows whose terms cancel (the CPU rehearsal at head
+#   dim 64, with the kernels' plain versions, read up to 8 limits), and
+#   the ring takes delta alike.
+RING_TOLERANCE = {"plain": 2.0, "flash": 3.0}
+
+
+def _ring_inputs(shape) -> tuple:
+    import numpy as np
+
+    rng = np.random.default_rng(15)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for _ in range(4))
+
+
+def _ring_check(shape, results: list) -> dict:
+    """Each rank's kernel ring (`results`, `rank_bodies.ring`'s) against
+    its plain ring and against flash attention on the gathered
+    sequence: the largest abs error and share of the limit used, per
+    output."""
+    from ray_tpu_torch.ops import attention as A
+
+    q, k, v, dout = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+                     for a in _ring_inputs(shape))
+    qkv = [t.requires_grad_() for t in (q, k, v)]
+    o = A.flash_attention(*qkv, causal=True)
+    whole = [t.float().cpu() for t in
+             [o.detach()] + list(torch.autograd.grad(o, qkv, dout))]
+    del q, k, v, dout, qkv, o
+    torch.cuda.empty_cache()
+    err: dict = {}
+    used: dict = {}
+    for r in results:
+        index = tuple(slice(a, b) for a, b in r["index"])
+        for i, what in enumerate(("O", "dq", "dk", "dv")):
+            got = torch.from_numpy(r["kernel"][i])
+            plain = torch.from_numpy(r["plain"][i])
+            limit = A.tensor_core_limit(plain, what)
+            flash = whole[i][index]
+            for against, diff, over in (
+                    ("flash", (got - flash).abs(), 0.0),
+                    ("plain", (got - plain).abs(),
+                     (flash - plain).abs())):
+                key = f"{what} vs {against}"
+                err[key] = max(err.get(key, 0.0), float(diff.max()))
+                used[key] = max(used.get(key, 0.0), _share(
+                    (diff - over).clamp_min(0.0),
+                    RING_TOLERANCE[against] * limit))
+    return dict(shape=list(shape), tolerance=dict(
+        times_tensor_core_limit_of_the_plain_ring=RING_TOLERANCE,
+        against_plain="beyond flash's own distance from it"),
+        max_abs_err=err, used=used)
 
 
 def _mesh_batches(vocab: int, batch: int, seq: int, steps: int) -> list:
@@ -4656,8 +4783,40 @@ def _llama_mesh_run():
             _mesh_batches(config.vocab_size, 4, 2048, 3))
 
 
+def _gpt_seq_run():
+    from ray_tpu_torch.models import gpt
+
+    config = gpt.CONFIGS["gpt2-small"]
+    return (config, dict(seq=4), _mesh_batches(config.vocab_size, 4, 1024,
+                                               3))
+
+
+def _llama_seq_run():
+    from ray_tpu_torch.models import llama
+
+    config = dataclasses.replace(llama.CONFIGS["llama-1b"], n_layers=2)
+    return (config, dict(tensor=2, seq=2),
+            _mesh_batches(config.vocab_size, 4, 2048, 3))
+
+
+def _moe_mesh_run():
+    from ray_tpu_torch.models import gpt
+
+    config = dataclasses.replace(gpt.CONFIGS["gpt2-small"],
+                                 n_experts=MOE_EXPERTS)
+    return (config, dict(data=2, expert=2),
+            _mesh_batches(config.vocab_size, 8, 1024, 3))
+
+
 # (config, mesh sizes, global batches) of each mesh phase.
-MESH_RUNS = {"gpt": _gpt_mesh_run, "llama": _llama_mesh_run}
+MESH_RUNS = {"gpt": _gpt_mesh_run, "llama": _llama_mesh_run,
+             "gpt_seq": _gpt_seq_run, "llama_seq": _llama_seq_run,
+             "moe": _moe_mesh_run}
+
+
+# Which outputs of the ring check each kernel's entry carries.
+_RING_OUTPUTS = {"flash_forward": ("O",), "flash_dq": ("dq",),
+                 "flash_dkv": ("dk", "dv")}
 
 
 def _mesh_report(report: dict, key: str, out: dict) -> None:
@@ -4666,6 +4825,13 @@ def _mesh_report(report: dict, key: str, out: dict) -> None:
         entry.update(launches_by_rank=[r[name]
                                        for r in out["launches_by_rank"]],
                      steps=out["steps"])
+        ring = out["ring_check"]
+        if ring is not None:
+            entry["ring_check"] = {
+                k: dict(max_abs_err=ring["max_abs_err"][k],
+                        tolerance_used=ring["used"][k])
+                for k in ring["used"]
+                if k.split(" ")[0] in _RING_OUTPUTS[name]}
 
 
 def phase_train_mesh(report: dict) -> None:
@@ -4690,6 +4856,50 @@ def phase_train_mesh_llama(report: dict) -> None:
     emit("train_mesh_llama", config="llama-1b widths, 2 layers", **out)
     for fault in _mesh_faults(out, config.n_layers):
         check(False, f"train_mesh_llama: {fault}")
+
+
+def phase_train_mesh_seq(report: dict) -> None:
+    """gpt2-small at full width and depth (bf16, fp32 params) on
+    MeshConfig(seq=4): four ranks, each with a quarter of every row's
+    1024 positions, a global batch of 4 x 1024, 3 AdamW steps; attention
+    is the ring (K1-K3 per block), checked first at the run's own block
+    shape."""
+    config, sizes, batches = MESH_RUNS["gpt_seq"]()
+    out = _mesh_run("gpt", config, sizes, batches,
+                    ring=(4, 1024, config.n_heads, config.head_dim))
+    _mesh_report(report, "train_mesh_seq", out)
+    emit("train_mesh_seq", config="gpt2-small", **out)
+    for fault in _mesh_faults(out, config.n_layers):
+        check(False, f"train_mesh_seq: {fault}")
+
+
+def phase_train_mesh_seq_llama(report: dict) -> None:
+    """llama-1b's widths at 2 layers (bf16, fp32 params) on
+    MeshConfig(tensor=2, seq=2): four ranks, each with 16 query heads
+    over 2 kv heads and half of every row's 2048 positions, a global
+    batch of 4 x 2048, 3 AdamW steps; the ring carries the repeated kv
+    heads, as the reference's does."""
+    config, sizes, batches = MESH_RUNS["llama_seq"]()
+    out = _mesh_run("llama", config, sizes, batches,
+                    ring=(4, 2048, config.n_heads, config.head_dim))
+    _mesh_report(report, "train_mesh_seq_llama", out)
+    emit("train_mesh_seq_llama", config="llama-1b widths, 2 layers", **out)
+    for fault in _mesh_faults(out, config.n_layers):
+        check(False, f"train_mesh_seq_llama: {fault}")
+
+
+def phase_train_mesh_moe(report: dict) -> None:
+    """gpt2-small with train_moe's 8 Switch experts per layer (bf16,
+    fp32 params) on MeshConfig(data=2, expert=2): four ranks, each with
+    4 experts, routing its rows against all 8 with the global capacity
+    and queue order, a global batch of 8 x 1024, 3 AdamW steps."""
+    config, sizes, batches = MESH_RUNS["moe"]()
+    out = _mesh_run("gpt", config, sizes, batches)
+    _mesh_report(report, "train_mesh_moe", out)
+    emit("train_mesh_moe", config=f"gpt2-small, {config.n_experts} experts",
+         **out)
+    for fault in _mesh_faults(out, config.n_layers):
+        check(False, f"train_mesh_moe: {fault}")
 
 
 def main() -> int:
@@ -4742,7 +4952,10 @@ def main() -> int:
               ("pipeline", phase_pipeline),
               ("pipeline_parity", lambda _: phase_pipeline_parity()),
               ("train_mesh", phase_train_mesh),
-              ("train_mesh_llama", phase_train_mesh_llama))
+              ("train_mesh_llama", phase_train_mesh_llama),
+              ("train_mesh_seq", phase_train_mesh_seq),
+              ("train_mesh_seq_llama", phase_train_mesh_seq_llama),
+              ("train_mesh_moe", phase_train_mesh_moe))
     wanted = sys.argv[1:]
     unknown = set(wanted) - {name for name, _ in phases}
     if unknown:

@@ -9,33 +9,41 @@ step is a pure function; here the parameters and the optimizer's
 moments are updated in place (the returned state holds the same
 tensors), which saves a second copy of both.
 
-Under a mesh of data, fsdp and tensor (`make_train_step(mesh=...)`) the
-params are DTensors placed by `tree_shardings(mesh, param_specs)`, and
-AdamW's moments, made like them, take the same placements.  Each rank
-computes on its local shards, and `MeshPlan` puts in the collectives
-that GSPMD puts into the reference's program: a parameter sharded over
-fsdp is gathered where it is used (its gradient reduce-scattered in the
-backward), the tensor-parallel products sum their partial outputs over
-`tensor`, the embedding looks tokens up in the rank's vocab slice, and
-after the backward each gradient is summed over the row axes that its
-parameter is not sharded over.  `OneDevice` is the same interface with
-no collective, so the families' forward is one code path.
+Under a mesh of data, fsdp, expert, seq and tensor
+(`make_train_step(mesh=...)`) the params are DTensors placed by
+`tree_shardings(mesh, param_specs)`, and AdamW's moments, made like
+them, take the same placements.  Each rank computes on its local
+shards, and `MeshPlan` puts in the collectives that GSPMD puts into the
+reference's program: a parameter sharded over fsdp is gathered where
+it is used (its gradient reduce-scattered in the backward), the
+tensor-parallel products sum their partial outputs over `tensor`, the
+embedding looks tokens up in the rank's vocab slice, attention over a
+seq axis is `ring_attention` at the rank's absolute positions, the
+Switch MoE computes the rank's experts' slots and sums them over
+`expert` and `tensor`, and after the backward each gradient is summed
+over the row axes that its parameter is not sharded over.  The rows of
+a batch split over (data, fsdp) and their length over seq.
+`OneDevice` is the same interface with no collective, so the families'
+forward is one code path.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Union
 
 import torch
 
 from ray_tpu_torch._device import MULTI_DEVICE, DeviceLike, resolve_device
+from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.cross_entropy import ROW_AXES, spmd_ce_applicable
+from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.parallel.mesh import axis_sizes
 from ray_tpu_torch.parallel.sharding import (
-    _entry_axes, _is_spec, local_shard, logical_to_spec, mesh_device,
-    redistribute, spec_axes, tree_map, tree_shardings)
+    _batch_logical, _entry_axes, _is_spec, local_shard, logical_to_spec,
+    mesh_device, redistribute, spec_axes, tree_map, tree_shardings)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,8 +161,6 @@ def check_single_device(mesh) -> None:
 # The mesh axes the LM families still refuse above 1, and what each
 # waits for.
 WAITING_AXES = {
-    "seq": "ring attention over the seq axis (ops/ring_attention.py)",
-    "expert": "expert parallelism (GPT's MoE over the expert axis)",
     "stage": "pipeline_apply over the stage axis",
 }
 
@@ -182,8 +188,8 @@ def check_mesh_loss(mesh, vocab: int, shape) -> None:
 
 
 def check_mesh(mesh) -> None:
-    """The LM families run a mesh of data, fsdp and tensor; `seq`,
-    `expert` or `stage` above 1 raises, naming what it waits for."""
+    """The LM families run a mesh of data, fsdp, expert, seq and tensor;
+    `stage` above 1 raises, naming what it waits for."""
     if mesh is None:
         return
     sizes = axis_sizes(mesh)
@@ -198,6 +204,7 @@ class OneDevice:
     """The forward's plan on one device: no collective, whole params."""
 
     tensor = None
+    moe = None            # the group the MoE's partial outputs sum over
 
     def local(self, params: dict) -> dict:
         return params
@@ -214,6 +221,44 @@ class OneDevice:
     def embed(self, table, tokens, dtype):
         return table[tokens.long()].to(dtype)
 
+    def position_offset(self, length: int) -> int:
+        """The absolute position of the rank's first token in a row."""
+        return 0
+
+    def attend(self, q, k, v):
+        """Causal attention over the rows' whole length: K1-K3."""
+        return flash_attention(q, k, v, causal=True)
+
+    def targets(self, tokens):
+        """(targets, valid) of next-token prediction on the rows
+        `tokens` [b, l]: the tokens rolled left by one in each global
+        row, the last position of a row masked (it would predict the
+        row's rolled-around first token), as the reference's loss."""
+        valid = torch.ones(tokens.shape, dtype=torch.float32,
+                           device=tokens.device)
+        valid[:, -1] = 0.0
+        return torch.roll(tokens, -1, dims=1), valid
+
+    def experts(self, router):
+        """The router [D, E] over every expert."""
+        return router
+
+    def first_expert(self, n_local: int) -> int:
+        """The index of the first of the rank's `n_local` experts."""
+        return 0
+
+    def global_rows(self, x):
+        """The global [B, L] of a per-token int tensor on the rows."""
+        return x
+
+    def local_rows(self, x):
+        """The rank's [b, l] of a global [B, L] tensor."""
+        return x
+
+    def row_mean(self, x):
+        """The mean over the global tokens of x [T_local, ...]."""
+        return x.mean(0)
+
     def place(self, params: dict, device) -> dict:
         return _map(params, lambda t: t.detach().to(
             device=device, dtype=torch.float32, copy=True).requires_grad_())
@@ -223,6 +268,31 @@ class OneDevice:
 
 
 ONE_DEVICE = OneDevice()
+
+
+class _LocalShard(torch.autograd.Function):
+    """`t.to_local()` whose gradient is a DTensor laid out as `t`, its
+    global stride given.  torch's `to_local` computes the gradient's
+    global stride from the local gradient's strides, and a local dim of
+    size one (llama-tiny's kv heads over tensor = 2) makes that pick
+    another order of dims than the parameter's; AccumulateGrad then
+    copies the gradient into the parameter's layout, a DTensor `copy_`
+    whose sharding propagation over the six mesh axes takes over a
+    minute on its first call."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.layout = (t.device_mesh, t.placements, t.shape, t.stride())
+        return t.to_local().view_as(t.to_local())
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+
+        mesh, placements, shape, stride = ctx.layout
+        return DTensor.from_local(g.contiguous(), mesh, placements,
+                                  run_check=False, shape=shape,
+                                  stride=stride)
 
 
 class MeshPlan(OneDevice):
@@ -239,21 +309,89 @@ class MeshPlan(OneDevice):
         self.shardings = tree_shardings(mesh, logical_specs)
         self.tensor = collectives.axis_group(mesh, ("tensor",))
         self.fsdp = collectives.axis_group(mesh, ("fsdp",))
-        # The groups `sync_grads` sums over, made here by every rank.
-        for axes in (("data",), ROW_AXES):
+        self.seq = collectives.axis_group(mesh, ("seq",))
+        self.expert = collectives.axis_group(mesh, ("expert",))
+        self.moe = collectives.axis_group(mesh, ("expert", "tensor"))
+        self.row_group = collectives.axis_group(mesh, ROW_AXES)
+        # The groups `sync_grads` sums over, made here by every rank in
+        # the same (sorted) order.
+        for axes in sorted({self.grad_sum_axes(s)
+                            for s in _leaves(self.specs)}):
             collectives.axis_group(mesh, axes)
         self.coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
         self.sizes = axis_sizes(mesh)
         self.device = mesh_device(mesh)
 
     def local(self, params: dict) -> dict:
-        return _map(params, lambda t: t.to_local())
+        return _map(params, _LocalShard.apply)
 
     def rows(self, x):
-        """This rank's rows of a batch leaf: a DTensor's local tensor, or
-        the rows of a plain (global) tensor, on the mesh's device."""
+        """This rank's rows of a batch leaf (its batch rows over (data,
+        fsdp) and, for a [B, L, ...] leaf, its length slice over seq): a
+        DTensor's local tensor, or the slice of a plain (global) tensor,
+        on the mesh's device."""
         return local_shard(x, self.mesh, logical_to_spec(
-            ("batch",), mesh=self.mesh)).to(self.device)
+            _batch_logical(x), mesh=self.mesh)).to(self.device)
+
+    def position_offset(self, length: int) -> int:
+        return self.coord["seq"] * length
+
+    def attend(self, q, k, v):
+        """`ring_attention` over seq (`flash_attention` when seq is 1)."""
+        return ring_attention(q, k, v, mesh=self.mesh, causal=True)
+
+    def targets(self, tokens):
+        """Under seq a row's last local position predicts the first token
+        of the next seq rank's slice; only the last seq rank masks its
+        last position."""
+        if self.seq is None:
+            return super().targets(tokens)
+        nxt = collectives.rotate([tokens[:, :1].contiguous()], self.seq,
+                                 -1)[0]
+        targets = torch.cat([tokens[:, 1:], nxt], dim=1)
+        valid = torch.ones(tokens.shape, dtype=torch.float32,
+                           device=tokens.device)
+        if self.coord["seq"] == self.sizes["seq"] - 1:
+            valid[:, -1] = 0.0
+        return targets, valid
+
+    def experts(self, router):
+        """The rank's router columns ("experts" over expert) gathered
+        into every expert's; every rank of the expert group routes the
+        same tokens, so the gradient of its columns is its slice."""
+        return collectives.gather_replicated(router, self.expert, 1)
+
+    def first_expert(self, n_local: int) -> int:
+        return self.coord["expert"] * n_local
+
+    def _row_layout(self):
+        sizes = [self.sizes[a] for a in ROW_AXES]
+        return sizes[0] * sizes[1], sizes[2]
+
+    def global_rows(self, x):
+        """The row group's [b, l] pieces gathered (ranks in (data, fsdp,
+        seq) order) and laid out as the global [B, L]."""
+        if self.row_group is None:
+            return x
+        n_batch, n_seq = self._row_layout()
+        b, l = x.shape
+        parts = collectives.all_gather(x.contiguous(), self.row_group, 0)
+        return parts.view(n_batch, n_seq, b, l).transpose(1, 2).reshape(
+            n_batch * b, n_seq * l)
+
+    def local_rows(self, x):
+        n_batch, n_seq = self._row_layout()
+        b, l = x.shape[0] // n_batch, x.shape[1] // n_seq
+        i = self.coord["data"] * self.sizes["fsdp"] + self.coord["fsdp"]
+        s = self.coord["seq"]
+        return x[i * b:(i + 1) * b, s * l:(s + 1) * l]
+
+    def row_mean(self, x):
+        """Summed over the row group; the gradient of each rank's term
+        is its own tokens' share."""
+        total = collectives.all_reduce_value(x.sum(0), self.row_group)
+        n = x.shape[0] * math.prod(self.sizes[a] for a in ROW_AXES)
+        return total / n
 
     def _gather(self, t, spec: tuple):
         """`t` gathered over fsdp on the dim that fsdp shards (fsdp must
@@ -280,7 +418,8 @@ class MeshPlan(OneDevice):
         group's rows; the partial rows are summed over fsdp back onto
         each rank's rows and over tensor.  Every output row has one
         non-zero term, so the sums are exact."""
-        axes = _entry_axes(self.specs["tok_embed"][0])
+        spec = self.specs["tok_embed"]
+        axes = _entry_axes(spec[0]) if spec else ()
         index = 0
         for a in axes:
             index = index * self.sizes[a] + self.coord[a]
@@ -315,6 +454,12 @@ class MeshPlan(OneDevice):
             return t.requires_grad_()
         return tree_map(put, params, self.shardings)
 
+    def grad_sum_axes(self, spec: tuple) -> tuple:
+        """The row axes (data, fsdp, seq) that the gradient of a
+        parameter laid out by `spec` is summed over after the backward:
+        those it is not sharded over."""
+        return tuple(a for a in ROW_AXES if a not in spec_axes(spec))
+
     def sync_grads(self, params: dict) -> None:
         """Sum each gradient over the row axes its parameter is not
         sharded over (fsdp-sharded ones were reduce-scattered over fsdp
@@ -322,7 +467,7 @@ class MeshPlan(OneDevice):
         buckets: dict = {}
 
         def bucket(p, spec):
-            axes = tuple(a for a in ROW_AXES if a not in spec_axes(spec))
+            axes = self.grad_sum_axes(spec)
             group = collectives.axis_group(self.mesh, axes)
             if group is not None:
                 buckets.setdefault(axes, (group, []))[1].append(p.grad)

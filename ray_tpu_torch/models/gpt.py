@@ -12,19 +12,23 @@ gradients.  A Python loop over the stacked layers takes the place of
 
 Ported: the config table, `param_specs`, `init_params`,
 `shard_params`, `num_params`, `_layernorm`, the Switch MoE MLP
-(`_moe_mlp`, single device), `_block`, `forward_trunk`, `forward`,
-`loss_fn`, `make_train_step`, `_block_cached`, `forward_cached` and
-`lm_head`.
+(`_moe_mlp`), `_block`, `forward_trunk`, `forward`, `loss_fn`,
+`make_train_step`, `_block_cached`, `forward_cached` and `lm_head`.
 
-Under a mesh of data, fsdp and tensor (models/_functional.py) the
-training forward runs on each rank's shards: its rows of the batch,
-its heads and MLP columns of each block (Megatron's column- then
-row-parallel products, the partial outputs summed over `tensor`), each
-layer's weights gathered over fsdp where used; flash attention (K1-K3)
-runs unchanged on the local [B / (data x fsdp), L, H / tensor, D]
-shard, and the loss is the vocab-parallel `fused_cross_entropy_spmd`.
-A mesh with seq, expert or stage above 1, or a MoE config under a
-mesh, raises `NotImplementedError`.
+Under a mesh of data, fsdp, expert, seq and tensor
+(models/_functional.py) the training forward runs on each rank's
+shards: its rows of the batch and their length slice, its heads and
+MLP columns of each block (Megatron's column- then row-parallel
+products, the partial outputs summed over `tensor`), each layer's
+weights gathered over fsdp where used.  Attention is flash attention
+(K1-K3) on the local [B / (data x fsdp), L / seq, H / tensor, D]
+shard, through `ring_attention` when seq is above 1, with the position
+table read at the rank's absolute offset.  The Switch MoE keeps the
+reference's global semantics (capacity, queue order and aux over the
+global batch) and computes only the rank's experts' slots, their
+partial outputs summed over `expert` and `tensor`.  The loss is the
+vocab-parallel `fused_cross_entropy_spmd`.  A mesh with stage above 1
+raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -40,8 +44,7 @@ import torch.utils.checkpoint
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models import _functional
 from ray_tpu_torch.models._functional import _map
-from ray_tpu_torch.ops.attention import (flash_attention, paged_attention,
-                                         paged_kv_update)
+from ray_tpu_torch.ops.attention import paged_attention, paged_kv_update
 from ray_tpu_torch.ops.cross_entropy import (fused_cross_entropy,
                                              fused_cross_entropy_spmd)
 from ray_tpu_torch.parallel import collectives
@@ -244,31 +247,38 @@ def lm_head(params: dict, x: torch.Tensor, config: GPTConfig) -> torch.Tensor:
     return x @ head
 
 
-def _route(x, router, config: GPTConfig):
+def _route(x, router, config: GPTConfig, plan=_functional.ONE_DEVICE,
+           rows=None):
     """Switch top-1 routing of x [T, D] over `config.n_experts` experts,
     as the reference's `_moe_mlp` routes: f32 logits and softmax, gate =
     the largest probability, expert = its first index, each token's rank
-    in its expert's queue in token order.  Returns (probs [T, E] f32,
-    gate [T] f32, expert [T], rank [T], cap); a token is kept iff
-    rank < cap."""
-    t = x.shape[0]
+    in its expert's queue in global token order (b * L + l).  Returns
+    (probs [T, E] f32, gate [T] f32, expert [T], rank [T], cap); a token
+    is kept iff rank < cap.
+
+    Under a mesh (`plan`, the tokens the rank's `rows` (b, l) of the
+    batch) the capacity counts the global tokens, and the queue order is
+    the global one: the expert ids are gathered over the row axes (one
+    int per token), ranked, and the rank's slice taken back."""
     e = config.n_experts
-    cap = int(math.ceil(t / e * config.capacity_factor))
     probs = torch.softmax(x.float() @ router.float(), dim=-1)
     # amax splits the gradient evenly among tied maxima, as jnp.max does.
     gate = probs.amax(-1)
     expert = probs.argmax(-1)
+    ids = plan.global_rows(expert.view(rows or (1, -1)))
+    cap = int(math.ceil(ids.numel() / e * config.capacity_factor))
     # The queue positions, scanned along tokens as the inner dim.
-    onehot = F.one_hot(expert, e).T.contiguous()            # [E, T]
-    rank = (onehot.cumsum(1) * onehot).sum(0) - 1
-    return probs, gate, expert, rank, cap
+    onehot = F.one_hot(ids.reshape(-1), e).T.contiguous()   # [E, T]
+    rank = ((onehot.cumsum(1) * onehot).sum(0) - 1).view(ids.shape)
+    return probs, gate, expert, plan.local_rows(rank).reshape(-1), cap
 
 
-def _moe_mlp(x, router, w_up, w_down, config: GPTConfig):
-    """Switch-style top-1 MoE on one device: x [B, L, D] -> (out
-    [B, L, D], aux f32 scalar), the function of the reference's
-    `_moe_mlp` (ray_tpu/models/gpt.py), dispatched by index instead of
-    by its dense one-hot einsums.
+def _moe_mlp(x, router, w_up, w_down, config: GPTConfig,
+             plan=_functional.ONE_DEVICE):
+    """Switch-style top-1 MoE: x [B, L, D] -> (out [B, L, D], aux f32
+    scalar), the function of the reference's `_moe_mlp`
+    (ray_tpu/models/gpt.py), dispatched by index instead of by its
+    dense one-hot einsums.
 
     Token t goes to slot expert * cap + rank if kept, else to a spare
     slot of its own (E * cap + t), whose row is dropped: the slots are
@@ -276,56 +286,67 @@ def _moe_mlp(x, router, w_up, w_down, config: GPTConfig):
     `index_select`, and the backward of each is a gather or a one-add-
     per-row scatter (deterministic, with no run of equal indices to
     serialise).  Every sum in the dense form has one non-zero term, so
-    the values are the reference's."""
+    the values are the reference's.
+
+    Under a mesh `w_up` / `w_down` hold the rank's experts (over
+    `expert`) and their hidden columns (over `tensor`); x is the rank's
+    rows, the same on every rank of the (expert, tensor) group.  Each
+    rank routes its tokens against every expert (`plan.experts`), puts
+    into slots only the tokens of its own experts, and the partial
+    outputs are summed over the group (Megatron's f and g around the
+    experts; the router and the gate, computed alike on every rank of
+    the group, stay outside them).  The aux takes its means over the
+    global tokens."""
     b, l, d = x.shape
     t, e = b * l, config.n_experts
     xt = x.reshape(t, d)
-    probs, gate, expert, rank, cap = _route(xt, router, config)
+    probs, gate, expert, rank, cap = _route(xt, plan.experts(router),
+                                            config, plan, (b, l))
+    n_local = w_up.shape[0]
+    local = expert - plan.first_expert(n_local)
     arange = torch.arange(t, device=x.device)
-    slot = torch.where(rank < cap, expert * cap + rank, e * cap + arange)
-    ex_in = xt.new_zeros(e * cap + t, d).index_copy(0, slot, xt)
-    hidden = F.gelu(torch.bmm(ex_in[:e * cap].view(e, cap, d),
+    slot = torch.where((rank < cap) & (local >= 0) & (local < n_local),
+                       local * cap + rank, n_local * cap + arange)
+    x_in = collectives.all_reduce_grad(xt, plan.moe)
+    ex_in = x_in.new_zeros(n_local * cap + t, d).index_copy(0, slot, x_in)
+    hidden = F.gelu(torch.bmm(ex_in[:n_local * cap].view(n_local, cap, d),
                               w_up.to(x.dtype)), approximate="tanh")
-    ex_out = torch.bmm(hidden, w_down.to(x.dtype)).view(e * cap, d)
+    ex_out = torch.bmm(hidden, w_down.to(x.dtype)).view(n_local * cap, d)
+    picked = torch.cat([ex_out, ex_out.new_zeros(t, d)]).index_select(
+        0, slot)
     # The reference rounds gate to the activation dtype before combining.
-    out = torch.cat([ex_out, ex_out.new_zeros(t, d)]).index_select(
-        0, slot) * gate.to(x.dtype)[:, None]
+    out = collectives.all_reduce_value(picked, plan.moe) * \
+        gate.to(x.dtype)[:, None]
     # Load-balancing aux loss (Switch eq. 4): mean assignment * mean prob.
-    density = F.one_hot(expert, e).float().mean(0)
-    aux = e * torch.sum(density * probs.mean(0))
+    density = plan.row_mean(F.one_hot(expert, e).float())
+    aux = e * torch.sum(density * plan.row_mean(probs))
     return out.view(b, l, d), aux
 
 
 def _plan(config: GPTConfig, mesh):
-    """The forward's plan (`_functional.plan_for`): a mesh runs dense
-    configs of data, fsdp and tensor only."""
-    if config.n_experts and _functional.multi_device(mesh):
-        raise NotImplementedError(
-            f"a MoE config under a mesh waits for "
-            f"{_functional.WAITING_AXES['expert']} in "
-            f"{_functional.MULTI_DEVICE}")
+    """The forward's plan (`_functional.plan_for`)."""
     return _functional.plan_for(mesh, param_specs(config))
 
 
-def _block(x, p, config: GPTConfig, tp=None):
+def _block(x, p, config: GPTConfig, plan=_functional.ONE_DEVICE):
     """One training block: x [B, L, D] -> (x, aux).  Attention is
-    `flash_attention` (K1 forward, K2/K3 backward) with causal=True; the
-    MLP is dense (aux None), or the Switch MoE when `config.n_experts`
-    (aux is its load-balancing loss).  Under tensor parallelism (`tp`,
-    the tensor group) `p` holds this rank's heads and MLP columns: the
-    normed input enters the column-parallel products (its gradient
-    summed over `tp`) and the row-parallel outputs are summed over
-    `tp`."""
+    `plan.attend`: `flash_attention` (K1 forward, K2/K3 backward) with
+    causal=True, or `ring_attention` over a seq axis; the MLP is dense
+    (aux None), or the Switch MoE when `config.n_experts` (aux is its
+    load-balancing loss).  Under tensor parallelism (`plan.tensor`, the
+    tensor group) `p` holds this rank's heads and MLP columns: the normed
+    input enters the column-parallel products (its gradient summed over
+    the group) and the row-parallel outputs are summed over it."""
     b, l, d = x.shape
     dh = config.head_dim
+    tp = plan.tensor
     h = collectives.all_reduce_grad(
         _layernorm(x, p["ln1_scale"], p["ln1_bias"]), tp)
 
     def heads(w):                    # "bld,dhk->blhk"
         return (h @ w.reshape(d, -1).to(h.dtype)).view(b, l, -1, dh)
 
-    attn = flash_attention(heads(p["wq"]), heads(p["wk"]), heads(p["wv"]),
-                           causal=True)
+    attn = plan.attend(heads(p["wq"]), heads(p["wk"]), heads(p["wv"]))
     nh = attn.shape[2]
     x = x + collectives.all_reduce_value(
         attn.reshape(b, l, nh * dh) @ p["wo"].reshape(nh * dh, d).to(
@@ -334,7 +355,7 @@ def _block(x, p, config: GPTConfig, tp=None):
     h = _layernorm(x, p["ln2_scale"], p["ln2_bias"])
     if config.n_experts:
         mlp_out, aux = _moe_mlp(h, p["router"], p["w_up"], p["w_down"],
-                                config)
+                                config, plan)
         return x + mlp_out, aux
     h = collectives.all_reduce_grad(h, tp)
     # jax.nn.gelu's default is the tanh approximation.
@@ -348,7 +369,8 @@ def _trunk(p, tokens, config: GPTConfig, plan, position_offset: int = 0):
     c = config
     l = tokens.shape[1]
     x = plan.embed(p["tok_embed"], tokens, c.dtype)
-    pos = p["pos_embed"][position_offset:position_offset + l]
+    start = position_offset + plan.position_offset(l)
+    pos = p["pos_embed"][start:start + l]
     x = x + pos[None].to(c.dtype)
     # One unbind per leaf: its backward stacks the per-layer gradients
     # into one tensor, as lax.scan's does, where indexing a layer per
@@ -359,9 +381,9 @@ def _trunk(p, tokens, config: GPTConfig, plan, position_offset: int = 0):
         lp = {k: plan.layer(v[layer], k) for k, v in layers.items()}
         if c.remat:
             x, aux = torch.utils.checkpoint.checkpoint(
-                _block, x, lp, c, plan.tensor, use_reentrant=False)
+                _block, x, lp, c, plan, use_reentrant=False)
         else:
-            x, aux = _block(x, lp, c, plan.tensor)
+            x, aux = _block(x, lp, c, plan)
         if aux is not None:
             auxes.append(aux)
     x = _layernorm(x, plan.leaf(p["final_ln_scale"], "final_ln_scale"),
@@ -411,9 +433,11 @@ def loss_fn(params: dict, batch: dict, config: GPTConfig, mesh=None):
 
     As in the reference, the model runs on the full length and the
     targets are the tokens rolled left by one; the last position, which
-    would predict the rolled-around token 0, is always masked.  The loss
-    is the fused chunked cross-entropy on the (tied) head, which never
-    materialises [B, L, V], plus the reference's `0.01 * aux` (the MoE
+    would predict the rolled-around token 0, is always masked (under
+    seq the last local position of every other seq rank predicts the
+    next rank's first token: `plan.targets`).  The loss is the fused
+    chunked cross-entropy on the (tied) head, which never materialises
+    [B, L, V], plus the reference's `0.01 * aux` (the MoE
     load-balancing loss summed over layers; 0 for a dense MLP).  Under a
     mesh it is the vocab-parallel `fused_cross_entropy_spmd` on this
     rank's rows and vocab slice, equal on every rank.  The reference
@@ -425,10 +449,7 @@ def loss_fn(params: dict, batch: dict, config: GPTConfig, mesh=None):
     _functional.check_mesh_loss(mesh, c.vocab_size, batch["tokens"].shape)
     plan = _plan(c, mesh)
     tokens = plan.rows(batch["tokens"])
-    targets = torch.roll(tokens, -1, dims=1)
-    valid = torch.ones(tokens.shape, dtype=torch.float32,
-                       device=tokens.device)
-    valid[:, -1] = 0.0
+    targets, valid = plan.targets(tokens)
     mask = batch.get("loss_mask")
     if mask is not None:
         valid = valid * plan.rows(mask)
@@ -436,7 +457,8 @@ def loss_fn(params: dict, batch: dict, config: GPTConfig, mesh=None):
     x, aux = _trunk(p, tokens, c, plan)
     head = _head(p, c, plan)
     if plan is not _functional.ONE_DEVICE:
-        return fused_cross_entropy_spmd(x, head, targets, valid, mesh)
+        return fused_cross_entropy_spmd(x, head, targets, valid,
+                                        mesh) + 0.01 * aux
     b, l, d = x.shape
     loss = fused_cross_entropy(x.reshape(b * l, d), head,
                                targets.reshape(-1), valid.reshape(-1))
@@ -447,9 +469,8 @@ def make_train_step(config: GPTConfig, optimizer, mesh=None, *,
                     device: DeviceLike = None):
     """Returns (init_state, train_step), the shared functional-LM
     contract (models/_functional.py), on `device` (None -> CUDA).  Under
-    a mesh of data, fsdp and tensor the params and AdamW's moments are
-    DTensors placed by `param_specs`; seq, expert or stage above 1, or a
-    MoE config, raises."""
+    a mesh the params and AdamW's moments are DTensors placed by
+    `param_specs`; stage above 1 raises."""
     _plan(config, mesh)
     return _functional.make_train_step(config, optimizer,
                                        init_params=init_params,

@@ -17,13 +17,15 @@ and autograd sums the gradients back through it; the cached path keeps
 the kv heads un-repeated in the pool and the paged attention path (K4 at
 T=1) expands the groups itself.
 
-Under a mesh of data, fsdp and tensor the training forward runs on
-each rank's shards as gpt.py's does (models/_functional.py): the kv
+Under a mesh of data, fsdp, seq and tensor the training forward runs
+on each rank's shards as gpt.py's does (models/_functional.py): the kv
 heads split over `tensor` like the query heads, so the GQA repeat runs
 on the rank's own kv heads (`n_kv_heads % tensor == 0`, else the
-placement raises), and the loss is the vocab-parallel
-`fused_cross_entropy_spmd` on the untied head.  A mesh with seq,
-expert or stage above 1 raises `NotImplementedError`.
+placement raises); over a seq axis RoPE rotates at the rank's absolute
+positions and the ring (`ring_attention`) carries the repeated kv
+heads, as the reference's does; the loss is the vocab-parallel
+`fused_cross_entropy_spmd` on the untied head.  A mesh with stage above
+1 raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -39,8 +41,7 @@ import torch.utils.checkpoint
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models import _functional
 from ray_tpu_torch.models._functional import _map
-from ray_tpu_torch.ops.attention import (flash_attention, paged_attention,
-                                         paged_kv_update)
+from ray_tpu_torch.ops.attention import paged_attention, paged_kv_update
 from ray_tpu_torch.ops.cross_entropy import (fused_cross_entropy,
                                              fused_cross_entropy_spmd)
 from ray_tpu_torch.parallel import collectives
@@ -258,19 +259,23 @@ def _mlp(x, p, config: LlamaConfig, tp=None):
         (gate * up) @ p["w_down"].to(h.dtype), tp)
 
 
-def _block(x, p, config: LlamaConfig, position_offset=0, tp=None):
-    """One training block: x [B, L, D] -> x.  Attention is
-    `flash_attention` (K1 forward, K2/K3 backward) with causal=True over
-    the repeated kv heads.  Under tensor parallelism (`tp`) `p` holds
-    this rank's query and kv heads and MLP columns (gpt._block)."""
+def _block(x, p, config: LlamaConfig, position_offset=0,
+           plan=_functional.ONE_DEVICE):
+    """One training block: x [B, L, D] -> x.  Attention is `plan.attend`
+    (`flash_attention`: K1 forward, K2/K3 backward, causal; or
+    `ring_attention` over a seq axis) over the repeated kv heads, RoPE at
+    `position_offset`, the absolute position of x's first token.  Under
+    tensor parallelism (`plan.tensor`) `p` holds this rank's query and
+    kv heads and MLP columns (gpt._block)."""
     c = config
+    tp = plan.tensor
     h = collectives.all_reduce_grad(
         _rmsnorm(x, p["attn_norm"], c.norm_eps), tp)
     q = _rope(_project(h, p["wq"]), c.rope_theta, position_offset)
     k = _rope(_project(h, p["wk"]), c.rope_theta, position_offset)
     v = _project(h, p["wv"])
-    attn = flash_attention(q, _repeat_kv(k, c.q_per_kv),
-                           _repeat_kv(v, c.q_per_kv), causal=True)
+    attn = plan.attend(q, _repeat_kv(k, c.q_per_kv),
+                       _repeat_kv(v, c.q_per_kv))
     b, l, nh, dh = attn.shape
     x = x + collectives.all_reduce_value(
         attn.reshape(b, l, nh * dh) @ p["wo"].reshape(nh * dh, -1).to(
@@ -282,6 +287,8 @@ def _trunk(p, tokens, config: LlamaConfig, plan, position_offset=0):
     """The stack on this rank's local params `p` and token rows."""
     c = config
     x = plan.embed(p["tok_embed"], tokens, c.dtype)
+    position_offset = position_offset + plan.position_offset(
+        tokens.shape[1])
     # Unbind each stacked leaf once: its backward stacks the layers'
     # gradients into one tensor, as lax.scan's does.  Indexing a layer
     # per block would instead add a zero-padded gradient of the whole
@@ -291,10 +298,10 @@ def _trunk(p, tokens, config: LlamaConfig, plan, position_offset=0):
         lp = {k: plan.layer(v[layer], k) for k, v in layers.items()}
         if c.remat:
             x = torch.utils.checkpoint.checkpoint(
-                _block, x, lp, c, position_offset, plan.tensor,
+                _block, x, lp, c, position_offset, plan,
                 use_reentrant=False)
         else:
-            x = _block(x, lp, c, position_offset, plan.tensor)
+            x = _block(x, lp, c, position_offset, plan)
     return _rmsnorm(x, plan.leaf(p["final_norm"], "final_norm"),
                     c.norm_eps)
 
@@ -339,18 +346,15 @@ def loss_fn(params: dict, batch: dict, config: LlamaConfig, mesh=None):
     """batch = {"tokens": [B, L], optional "loss_mask": [B, L]} ->
     next-token cross-entropy (f32 scalar): the model runs on the full
     length, the targets are the tokens rolled left by one and the last
-    position is masked, as in gpt.loss_fn; the loss is the fused
-    chunked cross-entropy on the head, which never materialises
-    [B, L, V] (under a mesh the vocab-parallel one, equal on every
-    rank)."""
+    position is masked, as in gpt.loss_fn (`plan.targets`); the loss is
+    the fused chunked cross-entropy on the head, which never
+    materialises [B, L, V] (under a mesh the vocab-parallel one, equal
+    on every rank)."""
     c = config
     _functional.check_mesh_loss(mesh, c.vocab_size, batch["tokens"].shape)
     plan = _plan(c, mesh)
     tokens = plan.rows(batch["tokens"])
-    targets = torch.roll(tokens, -1, dims=1)
-    valid = torch.ones(tokens.shape, dtype=torch.float32,
-                       device=tokens.device)
-    valid[:, -1] = 0.0
+    targets, valid = plan.targets(tokens)
     mask = batch.get("loss_mask")
     if mask is not None:
         valid = valid * plan.rows(mask)
@@ -368,9 +372,8 @@ def make_train_step(config: LlamaConfig, optimizer, mesh=None, *,
                     device: DeviceLike = None):
     """Returns (init_state, train_step), the shared functional-LM
     contract (models/_functional.py), on `device` (None -> CUDA).  Under
-    a mesh of data, fsdp and tensor the params and AdamW's moments are
-    DTensors placed by `param_specs`; seq, expert or stage above 1
-    raises."""
+    a mesh the params and AdamW's moments are DTensors placed by
+    `param_specs`; stage above 1 raises."""
     _plan(config, mesh)
     return _functional.make_train_step(config, optimizer,
                                        init_params=init_params,

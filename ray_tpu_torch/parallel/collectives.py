@@ -5,8 +5,21 @@ and gradient reductions, the tensor-parallel activation sums, the
 vocab-parallel cross-entropy) goes through the functions here:
 `all_reduce`, `all_gather` and `reduce_scatter` on tensors, and their
 autograd pairs (`all_gather_value` / `reduce_scatter_value`,
-`all_reduce_value` / `all_reduce_grad`).  A group of one rank is
-`None`, and every function is then the identity.
+`all_reduce_value` / `all_reduce_grad`); `gather_replicated`, a gather
+for a computation that every rank of the group repeats; and the ring's
+rotation, `rotate` on tensors and `ppermute` with its autograd form.
+A group of one rank is `None`, and every function is then the identity.
+
+The rotation (each rank of a group sends to the rank `shift` places on
+and receives from the rank `shift` places back, `lax.ppermute`'s ring)
+takes one transport per backend, by rule: under NCCL
+`batch_isend_irecv`, one send and one receive; under gloo
+`all_to_all_single` with zero-size splits to every rank but the two
+neighbours, because gloo's send and receive are for CPU tensors only
+(`scripts/probe_collectives.py` found `batch_isend_irecv` on CUDA
+tensors abort a rank, SIGABRT, torch 2.11, 4 ranks on one H100) while
+its all-to-all takes CUDA tensors too.  The tensors of one rotation
+travel as one buffer of bytes.
 
 Ranks that share one card cannot form an NCCL group, so they join a
 gloo group and hand it CUDA tensors (gloo copies them through host
@@ -43,15 +56,18 @@ import torch.distributed as dist
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
-STATS = {"enabled": False, "calls": 0, "seconds": 0.0, "bytes": 0}
+STATS = {"enabled": False, "calls": 0, "seconds": 0.0, "bytes": 0,
+         "by_op": {}}
 
 
 @contextlib.contextmanager
 def measure():
     """Time every collective inside the block (host clock, a device
     synchronize before and after each); yields the STATS dict, reset on
-    entry: calls, seconds, bytes (of the input tensors)."""
-    STATS.update(enabled=True, calls=0, seconds=0.0, bytes=0)
+    entry: calls, seconds, bytes (of the input tensors), and the same
+    three per op in "by_op" ("all_reduce", "all_gather",
+    "reduce_scatter", "rotate")."""
+    STATS.update(enabled=True, calls=0, seconds=0.0, bytes=0, by_op={})
     try:
         yield STATS
     finally:
@@ -64,7 +80,7 @@ def _sync(t: torch.Tensor) -> None:
 
 
 @contextlib.contextmanager
-def _timed(t: torch.Tensor):
+def _timed(t: torch.Tensor, op: str):
     if not STATS["enabled"]:
         yield
         return
@@ -72,16 +88,20 @@ def _timed(t: torch.Tensor):
     t0 = time.perf_counter()
     yield
     _sync(t)
-    STATS["calls"] += 1
-    STATS["seconds"] += time.perf_counter() - t0
-    STATS["bytes"] += t.numel() * t.element_size()
+    seconds, nbytes = time.perf_counter() - t0, t.numel() * t.element_size()
+    mine = STATS["by_op"].setdefault(op, {"calls": 0, "seconds": 0.0,
+                                          "bytes": 0})
+    for stats in (STATS, mine):
+        stats["calls"] += 1
+        stats["seconds"] += seconds
+        stats["bytes"] += nbytes
 
 
 def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """In-place all-reduce of `t` over `group` ("sum" or "max")."""
     if group is None:
         return t
-    with _timed(t):
+    with _timed(t, "all_reduce"):
         dist.all_reduce(t, op=_REDUCE_OPS[op], group=group)
     return t
 
@@ -93,7 +113,7 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     n = dist.get_world_size(group)
     x = t.movedim(dim, 0).contiguous()
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-    with _timed(x):
+    with _timed(x, "all_gather"):
         dist.all_gather_into_tensor(out, x, group=group)
     return out.movedim(0, dim)
 
@@ -109,7 +129,7 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
         raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} "
                          f"does not split into {n}")
     out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
-    with _timed(x):
+    with _timed(x, "reduce_scatter"):
         dist.reduce_scatter_tensor(out, x, group=group)
     return out.movedim(0, dim)
 
@@ -159,6 +179,79 @@ class _AllReduceGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return all_reduce(g.clone(), ctx.group), None
+
+
+def rotate(tensors, group, shift: int = 1) -> list:
+    """Each rank's `tensors` sent to the group rank `shift` places on;
+    returns, in their place, those of the rank `shift` places back
+    (group-rank order, wrapping round).  They travel as one buffer of
+    bytes, by the backend's transport (see the module docstring)."""
+    if group is None:
+        return list(tensors)
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    dst, src = (me + shift) % n, (me - shift) % n
+    flat = [t.contiguous().view(-1).view(torch.uint8) for t in tensors]
+    send = flat[0] if len(flat) == 1 else torch.cat(flat)
+    recv = torch.empty_like(send)
+    with _timed(send, "rotate"):
+        if dist.get_backend(group) == "nccl":
+            for work in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, send,
+                               dist.get_global_rank(group, dst), group),
+                    dist.P2POp(dist.irecv, recv,
+                               dist.get_global_rank(group, src), group)]):
+                work.wait()
+        else:
+            out_splits, in_splits = [0] * n, [0] * n
+            in_splits[dst] = out_splits[src] = send.numel()
+            dist.all_to_all_single(recv, send, output_split_sizes=out_splits,
+                                   input_split_sizes=in_splits, group=group)
+    out = []
+    for t, part in zip(tensors, recv.split([f.numel() for f in flat])):
+        if part.storage_offset() % t.element_size():
+            part = part.clone()
+        out.append(part.view(t.dtype).view(t.shape))
+    return out
+
+
+class _Ppermute(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return rotate([x], group, shift)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return rotate([g], ctx.group, -ctx.shift)[0], None, None
+
+
+def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """`rotate` of one tensor with an autograd form: the gradient takes
+    the reverse shift."""
+    return x if group is None else _Ppermute.apply(x, group, shift)
+
+
+class _GatherReplicated(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        return g.chunk(n, ctx.dim)[dist.get_rank(ctx.group)], None, None
+
+
+def gather_replicated(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """All-gather along `dim` for a computation that every rank of
+    `group` repeats on the whole (so each holds the whole gradient): the
+    backward keeps this rank's chunk of the gradient, where
+    `all_gather_value` would sum the group's."""
+    return x if group is None else _GatherReplicated.apply(x, group, dim)
 
 
 def all_gather_value(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:

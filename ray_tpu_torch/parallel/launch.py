@@ -43,10 +43,12 @@ def choose_backend(world_size: int, device: DeviceLike = None) -> str:
 
 
 def _child(rank: int, world_size: int, device: str, backend: str,
-           init: str, fn: Callable, args: tuple, results) -> None:
+           init: str, call_path: str, results) -> None:
     import torch.distributed as dist
 
     try:
+        with open(call_path, "rb") as f:
+            fn, args = pickle.load(f)
         if device == "cuda":
             torch.cuda.set_device(rank if backend == "nccl" else 0)
         else:
@@ -76,10 +78,17 @@ def run_ranks(fn: Callable, world_size: int, *, args: tuple = (),
           file=sys.stderr, flush=True)
     os.makedirs(init_dir, exist_ok=True)
     store = os.path.join(init_dir, f"store-{os.getpid()}-{time.time_ns()}")
+    # The call goes to the children through a file: a spawned child's
+    # arguments travel through a pipe that the parent writes while the
+    # child imports `fn`'s module, so arguments larger than the pipe's
+    # buffer would start the ranks one after another.
+    call_path = store + ".call"
+    with open(call_path, "wb") as f:
+        pickle.dump((fn, args), f)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     procs = [ctx.Process(target=_child, args=(
-        rank, world_size, dev.type, backend, f"file://{store}", fn, args,
+        rank, world_size, dev.type, backend, f"file://{store}", call_path,
         results), daemon=True) for rank in range(world_size)]
     for p in procs:
         p.start()
@@ -113,10 +122,11 @@ def run_ranks(fn: Callable, world_size: int, *, args: tuple = (),
             if p.is_alive():
                 p.kill()
                 p.join()
-        try:
-            os.remove(store)
-        except FileNotFoundError:
-            pass
+        for path in (store, call_path):
+            try:
+                os.remove(path)
+            except FileNotFoundError:
+                pass
     if error is not None:
         raise RuntimeError(error)
     return [got[r] for r in range(world_size)]

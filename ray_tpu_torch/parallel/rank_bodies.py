@@ -10,6 +10,12 @@ dict of axis sizes, and returns plain data:
   family's `param_specs`, with its index in the global tensor;
 - `cross_entropy`: `fused_cross_entropy_spmd`'s loss, dx and dhead
   (summed over the row axes) on this rank's slices;
+- `ring`: `ring_attention` and `ring_attention_plain` on this rank's
+  slices of global q, k and v, with their gradients;
+- `forward`: the family's logits (and aux) on this rank's rows;
+- `moe`: gpt's Switch MoE layer on this rank's rows and experts, with
+  its gradients;
+- `plans`: the plan each family's train step builds on the mesh;
 - `train`: the family's `make_train_step` under the mesh for a few
   AdamW steps: the losses, the launches of K1-K3 on this rank, step
   times, the share of a step spent in collectives, peak memory, the
@@ -175,7 +181,8 @@ def cross_entropy(rank: int, world_size: int, sizes: dict, x, head,
                   targets, valid, device: str = "cpu") -> dict:
     """x [B, L, D], head [D, V], targets / valid [B, L] global numpy;
     this rank's rows and vocab slice go through the mesh CE."""
-    from ray_tpu_torch.ops.cross_entropy import fused_cross_entropy_spmd
+    from ray_tpu_torch.ops.cross_entropy import (ROW_AXES,
+                                                 fused_cross_entropy_spmd)
     from ray_tpu_torch.parallel import collectives
     from ray_tpu_torch.parallel.sharding import (local_index,
                                                  logical_to_spec)
@@ -194,9 +201,132 @@ def cross_entropy(rank: int, world_size: int, sizes: dict, x, head,
         torch.from_numpy(valid[ti]).to(dev), mesh)
     dx, dhead = torch.autograd.grad(loss, [x_l, head_l])
     dhead = collectives.all_reduce(
-        dhead.contiguous(), collectives.axis_group(mesh, ("data", "fsdp")))
+        dhead.contiguous(), collectives.axis_group(mesh, ROW_AXES))
     return {"loss": float(loss), "dx": (_index(xi), _numpy(dx)),
             "dhead": (_index(hi), _numpy(dhead))}
+
+
+def ring(rank: int, world_size: int, sizes: dict, q, k, v, dout,
+         causal: bool = True, device: str = "cpu",
+         dtype: str = "float32") -> dict:
+    """q, k, v, dout [B, L, H, D] global numpy; this rank's slice (rows
+    over (data, fsdp), length over seq, heads over tensor), rounded to
+    `dtype`, goes through the kernel ring in `dtype` and through the
+    plain ring in f32 (the exact function of the same values): {"index",
+    "kernel": (out, dq, dk, dv), "plain": (...)} as f32 numpy, the
+    gradients those of sum(out * dout)."""
+    from ray_tpu_torch.ops.ring_attention import (ring_attention,
+                                                  ring_attention_plain)
+    from ray_tpu_torch.parallel.sharding import (local_index,
+                                                 logical_to_spec)
+
+    mesh = _mesh(sizes, device)
+    dev = _device(device)
+    index = local_index(q.shape, logical_to_spec(
+        ("batch", "length", "heads", None), mesh=mesh), mesh)
+    out = {"index": _index(index)}
+    given = [torch.from_numpy(a[index]).to(dev, getattr(torch, dtype))
+             for a in (q, k, v, dout)]
+    for name, fn, cast in (("kernel", ring_attention, given[0].dtype),
+                           ("plain", ring_attention_plain, torch.float32)):
+        qkv = [t.to(cast).requires_grad_() for t in given[:3]]
+        o = fn(*qkv, mesh=mesh, causal=causal)
+        grads = torch.autograd.grad(o, qkv, given[3].to(cast))
+        out[name] = tuple(_numpy(t) for t in (o, *grads))
+    return out
+
+
+def forward(rank: int, world_size: int, family: str, config, sizes: dict,
+            np_params: dict, tokens: np.ndarray,
+            device: str = "cpu") -> dict:
+    """The family's `forward` on the mesh from the reference's numpy
+    params: this rank's logits (its rows, length slice and vocab slice)
+    with their index in the global [B, L, V], and gpt's aux."""
+    from ray_tpu_torch.models.convert import params_from_numpy
+    from ray_tpu_torch.parallel.sharding import (local_index,
+                                                 logical_to_spec)
+
+    fam = _family(family)
+    mesh = _mesh(sizes, device)
+    params = fam.shard_params(params_from_numpy(np_params, config,
+                                                device="cpu"), mesh, config)
+    with torch.no_grad():
+        got = fam.forward(params, torch.from_numpy(tokens), config, mesh)
+    logits, aux = got if isinstance(got, tuple) else (got, None)
+    shape = tokens.shape + (config.vocab_size,)
+    index = local_index(shape, logical_to_spec(
+        ("batch", "length", "vocab"), mesh=mesh), mesh)
+    return {"logits": (_index(index), _numpy(logits)),
+            "aux": None if aux is None else float(aux)}
+
+
+def moe(rank: int, world_size: int, config, sizes: dict, x, router, w_up,
+        w_down, dout, device: str = "cpu") -> dict:
+    """gpt's `_moe_mlp` under the mesh on this rank's slices of global
+    numpy x [B, L, D], router [D, E], w_up [E, D, F], w_down [E, F, D]
+    (rows over (data, fsdp), length over seq, experts over expert, F
+    over tensor): its output rows, aux and the tokens it kept, and the
+    gradients of sum(out * dout) + aux, the weights' summed over the row
+    axes (as the train step sums them)."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models._functional import plan_for
+    from ray_tpu_torch.ops.cross_entropy import ROW_AXES
+    from ray_tpu_torch.parallel import collectives
+    from ray_tpu_torch.parallel.sharding import (local_index,
+                                                 logical_to_spec)
+
+    mesh = _mesh(sizes, device)
+    dev = _device(device)
+    plan = plan_for(mesh, gpt.param_specs(config))
+    specs = {"x": ("batch", "length", None), "router": (None, "experts"),
+             "w_up": ("experts", None, "expert_mlp"),
+             "w_down": ("experts", "expert_mlp", None)}
+    arrays = {"x": x, "router": router, "w_up": w_up, "w_down": w_down}
+    index = {k: local_index(a.shape, logical_to_spec(specs[k], mesh=mesh),
+                            mesh) for k, a in arrays.items()}
+    local = {k: torch.from_numpy(a[index[k]]).to(dev).requires_grad_()
+             for k, a in arrays.items()}
+    out, aux = gpt._moe_mlp(local["x"], local["router"], local["w_up"],
+                            local["w_down"], config, plan)
+    val = (out * torch.from_numpy(dout[index["x"]]).to(dev)).sum() + aux
+    grads = dict(zip(local, torch.autograd.grad(val, list(local.values()))))
+    rows = collectives.axis_group(mesh, ROW_AXES)
+    result = {"out": (_index(index["x"]), _numpy(out)), "aux": float(aux)}
+    for k, g in grads.items():
+        if k != "x":
+            g = collectives.all_reduce(g.contiguous(), rows)
+        result["d" + k] = (_index(index[k]), _numpy(g))
+    return result
+
+
+def plans(rank: int, world_size: int, sizes: dict,
+          device: str = "cpu") -> dict:
+    """The plan that `make_train_step` builds on the mesh for gpt nano,
+    nano-moe and llama-tiny: {name: {"plan": class name, "groups": the
+    sizes of its seq, expert and MoE groups, "offset": the absolute
+    position of a length-8 shard's first token, "sums": {leaf: the row
+    axes its gradient is summed over}}}."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt, llama
+    from ray_tpu_torch.models._functional import adamw, plan_for
+
+    mesh = _mesh(sizes, device)
+    out = {}
+    for name, fam, config in (("gpt", gpt, gpt.CONFIGS["nano"]),
+                              ("gpt-moe", gpt, gpt.CONFIGS["nano-moe"]),
+                              ("llama", llama, llama.CONFIGS["llama-tiny"])):
+        fam.make_train_step(config, adamw(1e-3), mesh, device=device)
+        plan = plan_for(mesh, fam.param_specs(config))
+        groups = {"seq": plan.seq, "expert": plan.expert, "moe": plan.moe}
+        out[name] = {
+            "plan": type(plan).__name__,
+            "groups": {k: 1 if g is None else dist.get_world_size(g)
+                       for k, g in groups.items()},
+            "offset": plan.position_offset(8),
+            "sums": {k: plan.grad_sum_axes(s)
+                     for k, s in _flat(plan.specs).items()}}
+    return out
 
 
 def _flash_launches() -> dict:
@@ -349,7 +479,11 @@ def train(rank: int, world_size: int, family: str, config, sizes: dict,
                         "ms": stats["seconds"] * 1e3,
                         "bytes": stats["bytes"],
                         "step_ms": measured_ms,
-                        "share": stats["seconds"] * 1e3 / measured_ms},
+                        "share": stats["seconds"] * 1e3 / measured_ms,
+                        "by_op": {op: {"calls": o["calls"],
+                                       "ms": o["seconds"] * 1e3,
+                                       "bytes": o["bytes"]}
+                                  for op, o in stats["by_op"].items()}},
         "peak_memory_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                             if dev.type == "cuda" else None),
     })

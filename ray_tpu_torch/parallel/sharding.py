@@ -389,18 +389,20 @@ def shard_batch(mesh, batch: Any, rules: Optional[Mapping] = None) -> Any:
 def global_batch(mesh, local_batch: Any,
                  rules: Optional[Mapping] = None) -> Any:
     """Multi-controller batch assembly: each rank passes its LOCAL rows
-    (the rows of its position along the data axes; ranks that differ
-    only in other axes pass the same rows), and each leaf becomes a
-    DTensor of the global batch, whose batch dim is the local one times
-    the number of row shards."""
+    (the rows of its position along the data axes, and its length slice
+    along seq; ranks that differ only in other axes pass the same
+    rows), and each leaf becomes a DTensor of the global batch, each of
+    whose dims is the local one times the number of its shards."""
     from torch.distributed.tensor import DTensor
 
     def put(x, sharding):
         x = torch.as_tensor(x).to(mesh_device(mesh))
-        rows = math.prod(axis_sizes(mesh).get(a, 1)
-                         for a in _entry_axes(sharding.spec[0])) \
-            if sharding.spec else 1
-        shape = (x.shape[0] * rows,) + tuple(x.shape[1:])
+        sizes = axis_sizes(mesh)
+        spec = tuple(sharding.spec) + (None,) * (x.dim() - len(
+            sharding.spec))
+        shape = tuple(n * math.prod(sizes.get(a, 1) for a in
+                                    _entry_axes(entry))
+                      for n, entry in zip(x.shape, spec))
         return DTensor.from_local(x.contiguous(), mesh, sharding.placements,
                                   run_check=False, shape=shape,
                                   stride=_contiguous_stride(shape))

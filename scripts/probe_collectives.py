@@ -9,14 +9,19 @@ group through a file store, and tries each collective that the mesh
 path needs: all_reduce (SUM, MAX), all_gather_into_tensor,
 reduce_scatter_tensor, all_to_all_single, broadcast, a DTensor
 Shard -> Replicate redistribute on a mesh of the device's type (and of
-a _StridedShard placement), and torch.optim.AdamW (fused and foreach)
-over DTensor parameters.  Each result is "ok" or the first line of the
+a _StridedShard placement), torch.optim.AdamW (fused and foreach)
+over DTensor parameters, and the point-to-point rotation of ring
+attention (each rank sends to the next and receives from the one
+before): `batch_isend_irecv`, `all_to_all_single` with zero-size splits
+to every rank but the neighbours, and `parallel.collectives.ppermute`
+itself.  Each result is "ok" or the first line of the
 error (or that the process died: such a check is named, and the
 remaining ones run in a new group); a collective that ran is checked
-against its expected value, and all_reduce, all_gather and
-reduce_scatter are timed (median of 10 calls on a 3 MiB bf16 tensor,
-the host clock around a synchronize), beside an all_reduce staged by
-hand through pinned host memory.  The parent prints one JSON line.
+against its expected value, and all_reduce, all_gather,
+reduce_scatter and the rotations are timed (median of 10 calls on a
+3 MiB bf16 tensor, the host clock around a synchronize), beside an
+all_reduce staged by hand through pinned host memory.  The group has a
+60 s timeout, so an op that never completes is reported as an error.  The parent prints one JSON line.
 `ray_tpu_torch.parallel.collectives` stages through host memory the ops
 that this probe found refused.
 """
@@ -24,6 +29,7 @@ that this probe found refused.
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import os
 import statistics
@@ -33,6 +39,9 @@ import time
 
 import torch
 import torch.distributed as dist
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 import torch.multiprocessing as mp
 
 TIMED_ELEMENTS = 3 * 2 ** 20 // 2       # 3 MiB of bf16
@@ -144,6 +153,38 @@ def _checks(rank, n, device) -> dict:
     checks["adamw_fused_dtensor"] = adamw(True)
     checks["adamw_foreach_dtensor"] = adamw(False)
 
+    nxt, prv = (rank + 1) % n, (rank - 1) % n
+
+    def rotate_p2p(t):
+        out = torch.empty_like(t)
+        for work in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, t, nxt),
+                dist.P2POp(dist.irecv, out, prv)]):
+            work.wait()
+        return out
+
+    def rotate_a2a(t):
+        out = torch.empty_like(t)
+        send = [0] * n
+        recv = [0] * n
+        send[nxt] = recv[prv] = t.shape[0]
+        dist.all_to_all_single(out, t, output_split_sizes=recv,
+                               input_split_sizes=send)
+        return out
+
+    def rotate_port(t):
+        from ray_tpu_torch.parallel.collectives import ppermute
+        return ppermute(t, dist.group.WORLD)
+
+    def rotation(fn):
+        def run():
+            t = torch.full((5,), float(rank), device=device)
+            return bool((fn(t) == float(prv)).all())
+        return run
+    checks["p2p_batch_isend_irecv"] = rotation(rotate_p2p)
+    checks["p2p_all_to_all_single_rotation"] = rotation(rotate_a2a)
+    checks["p2p_collectives_ppermute"] = rotation(rotate_port)
+
     big = torch.ones(TIMED_ELEMENTS, dtype=torch.bfloat16, device=device)
     gathered = torch.empty(TIMED_ELEMENTS * n, dtype=big.dtype,
                            device=device)
@@ -164,6 +205,12 @@ def _checks(rank, n, device) -> dict:
         lambda: dist.reduce_scatter_tensor(part, big), device)
     checks["ms_host_staged_all_reduce"] = lambda: _timed(staged_all_reduce,
                                                          device)
+    checks["ms_p2p_batch_isend_irecv"] = lambda: _timed(
+        lambda: rotate_p2p(big), device)
+    checks["ms_p2p_all_to_all_single_rotation"] = lambda: _timed(
+        lambda: rotate_a2a(big), device)
+    checks["ms_p2p_collectives_ppermute"] = lambda: _timed(
+        lambda: rotate_port(big), device)
     return checks
 
 
@@ -176,7 +223,8 @@ def _rank(rank, world, device_type, init, names, out_path):
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group("gloo", init_method=init, rank=rank,
-                            world_size=world)
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
     checks = _checks(rank, world, device)
     res: dict = {}
     for name in names:
@@ -219,6 +267,11 @@ def main() -> int:
                 crashed = None
             except mp.ProcessExitedException as exc:
                 crashed = f"the process died: {exc}"
+            except mp.ProcessRaisedException as exc:
+                # A peer of a rank that died can raise first (its
+                # connection closed).
+                last = str(exc).strip().splitlines()[-1][:200]
+                crashed = f"a rank died or raised: {last}"
             with open(out) as f:
                 state = json.load(f)
         results.update(state["results"])

@@ -211,9 +211,10 @@ def test_mesh_raises():
     tokens = {"tokens": torch.zeros(1, 8, dtype=torch.long)}
     nano = gpt.CONFIGS["nano"]
     params = gpt.init_params(nano, device="cpu")
-    # data, fsdp and tensor run (tests/test_torch_mesh_train.py); seq,
-    # expert and stage above 1 wait for their items of ROADMAP A8.
-    mesh = types.SimpleNamespace(shape={"data": 2, "seq": 2})
+    # data, fsdp, tensor, seq and expert run (tests/test_torch_mesh_train
+    # .py, tests/test_torch_mesh_seq_expert.py); stage above 1 waits for
+    # its item of ROADMAP A8.
+    mesh = types.SimpleNamespace(shape={"data": 1, "stage": 2})
     with pytest.raises(NotImplementedError, match="multi-device"):
         gpt.loss_fn(params, tokens, nano, mesh)
     with pytest.raises(NotImplementedError, match="multi-device"):

@@ -36,6 +36,7 @@ def test_port_and_chip_smoke_import_neither_jax_nor_the_reference():
                  "ray_tpu_torch.parallel.launch",
                  "ray_tpu_torch.parallel.rank_bodies",
                  "ray_tpu_torch.parallel.pipeline",
+                 "ray_tpu_torch.ops.ring_attention",
                  "ray_tpu_torch.train.pipeline_stage",
                  "ray_tpu_torch.train.pipeline_trainer"):
         assert name in got["modules"]

@@ -20,7 +20,9 @@ where JAX's device r stands.  Held equal to the reference:
 - a global batch's rows on every rank by `shard_batch`,
   `global_batch` and the device feed with `sharding=mesh`, against the
   reference's `shard_batch`; `shard_opt_state`'s placements;
-- seq, expert and stage above 1 still raise, naming ROADMAP A8.
+- seq and expert above 1 build the train step's `MeshPlan` (both
+  families; a MoE config too), and stage above 1 still raises, naming
+  ROADMAP A8.
 """
 
 import functools
@@ -141,6 +143,8 @@ def ranks8(tmp_path_factory):
         ("restore", (SIZES8, ref_path)),
         ("batches", (SIZES8, _tokens(), _np_params("gpt"), NANO_T)),
         ("restore", (SIZES8, ref_path, "cpu", True)),
+        ("plans", (dict(data=4, seq=2),)),
+        ("plans", (dict(data=4, expert=2),)),
     ]
     out = run_ranks(rank_bodies.sequence, 8, args=(calls,), device="cpu",
                     init_dir=str(d / "init"), timeout_s=RANK_TIMEOUT_S)
@@ -148,7 +152,8 @@ def ranks8(tmp_path_factory):
         dir=d, jmesh=jmesh, ref_path=ref_path, port_path=str(d / "port"),
         shards={"gpt": [r[0] for r in out], "llama": [r[1] for r in out]},
         ce=[r[2] for r in out], restored=[r[4] for r in out],
-        batches=[r[5] for r in out], replicated=[r[6] for r in out])
+        batches=[r[5] for r in out], replicated=[r[6] for r in out],
+        plans={"seq": [r[7] for r in out], "expert": [r[8] for r in out]})
 
 
 @pytest.fixture(scope="module")
@@ -237,9 +242,18 @@ def test_two_level_layout_rejects_tensor_over_dcn():
 
 
 @pytest.mark.parametrize("axis", ["seq", "expert", "stage"])
-def test_seq_expert_stage_still_raise_naming_a8(axis):
-    """The axes of later A8 items: the train step and the loss of both
-    families refuse them above 1, naming what each waits for."""
+def test_seq_expert_stage_still_raise_naming_a8(request, axis):
+    """seq and expert above 1 now build the train step's plan for both
+    families (on 8 ranks, the axis at 2 beside data 4); stage, the axis
+    of a later A8 item, is still refused above 1 by the train step and
+    the loss of both families, naming what it waits for."""
+    if axis != "stage":
+        ranks8 = request.getfixturevalue("ranks8")
+        for out in ranks8.plans[axis]:
+            for name in ("gpt", "llama"):
+                assert out[name]["plan"] == "MeshPlan"
+                assert out[name]["groups"][axis] == 2
+        return
     mesh = types.SimpleNamespace(shape={"data": 1, axis: 2})
     tokens = {"tokens": torch.zeros(2, 8, dtype=torch.long)}
     for mod, cfg in ((gpt, NANO_T), (llama, TINY_T)):
@@ -284,11 +298,15 @@ def test_uneven_mesh_loss_raises_before_any_collective(sizes, shape):
                         mesh)
 
 
-def test_moe_under_a_mesh_waits_for_expert_parallelism():
-    mesh = types.SimpleNamespace(shape={"data": 2})
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        gpt.make_train_step(gpt.CONFIGS["nano-moe"], adamw(1e-3), mesh,
-                            device="cpu")
+def test_moe_under_a_mesh_waits_for_expert_parallelism(ranks8):
+    """Expert parallelism has come: a MoE config's train step builds its
+    plan under a mesh of data 4 and expert 2, its MoE partial outputs
+    summed over the expert group
+    (tests/test_torch_mesh_seq_expert.py holds its numbers)."""
+    for out in ranks8.plans["expert"]:
+        assert out["gpt-moe"]["plan"] == "MeshPlan"
+        assert out["gpt-moe"]["groups"] == {"seq": 1, "expert": 2,
+                                            "moe": 2}
 
 
 # --------------------------------------------------------------------------

@@ -4,7 +4,8 @@ same mesh, on the CPU, and the rank launcher's failure paths.
 
 JAX runs on the 8 virtual CPU devices of tests/conftest.py; the port on
 gloo ranks spawned by `run_ranks` (one group of 8 and one of 4 for the
-module, each bounded by RANK_TIMEOUT_S).  From the reference's initial
+module, each bounded by RANK_TIMEOUT_S; the reference's train steps run
+while they do).  From the reference's initial
 weights, on the same batches, 3 AdamW steps (optax.adamw and the port's
 adamw, lr 1e-3), f32:
 
@@ -28,6 +29,7 @@ adamw, lr 1e-3), f32:
 - AdamW's moments are DTensors placed like their params.
 """
 
+import concurrent.futures
 import dataclasses
 import functools
 
@@ -93,17 +95,28 @@ def _flat(tree, prefix=""):
     return out
 
 
-@functools.cache
-def _reference(family: str, sizes: tuple):
-    """(initial numpy params, losses, final numpy params, the loss of
-    one more step on the last batch) of the reference's jitted train
-    step under the mesh `sizes`."""
+def _reference_step(family: str, sizes: tuple):
     jmod, _, jcfg, _ = _configs(family.removesuffix("-remat"))
     sizes = dict(sizes)
     n = int(np.prod(list(sizes.values())))
     mesh = jcreate_mesh(JMeshConfig(**sizes), devices=jax.devices()[:n])
     init, step = jmod.make_train_step(jcfg, optax.adamw(LR), mesh)
-    state = init(jax.random.key(4))
+    return mesh, init(jax.random.key(4)), step
+
+
+@functools.cache
+def _start(family: str, sizes: tuple):
+    """The reference's initial numpy params under the mesh `sizes`."""
+    _, state, _ = _reference_step(family, sizes)
+    return jax.tree.map(np.asarray, state["params"])
+
+
+@functools.cache
+def _reference(family: str, sizes: tuple):
+    """(initial numpy params, losses, final numpy params, the loss of
+    one more step on the last batch) of the reference's jitted train
+    step under the mesh `sizes`."""
+    mesh, state, step = _reference_step(family, sizes)
     start = jax.tree.map(np.asarray, state["params"])
     step = jax.jit(step)
     losses = []
@@ -117,19 +130,30 @@ def _reference(family: str, sizes: tuple):
 
 def _train_call(family, sizes):
     _, _, _, tcfg = _configs(family)
-    start = _reference(family.removesuffix("-remat"),
-                       tuple(sizes.items()))[0]
+    start = _start(family.removesuffix("-remat"), tuple(sizes.items()))
     return ("train", (family.removesuffix("-remat"), tcfg, sizes, start,
                       _batches(), LR))
+
+
+def _run_beside_the_reference(calls, world, init_dir, cases):
+    """The ranks' `calls` (`rank_bodies.sequence`), with the reference's
+    runs of `cases` [(family, sizes)] computed while they run."""
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        running = pool.submit(run_ranks, rank_bodies.sequence, world,
+                              args=(calls,), device="cpu",
+                              init_dir=init_dir, timeout_s=RANK_TIMEOUT_S)
+        for family, sizes in cases:
+            _reference(family, tuple(sizes.items()))
+        return running.result()
 
 
 @pytest.fixture(scope="module")
 def ranks8(tmp_path_factory):
     calls = [_train_call("gpt", SIZES8), _train_call("llama", SIZES8),
              _train_call("gpt-remat", SIZES8)]
-    out = run_ranks(rank_bodies.sequence, 8, args=(calls,), device="cpu",
-                    init_dir=str(tmp_path_factory.mktemp("train8")),
-                    timeout_s=RANK_TIMEOUT_S)
+    out = _run_beside_the_reference(
+        calls, 8, str(tmp_path_factory.mktemp("train8")),
+        [("gpt", SIZES8), ("llama", SIZES8)])
     return {("gpt", "dp2_fsdp2_tp2"): [r[0] for r in out],
             ("llama", "dp2_fsdp2_tp2"): [r[1] for r in out],
             ("gpt-remat", "dp2_fsdp2_tp2"): [r[2] for r in out]}
@@ -139,9 +163,9 @@ def ranks8(tmp_path_factory):
 def ranks4(tmp_path_factory):
     name, args = _train_call("llama", SIZES4)
     calls = [(name, args), (name, args + ("cpu", True, OTHER_RULES))]
-    out = run_ranks(rank_bodies.sequence, 4, args=(calls,), device="cpu",
-                    init_dir=str(tmp_path_factory.mktemp("train4")),
-                    timeout_s=RANK_TIMEOUT_S)
+    out = _run_beside_the_reference(
+        calls, 4, str(tmp_path_factory.mktemp("train4")),
+        [("llama", SIZES4)])
     return {("llama", "dp2_tp2"): [r[0] for r in out],
             ("llama", "dp2_tp2_other_rules"): [r[1] for r in out]}
 

@@ -82,12 +82,12 @@ def _dropped(name, capacity_factor, tokens):
     params = params_from_numpy(_np_params(name), ct, device="cpu")
     dropped = 0
 
-    def count(x, router, w_up, w_down, config):
+    def count(x, router, w_up, w_down, config, *plan):
         nonlocal dropped
         _, _, _, rank, cap = gpt._route(x.reshape(-1, x.shape[-1]), router,
                                         config)
         dropped += int((rank >= cap).sum())
-        return original(x, router, w_up, w_down, config)
+        return original(x, router, w_up, w_down, config, *plan)
 
     original, gpt._moe_mlp = gpt._moe_mlp, count
     try:
