@@ -268,7 +268,34 @@ run with a nonzero exit code and no result line:
            data=2, expert=2): four ranks, 4 experts each, the global
            capacity and queue order, 8 x 1024, 3 AdamW steps; the same
            checks (K1-K3 12 launches per step per rank).
+  pipeline_spmd  gpt2-small at full width and depth through
+           pipeline_loss_dryrun on MeshConfig(stage=4): four ranks of 3
+           blocks each, 4 microbatches of 2 x 1024 a step, the
+           embeddings before the stages and the final LayerNorm, tied
+           head and fused_cross_entropy after them fixed, 3 AdamW steps
+           on the stage params, against the 12 blocks in turn on one
+           device (the same function with no mesh): the losses within
+           3e-3, each stage leaf's update within 0.35; K1-K3 3 x 4
+           launches per step on every rank (a stage skips its blocks in
+           the bubble).  Prints the hops' and the final all-reduce's
+           bytes and ms.
+  train_mesh_stage  gpt2-small on MeshConfig(data=2, stage=2): four
+           ranks, 4 x 1024, 3 AdamW steps; the mesh checks, and the two
+           stage ranks of each data rank equal to the bit (losses and a
+           sha256 of their params).
+  rl_learner_dp  PPO's TorchLearner (512 rows, obs 6, 3 actions, 4
+           epochs of 128) and the V-trace learner (T 16, B 8) on two
+           data-parallel ranks against one device, f32, two updates:
+           the weights within rtol 1e-4, atol 1e-5; then one PPO.train()
+           with learner_mesh MeshConfig(data=2), a LearnerGroup, against
+           one device's.
+  train_resnet_mesh  resnet50 at train_resnet's batch (64 x 224 x 224 x
+           3, bf16) on MeshConfig(data=2), 3 AdamW steps, against one
+           device: losses within 0.05, each leaf's update within 0.85,
+           the two ranks' params equal to the bit; the same run with
+           each rank's gradients left its own must fail those checks.
 
+The mesh phases keep one RankGang up across phases of as many ranks.
 Each phase's wall seconds follow it on a line of their own.  Then, on
 lines of their own: the kernels' JSON record, the card's name and power
 limit, and last {"ok": true, "device": {...}}.  Exits nonzero without a
@@ -277,6 +304,7 @@ card, and when the ray_tpu_torch package is not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -285,6 +313,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1924,8 +1953,6 @@ def phase_kv_tier(report: dict) -> None:
     tier-less engine's or part at a near-tie; K4 ran 22 times per decode
     step.  Times each spill (the device -> host copy inside `alloc`) and
     each restoring admission."""
-    import tempfile
-
     import numpy as np
 
     from ray_tpu_torch.inference import InferenceEngine
@@ -2194,8 +2221,6 @@ def phase_train_fabric(report: dict) -> None:
     on a resident batch, the save at the step boundary (the host copy),
     the write on the writer thread and the restore; then a one-rank nccl
     group through CudaBackend's worker hook."""
-    import tempfile
-
     from ray_tpu_torch.checkpoint import CheckpointManager
     from ray_tpu_torch.data import iter_device_batches
     from ray_tpu_torch.models import gpt
@@ -2626,8 +2651,6 @@ def phase_rl_podracer() -> None:
     into a fresh learner: the same params and Adam state, bit for bit.
     Then PPOConfig().rollouts(num_rollout_workers=0), 3 iterations on
     the card."""
-    import tempfile
-
     import numpy as np
 
     from ray_tpu_torch.rl import PodracerConfig, StaleTolerantLearner
@@ -3334,8 +3357,6 @@ def phase_rl_offline() -> None:
     tests/test_rllib_offline_eval.py (IS, WIS, DM, DR exact; FQE-fed DM
     within 0.4).  Ms, launches and busy share per update (one train_on
     of train_batch_size rows) and per FQE iteration."""
-    import tempfile
-
     import numpy as np
 
     from ray_tpu_torch.rllib import (BC, CQL, ESTIMATORS, MARWIL, BCConfig,
@@ -4386,7 +4407,6 @@ def phase_pipeline(report: dict) -> None:
     weights and batch; K1-K3 launched 12 x 6 times a pipelined step;
     one more step of (a) measures the chunk-boundary copies."""
     import dataclasses
-    import tempfile
 
     import numpy as np
 
@@ -4559,8 +4579,43 @@ def phase_pipeline_parity() -> None:
 
 
 # The mesh phases: ranks spawned by the port's launcher, each on card 0
-# over gloo (or one card each over NCCL where there are enough).
+# over gloo (or one card each over NCCL where there are enough).  One
+# RankGang at a time stays up across phases (`_ranks`), so a phase that
+# runs on as many ranks as the one before it starts none.
 MESH_TIMEOUT_S = 420
+
+
+class _Gang:
+    """`_ranks(world)`: the RankGang of `world` ranks on the card,
+    started on first use; a gang of another size (or a closed one) is
+    ended first.  `_ranks.close()` ends it."""
+
+    def __init__(self):
+        self._stack = contextlib.ExitStack()
+        self._gang = None
+
+    def __call__(self, world: int):
+        from ray_tpu_torch.parallel.launch import RankGang
+
+        if self._gang is not None and (self._gang.closed
+                                       or self._gang.world_size != world):
+            self.close()
+        if self._gang is None:
+            init_dir = self._stack.enter_context(
+                tempfile.TemporaryDirectory(prefix="chip_smoke_ranks-"))
+            self._gang = self._stack.enter_context(RankGang(
+                world, device="cuda", init_dir=init_dir,
+                timeout_s=MESH_TIMEOUT_S))
+        return self._gang
+
+    def close(self) -> None:
+        self._gang = None
+        self._stack.close()
+
+
+_ranks = _Gang()
+
+
 MESH_LR = 1e-4
 # Each rank against the single-device run on the same weights and
 # batches, bf16: its losses (the three steps' and one more step's on
@@ -4575,21 +4630,19 @@ MESH_UPDATE_TOL = 0.35
 
 
 def _mesh_run(family: str, config, sizes: dict, batches: list,
-              control=None, ring=None) -> dict:
+              control=None, ring=None, digest: bool = False) -> dict:
     """`rank_bodies.train` on every rank of a `sizes` mesh (with
     `control`, a fault injected there), and the port's single-device
     train step on the card from the same weights (the family's init on
     seed 0) on the same global batches, its start and final params
     handed to the ranks in a file.  With `ring` (a global [B, L, H, D]),
     the ranks first run `rank_bodies.ring` on bf16 inputs of that shape,
-    held by `_ring_check`.  Returns the readings; `_mesh_faults` judges
-    them."""
-    import tempfile
-
+    held by `_ring_check`.  With `digest`, each rank also hands back a
+    sha256 of its params' shards (replicas must agree to the bit).
+    Returns the readings; `_mesh_faults` judges them."""
     from ray_tpu_torch.models import gpt, llama
     from ray_tpu_torch.models._functional import adamw
     from ray_tpu_torch.parallel import rank_bodies
-    from ray_tpu_torch.parallel.launch import run_ranks
     from ray_tpu_torch.parallel.mesh import AXES
 
     model = {"gpt": gpt, "llama": llama}[family]
@@ -4619,15 +4672,13 @@ def _mesh_run(family: str, config, sizes: dict, batches: list,
         torch.save({"start": start, "final": final}, reference)
         del start, final
         train = ("train", (family, config, sizes, None, batches, MESH_LR,
-                           "cuda", False, None, reference, control))
+                           "cuda", False, None, reference, control, digest))
         calls = [train]
         if ring is not None:
             calls.insert(0, ("ring", (sizes,) + _ring_inputs(ring)
                              + (True, "cuda", "bfloat16")))
         t0 = time.perf_counter()
-        ranks = run_ranks(rank_bodies.sequence, world, args=(calls,),
-                          device="cuda", init_dir=os.path.join(tmp, "init"),
-                          timeout_s=MESH_TIMEOUT_S)
+        ranks = _ranks(world).run(rank_bodies.sequence, calls)
         wall_s = time.perf_counter() - t0
     ring_check = None if ring is None else _ring_check(
         ring, [r[0] for r in ranks])
@@ -4659,6 +4710,10 @@ def _mesh_run(family: str, config, sizes: dict, batches: list,
         launches_by_rank=[r["launches"] for r in ranks],
         seq_rank_by_rank=[r["coordinate"][AXES.index("seq")]
                           for r in ranks],
+        coordinate_by_rank=[dict(zip(AXES, r["coordinate"]))
+                            for r in ranks],
+        losses_by_rank=[r["losses"] + [r["final_loss"]] for r in ranks],
+        digest_by_rank=[r.get("params_digest") for r in ranks],
         ring_check=ring_check,
         ranks_wall_s=wall_s,
         note=("ranks share card 0 over gloo: every collective passes "
@@ -4902,6 +4957,445 @@ def phase_train_mesh_moe(report: dict) -> None:
         check(False, f"train_mesh_moe: {fault}")
 
 
+# The stage axis: gpt2-small's 12 blocks as 4 pipeline stages of
+# 3 over 4 ranks (`pipeline_loss_dryrun`), 4 microbatches of 2 x 1024 a
+# step, against the 12 blocks in turn on one device.
+PP_SPMD_STAGES, PP_SPMD_MICRO, PP_SPMD_MICRO_BATCH = 4, 4, 2
+# The first step's gradient of each stage leaf (before AdamW, whose
+# update barely moves when every gradient takes one common scale) within
+# PP_SPMD_GRAD_TOL of one device's in L2 norm.  On the card (PERF.md)
+# the sound run reads 0 (the stages run one device's kernels on one
+# device's shapes); the same run with the final all-reduce summing in
+# the backward too ("sum_backward", which the phase makes as well) hands
+# every stage 4x its gradient and reads 3.0 on every leaf, while its
+# losses (3e-5 apart) and updates (0.048) pass the mesh phases' limits,
+# which the losses and updates keep.
+PP_SPMD_GRAD_TOL = 0.05
+
+
+def _pp_spmd_batches(vocab: int) -> list:
+    return [b.reshape(PP_SPMD_MICRO, PP_SPMD_MICRO_BATCH, -1) for b in
+            _mesh_batches(vocab, PP_SPMD_MICRO * PP_SPMD_MICRO_BATCH, 1024,
+                          3)]
+
+
+def phase_pipeline_spmd(report: dict) -> None:
+    """gpt2-small at full width and depth (bf16, fp32 params) through
+    `pipeline_loss_dryrun` on MeshConfig(stage=4): four ranks, each
+    holding 3 blocks, 4 microbatches of 2 x 1024 a step, the embeddings
+    before the stages and the final LayerNorm, tied head and
+    `fused_cross_entropy` after them fixed, 3 AdamW steps on the stage
+    params; against the 12 blocks in turn on one device (the same
+    function with no mesh) on the same weights and batches.  A stage
+    skips its block calls in the bubble, so K1-K3 run 3 x 4 times a
+    step on every rank.  The hops' and the final all-reduce's bytes and
+    ms come from one more step under `collectives.measure()`.  The same
+    ranks then run it again with the final all-reduce summing in the
+    backward too, which the gradient check must catch."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import rank_bodies
+
+    config = gpt.CONFIGS["gpt2-small"]
+    batches = _pp_spmd_batches(config.vocab_size)
+    per = config.n_layers // PP_SPMD_STAGES
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "single.pt")
+        single = rank_bodies.pipeline_gpt(
+            0, 1, None, config, batches, MESH_LR, "cuda", PP_SPMD_STAGES,
+            save=path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        args = (dict(stage=PP_SPMD_STAGES), config, batches, MESH_LR,
+                "cuda", PP_SPMD_STAGES, path)
+        t0 = time.perf_counter()
+        runs = _ranks(PP_SPMD_STAGES).run(rank_bodies.sequence, [
+            ("pipeline_gpt", args),
+            ("pipeline_gpt", args + (None, "sum_backward"))])
+        wall_s = time.perf_counter() - t0
+    ranks, controls = [r[0] for r in runs], [r[1] for r in runs]
+
+    def worst(rs, key):
+        return max((err, f"rank {rank} {leaf}") for rank, r in enumerate(rs)
+                   for leaf, err in r[key].items())
+    want = single["losses"] + [single["final_loss"]]
+    loss_diff = max(abs(a - b) for r in ranks
+                    for a, b in zip(r["losses"] + [r["final_loss"]], want))
+    update_err, update_leaf = worst(ranks, "update_rel_err")
+    grad_err, grad_leaf = worst(ranks, "grad_rel_err")
+    control_grad_err = worst(controls, "grad_rel_err")
+    control_update_err = worst(controls, "update_rel_err")[0]
+    steps = len(batches)
+    launches_want = steps * per * PP_SPMD_MICRO
+    collectives = [r["collectives"] for r in ranks]
+    out = dict(
+        mesh=dict(stage=PP_SPMD_STAGES), ranks=PP_SPMD_STAGES,
+        blocks_per_stage=per, microbatches=PP_SPMD_MICRO,
+        micro_batch=[PP_SPMD_MICRO_BATCH, 1024], steps=steps, lr=MESH_LR,
+        losses=ranks[0]["losses"] + [ranks[0]["final_loss"]],
+        single_device_losses=want, max_loss_diff=loss_diff,
+        loss_tolerance=MESH_LOSS_TOL, max_update_rel_err=update_err,
+        max_update_rel_err_at=update_leaf, update_tolerance=MESH_UPDATE_TOL,
+        max_grad_rel_err=grad_err, max_grad_rel_err_at=grad_leaf,
+        grad_tolerance=PP_SPMD_GRAD_TOL,
+        bit_equal=loss_diff == update_err == grad_err == 0.0,
+        sum_backward=dict(
+            max_grad_rel_err=control_grad_err[0],
+            max_grad_rel_err_at=control_grad_err[1],
+            min_grad_rel_err=min(err for r in controls
+                                 for err in r["grad_rel_err"].values()),
+            max_update_rel_err=control_update_err,
+            max_loss_diff=max(abs(a - b) for r in controls for a, b in
+                              zip(r["losses"] + [r["final_loss"]], want))),
+        median_step_ms=statistics.median(r["median_step_ms"] for r in ranks),
+        step_ms_by_rank=[r["median_step_ms"] for r in ranks],
+        single_device_step_ms=single["median_step_ms"],
+        collective_share_by_rank=[c["share"] for c in collectives],
+        hops_rank0=collectives[0]["by_op"].get("rotate"),
+        final_all_reduce_rank0=collectives[0]["by_op"].get("all_reduce"),
+        collectives_rank0=collectives[0],
+        peak_memory_gib_by_rank=[r["peak_memory_gib"] for r in ranks],
+        single_device_peak_memory_gib=single["peak_memory_gib"],
+        launches_by_rank=[r["launches"] for r in ranks],
+        single_device_launches=single["launches"],
+        launches_want_per_rank=launches_want, ranks_wall_s=wall_s,
+        note="ranks share card 0 over gloo; collectives from one extra "
+             "step with a synchronize around each")
+    for name in out["launches_by_rank"][0]:
+        report.setdefault(name, {})["pipeline_spmd"] = dict(
+            launches_by_rank=[r[name] for r in out["launches_by_rank"]],
+            steps=steps)
+    emit("pipeline_spmd", config="gpt2-small", **out)
+    check(loss_diff <= MESH_LOSS_TOL,
+          f"pipeline_spmd: losses {out['losses']} vs one device {want}")
+    check(update_err <= MESH_UPDATE_TOL,
+          f"pipeline_spmd: update of {update_leaf} {update_err}")
+    check(grad_err <= PP_SPMD_GRAD_TOL,
+          f"pipeline_spmd: first gradient of {grad_leaf} {grad_err}")
+    check(out["sum_backward"]["max_grad_rel_err"] > PP_SPMD_GRAD_TOL,
+          f"pipeline_spmd: the sum_backward control passed the gradient "
+          f"check: {out['sum_backward']}")
+    check(not any(r["start_differs"] for r in ranks),
+          "pipeline_spmd: a rank started from other weights")
+    for rank, r in enumerate(ranks):
+        for name, n in r["launches"].items():
+            check(n == launches_want, f"pipeline_spmd: rank {rank} {name} "
+                  f"launched {n} times, want {launches_want}")
+    for name, n in single["launches"].items():
+        check(n == steps * config.n_layers * PP_SPMD_MICRO,
+              f"pipeline_spmd: one device's {name} launched {n} times")
+
+
+def _gpt_stage_run():
+    from ray_tpu_torch.models import gpt
+
+    config = gpt.CONFIGS["gpt2-small"]
+    return (config, dict(data=2, stage=2),
+            _mesh_batches(config.vocab_size, 4, 1024, 3))
+
+
+MESH_RUNS["gpt_stage"] = _gpt_stage_run
+
+
+def phase_train_mesh_stage(report: dict) -> None:
+    """gpt2-small at full width and depth (bf16, fp32 params) on
+    MeshConfig(data=2, stage=2): four ranks, a global batch of 4 x 1024
+    split over data, 3 AdamW steps.  The reference maps no leaf and no
+    batch dim to stage, so the two stage ranks of a data rank are
+    replicas: their losses and params (a sha256 of them) must agree to
+    the last bit, beside the mesh phases' checks."""
+    config, sizes, batches = MESH_RUNS["gpt_stage"]()
+    out = _mesh_run("gpt", config, sizes, batches, digest=True)
+    _mesh_report(report, "train_mesh_stage", out)
+    replicas: dict = {}
+    for c, losses, digest in zip(out["coordinate_by_rank"],
+                                 out["losses_by_rank"],
+                                 out["digest_by_rank"]):
+        replicas.setdefault(c["data"], []).append((losses, digest))
+    out["stage_replicas_equal"] = all(
+        len(set((tuple(l), d) for l, d in group)) == 1 and len(group) == 2
+        for group in replicas.values())
+    emit("train_mesh_stage", config="gpt2-small", **out)
+    for fault in _mesh_faults(out, config.n_layers):
+        check(False, f"train_mesh_stage: {fault}")
+    check(out["stage_replicas_equal"],
+          f"train_mesh_stage: stage replicas differ: {replicas}")
+
+
+# The RL learners' learner group and ResNet under a mesh: data = 2
+# against one device on the card.  Summation orders differ (a batched
+# product over half the rows, a mean of two means), so the weights are
+# held as the reference's own dp test holds them on the CPU.
+DP_RTOL, DP_ATOL = 1e-4, 1e-5
+RL_DP_PPO = {"lr": 3e-3, "grad_clip": 0.5, "num_sgd_iter": 4,
+             "sgd_minibatch_size": 128, "clip_param": 0.2}
+
+
+def _rl_dp_batches():
+    """tests/test_rllib_dp.py's shapes: a PPO batch of 512 rows (obs 6,
+    3 actions) and a V-trace fragment T 16 x B 8 (obs 4, 2 actions)."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import SampleBatch
+
+    rng = np.random.default_rng(0)
+    n = 512
+    ppo = SampleBatch({
+        "obs": rng.normal(size=(n, 6)).astype(np.float32),
+        "actions": rng.integers(0, 3, size=n).astype(np.int32),
+        "action_logp": rng.normal(size=n).astype(np.float32) * 0.1 - 1.0,
+        "advantages": rng.normal(size=n).astype(np.float32),
+        "value_targets": rng.normal(size=n).astype(np.float32)})
+    rng = np.random.default_rng(1)
+    t, b = 16, 8
+    vtrace = SampleBatch({
+        "obs": rng.normal(size=(t, b, 4)).astype(np.float32),
+        "actions": rng.integers(0, 2, size=(t, b)).astype(np.int32),
+        "action_logp": (rng.normal(size=(t, b)) * 0.1 - 0.7).astype(
+            np.float32),
+        "rewards": rng.normal(size=(t, b)).astype(np.float32),
+        "terminateds": np.zeros((t, b), bool),
+        "truncateds": np.zeros((t, b), bool),
+        "bootstrap_obs": rng.normal(size=(b, 4)).astype(np.float32)})
+    return ppo, vtrace
+
+
+def _weights_apart(got, want) -> float:
+    """The largest |got - want| / (DP_ATOL + DP_RTOL |want|) over the
+    leaves: at most 1 within the tolerance."""
+    import numpy as np
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        return [np.asarray(tree, np.float64)]
+    return max(float(np.max(np.abs(g - w) / (DP_ATOL + DP_RTOL * np.abs(w))))
+               for g, w in zip(leaves(got), leaves(want)))
+
+
+def phase_rl_learner_dp() -> None:
+    """PPO's `TorchLearner` (tests/test_rllib_dp.py's shape: 512 rows,
+    4 epochs of 128) and the V-trace learner (T 16, B 8) data-parallel
+    on two ranks against one device, f32, the same weights (seeds) and
+    batches, two updates each; then one `PPO.train()` with
+    `learner_mesh` of data 2 (a `LearnerGroup`) against one device's,
+    and its `save()` / `restore()` to and from one device."""
+    from ray_tpu_torch.parallel import rank_bodies
+    from ray_tpu_torch.parallel.mesh import MeshConfig
+    from ray_tpu_torch.rllib import IMPALAConfig, PPOConfig
+    from ray_tpu_torch.rllib.impala import _VTraceLearner
+    from ray_tpu_torch.rllib.learner import TorchLearner, ppo_loss
+
+    ppo, vtrace = _rl_dp_batches()
+    specs = {"ppo": ((6, 3), dict(loss_fn=ppo_loss, config=RL_DP_PPO,
+                                  seed=7), ppo),
+             "vtrace": ((4, 2, IMPALAConfig(), (32,), 3), {}, vtrace)}
+    make = {"ppo": TorchLearner, "vtrace": _VTraceLearner}
+    single, single_ms = {}, {}
+    for kind, (args, kwargs, batch) in specs.items():
+        learner = make[kind](*args, device="cuda", **kwargs)
+        learner.update(batch)            # two updates, the second timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = learner.update(batch)
+        single_ms[kind] = (time.perf_counter() - t0) * 1e3
+        single[kind] = (metrics, learner.get_weights())
+    calls = [("learner", (kind, args, kwargs, None, [batch, batch], None,
+                          "cuda"))
+             for kind, (args, kwargs, batch) in specs.items()]
+    t0 = time.perf_counter()
+    ranks = _ranks(2).run(rank_bodies.sequence, calls)
+    ranks_wall_s = time.perf_counter() - t0
+    out = {"ranks": 2, "tolerance": dict(rtol=DP_RTOL, atol=DP_ATOL),
+           "single_device_update_ms": single_ms, "ranks_wall_s": ranks_wall_s}
+    for i, kind in enumerate(specs):
+        metrics, weights = single[kind]
+        runs = [r[i] for r in ranks]
+        out[kind] = dict(
+            total_loss=[r["metrics"][1]["total_loss"] for r in runs],
+            single_device_total_loss=metrics["total_loss"],
+            weights_apart=[_weights_apart(r["weights"], weights)
+                           for r in runs],
+            ranks_agree=_weights_apart(runs[0]["weights"],
+                                       runs[1]["weights"]) == 0.0)
+    # The algorithm's own entry: PPO with a learner group of 2.
+    def ppo_cfg(mesh=None):
+        cfg = (PPOConfig().rollouts(num_rollout_workers=0,
+                                    num_envs_per_worker=8,
+                                    rollout_fragment_length=64)
+               .training(train_batch_size=512, sgd_minibatch_size=128,
+                         num_sgd_iter=4)
+               .resources(device="cuda", rollout_device="cuda"))
+        return cfg if mesh is None else cfg.resources(learner_mesh=mesh)
+    t0 = time.perf_counter()
+    group = ppo_cfg(MeshConfig(data=2)).build()
+    build_s = time.perf_counter() - t0
+    alone = ppo_cfg().build()
+    try:
+        t0 = time.perf_counter()
+        rg = group.train()
+        train_s = time.perf_counter() - t0
+        ra = alone.train()
+        out["ppo_train"] = dict(
+            learner_group=type(group.learner).__name__, build_s=build_s,
+            train_s=train_s, sampled_rows=[rg["sampled_rows"],
+                                           ra["sampled_rows"]],
+            total_loss=[rg["learner/total_loss"], ra["learner/total_loss"]],
+            weights_apart=_weights_apart(group.learner.get_weights(),
+                                         alone.learner.get_weights()))
+        # The group's checkpoint restores one device, and one device's
+        # restores the group (after another train()), to the bit.
+        weights = group.learner.get_weights()
+        alone.restore(group.save())
+        group.train()
+        group.restore(alone.save())
+        out["ppo_train"]["restored_apart"] = [
+            _weights_apart(ln.get_weights(), weights)
+            for ln in (alone.learner, group.learner)]
+    finally:
+        group.stop()
+        alone.stop()
+    emit("rl_learner_dp", **out)
+    for kind in specs:
+        check(max(out[kind]["weights_apart"]) <= 1.0,
+              f"rl_learner_dp: {kind} weights {out[kind]['weights_apart']} "
+              f"of the tolerance")
+        check(out[kind]["ranks_agree"], f"rl_learner_dp: {kind} ranks differ")
+    check(out["ppo_train"]["learner_group"] == "LearnerGroup",
+          "rl_learner_dp: PPO's learner is not a learner group")
+    check(out["ppo_train"]["weights_apart"] <= 1.0,
+          f"rl_learner_dp: PPO.train() weights "
+          f"{out['ppo_train']['weights_apart']} of the tolerance")
+    check(out["ppo_train"]["restored_apart"] == [0.0, 0.0],
+          f"rl_learner_dp: save() / restore() across the learner group: "
+          f"{out['ppo_train']['restored_apart']}")
+
+
+# Two one-device references, on the same weights and batches.  "split"
+# does the mesh step's arithmetic in one place (each half batch's bf16
+# forward and backward alone, their f32 gradients averaged:
+# rank_bodies._split_resnet_step), so the mesh is held to it tightly:
+# RESNET_SPLIT_LOSS_TOL on the losses, RESNET_SPLIT_UPDATE_TOL on each
+# leaf's update in L2 norm.  "whole" takes the 64 images at once; the
+# half batches round apart from it in bf16, and AdamW's first steps move
+# an element by about lr x sign(gradient), so elements whose gradient is
+# below that rounding flip.  The split reference's own distance from
+# the whole one measures that gap on one device, and the mesh is held
+# to the whole one at RESNET_MESH_LOSS_TOL / RESNET_MESH_UPDATE_TOL,
+# above that gap.  The same ranks then run with each rank's gradients
+# left its own ("no_grad_sync"), which must break both sets of limits'
+# loss or update check.  The card's readings (PERF.md), losses apart /
+# largest leaf's update error: the mesh against split 0 / 0 (equal to
+# the bit), against whole 0.0057 / 0.682, as far as split itself is
+# from whole (to the last digit); the control 0.357 / 1.216 against
+# split and 0.351 / 1.276 against whole (median leaf 0.87-0.91).
+RESNET_SPLIT_LOSS_TOL = 1e-3
+RESNET_SPLIT_UPDATE_TOL = 0.05
+RESNET_MESH_LOSS_TOL = 0.05
+RESNET_MESH_UPDATE_TOL = 0.85
+
+
+def _resnet_readings(ranks: list, losses: list, ref: str) -> dict:
+    """The readings of `ranks` (rank_bodies.resnet's outputs) against the
+    one-device reference `ref` whose losses are `losses`."""
+    loss_diff = max(abs(a - b) for r in ranks
+                    for a, b in zip(r["losses"], losses))
+    update_err, update_leaf = max(
+        (err, f"rank {rank} {leaf}") for rank, r in enumerate(ranks)
+        for leaf, err in r["update_rel_err"][ref].items())
+    errs = sorted(((err, leaf) for leaf, err in
+                   ranks[0]["update_rel_err"][ref].items()), reverse=True)
+    kinds: dict = {}
+    for err, leaf in errs:
+        kinds.setdefault(leaf.split(".")[-1], []).append(err)
+    return dict(losses=ranks[0]["losses"], max_loss_diff=loss_diff,
+                max_update_rel_err=update_err,
+                max_update_rel_err_at=update_leaf,
+                rank0_update_rel_err_top=errs[:6],
+                rank0_update_rel_err_by_kind={
+                    k: dict(n=len(v), max=max(v),
+                            median=statistics.median(v))
+                    for k, v in kinds.items()})
+
+
+def phase_train_resnet_mesh() -> None:
+    """resnet50 at train_resnet's batch (64 x 224 x 224 x 3, bf16
+    convolutions and norms, fp32 params) on MeshConfig(data=2): two
+    ranks of 32 images each, 3 AdamW(1e-4) steps on batches drawn from
+    a seed, against one device on the same weights and batches, taking
+    the two half batches apart ("split") and the 64 images at once
+    ("whole"): the losses and each leaf's update (L2 norm) within the
+    limits above, and the two ranks' params equal to the bit (a
+    sha256).  The same ranks then run it again with each rank's
+    gradients left its own, which the checks must catch."""
+    from ray_tpu_torch.models import resnet
+    from ray_tpu_torch.parallel import rank_bodies
+
+    config = resnet.CONFIGS["resnet50"]
+    data = dict(seed=1, steps=3, batch=64, image=[224, 224, 3])
+    singles = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {ref: os.path.join(tmp, f"{ref}.pt")
+                 for ref in ("whole", "split")}
+        for ref, split, refs in (("whole", 1, None),
+                                 ("split", 2, {"whole": paths["whole"]})):
+            gc.collect()
+            torch.cuda.empty_cache()
+            singles[ref] = rank_bodies.resnet(
+                0, 1, None, config, data, 1e-4, "cuda", None, refs,
+                paths[ref], None, split)
+        gc.collect()
+        torch.cuda.empty_cache()
+        args = (dict(data=2), config, data, 1e-4, "cuda", None, paths)
+        t0 = time.perf_counter()
+        ranks = _ranks(2).run(rank_bodies.sequence, [
+            ("resnet", args), ("resnet", args + (None, "no_grad_sync"))])
+        wall_s = time.perf_counter() - t0
+    sound, control = [r[0] for r in ranks], [r[1] for r in ranks]
+    limits = {"split": (RESNET_SPLIT_LOSS_TOL, RESNET_SPLIT_UPDATE_TOL),
+              "whole": (RESNET_MESH_LOSS_TOL, RESNET_MESH_UPDATE_TOL)}
+    readings = {ref: dict(
+        loss_tolerance=limits[ref][0], update_tolerance=limits[ref][1],
+        losses=singles[ref]["losses"],
+        sound=_resnet_readings(sound, singles[ref]["losses"], ref),
+        no_grad_sync=_resnet_readings(control, singles[ref]["losses"], ref))
+        for ref in ("split", "whole")}
+    split_vs_whole = _resnet_readings([singles["split"]],
+                                      singles["whole"]["losses"], "whole")
+    emit("train_resnet_mesh", config="resnet50", mesh=dict(data=2),
+         global_batch=data["batch"], image=data["image"],
+         steps=data["steps"], losses=sound[0]["losses"], vs=readings,
+         split_vs_whole=split_vs_whole,
+         ranks_agree=sound[0]["digest"] == sound[1]["digest"],
+         started_alike=not any(r["start_differs"] for r in sound),
+         median_step_ms=statistics.median(r["median_step_ms"]
+                                          for r in sound),
+         single_device_step_ms=singles["whole"]["median_step_ms"],
+         split_step_ms=singles["split"]["median_step_ms"],
+         peak_memory_gib_by_rank=[r["peak_memory_gib"] for r in sound],
+         single_device_peak_memory_gib=singles["whole"]["peak_memory_gib"],
+         ranks_wall_s=wall_s)
+    for ref, r in readings.items():
+        loss_tol, update_tol = limits[ref]
+        got = r["sound"]
+        check(got["max_loss_diff"] <= loss_tol,
+              f"train_resnet_mesh: losses {got['losses']} vs one device "
+              f"({ref}) {r['losses']}")
+        check(got["max_update_rel_err"] <= update_tol,
+              f"train_resnet_mesh: update of {got['max_update_rel_err_at']} "
+              f"{got['max_update_rel_err']} vs one device ({ref})")
+        bad = r["no_grad_sync"]
+        check(bad["max_update_rel_err"] > update_tol
+              or bad["max_loss_diff"] > loss_tol,
+              f"train_resnet_mesh: the no_grad_sync control passed against "
+              f"one device ({ref}): {bad}")
+    check(not any(r["start_differs"] for r in sound),
+          "train_resnet_mesh: a rank started from other weights")
+    check(sound[0]["digest"] == sound[1]["digest"],
+          "train_resnet_mesh: the replicas differ")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -4955,19 +5449,26 @@ def main() -> int:
               ("train_mesh_llama", phase_train_mesh_llama),
               ("train_mesh_seq", phase_train_mesh_seq),
               ("train_mesh_seq_llama", phase_train_mesh_seq_llama),
-              ("train_mesh_moe", phase_train_mesh_moe))
+              ("train_mesh_moe", phase_train_mesh_moe),
+              ("pipeline_spmd", phase_pipeline_spmd),
+              ("train_mesh_stage", phase_train_mesh_stage),
+              ("rl_learner_dp", lambda _: phase_rl_learner_dp()),
+              ("train_resnet_mesh", lambda _: phase_train_resnet_mesh()))
     wanted = sys.argv[1:]
     unknown = set(wanted) - {name for name, _ in phases}
     if unknown:
         print(f"chip_smoke: no phase {sorted(unknown)}", file=sys.stderr)
         return 2
     start = time.perf_counter()
-    for name, phase in phases:
-        if wanted and name not in wanted:
-            continue
-        t0 = time.perf_counter()
-        phase(report)
-        emit("wall", of=name, seconds=time.perf_counter() - t0)
+    try:
+        for name, phase in phases:
+            if wanted and name not in wanted:
+                continue
+            t0 = time.perf_counter()
+            phase(report)
+            emit("wall", of=name, seconds=time.perf_counter() - t0)
+    finally:
+        _ranks.close()
     emit("wall", of="all phases", seconds=time.perf_counter() - start)
     print(json.dumps({"kernels": list(report.values())}))
     print(smi)

@@ -9,7 +9,7 @@ step is a pure function; here the parameters and the optimizer's
 moments are updated in place (the returned state holds the same
 tensors), which saves a second copy of both.
 
-Under a mesh of data, fsdp, expert, seq and tensor
+Under a mesh of data, fsdp, expert, seq, tensor and stage
 (`make_train_step(mesh=...)`) the params are DTensors placed by
 `tree_shardings(mesh, param_specs)`, and AdamW's moments, made like
 them, take the same placements.  Each rank computes on its local
@@ -22,7 +22,10 @@ seq axis is `ring_attention` at the rank's absolute positions, the
 Switch MoE computes the rank's experts' slots and sums them over
 `expert` and `tensor`, and after the backward each gradient is summed
 over the row axes that its parameter is not sharded over.  The rows of
-a batch split over (data, fsdp) and their length over seq.
+a batch split over (data, fsdp) and their length over seq.  No leaf and
+no batch dim maps to `stage` (as in the reference, whose GSPMD step is
+then replicated over it): stage ranks are replicas that hold the same
+rows and params, and no gradient is summed over them.
 `OneDevice` is the same interface with no collective, so the families'
 forward is one code path.
 """
@@ -148,23 +151,6 @@ def working_params(params: dict, dtype: torch.dtype, matmul_keys,
             for k, v in params.items()}
 
 
-def check_single_device(mesh) -> None:
-    """For what runs one device only (ResNet, the RL learners): a mesh
-    with any axis above 1 raises.  `mesh` is None or anything with a
-    `.shape` mapping of axis sizes, or a DeviceMesh (a one-device mesh
-    is accepted)."""
-    if multi_device(mesh):
-        raise NotImplementedError(f"a mesh with an axis above 1 waits for "
-                                  f"{MULTI_DEVICE}")
-
-
-# The mesh axes the LM families still refuse above 1, and what each
-# waits for.
-WAITING_AXES = {
-    "stage": "pipeline_apply over the stage axis",
-}
-
-
 def multi_device(mesh) -> bool:
     return mesh is not None and any(s > 1 for s in
                                     axis_sizes(mesh).values())
@@ -178,26 +164,12 @@ def check_mesh_loss(mesh, vocab: int, shape) -> None:
     config raises here, before any collective."""
     if not multi_device(mesh):
         return
-    check_mesh(mesh)
     if not spmd_ce_applicable(mesh, vocab, *tuple(shape)[:2]):
         raise NotImplementedError(
             f"a batch of {tuple(shape)} over vocab {vocab} does not split "
             f"evenly over the mesh {axis_sizes(mesh)}: the reference's "
             f"fallback to materialised logits waits for uneven shards in "
             f"{MULTI_DEVICE}")
-
-
-def check_mesh(mesh) -> None:
-    """The LM families run a mesh of data, fsdp, expert, seq and tensor;
-    `stage` above 1 raises, naming what it waits for."""
-    if mesh is None:
-        return
-    sizes = axis_sizes(mesh)
-    for axis, item in WAITING_AXES.items():
-        if sizes.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"a mesh with {axis} = {sizes[axis]} waits for {item} in "
-                f"{MULTI_DEVICE}")
 
 
 class OneDevice:
@@ -302,7 +274,6 @@ class MeshPlan(OneDevice):
     mesh builds it at the same point."""
 
     def __init__(self, mesh, logical_specs: dict):
-        check_mesh(mesh)
         self.mesh = mesh
         self.specs = tree_map(lambda s: logical_to_spec(s, mesh=mesh),
                               logical_specs, is_leaf=_is_spec)
@@ -491,7 +462,6 @@ def plan_for(mesh, logical_specs: Optional[dict]) -> OneDevice:
     tree)."""
     if not multi_device(mesh):
         return ONE_DEVICE
-    check_mesh(mesh)
     key = (mesh, repr(logical_specs))
     if key not in _plans:
         _plans[key] = MeshPlan(mesh, logical_specs)

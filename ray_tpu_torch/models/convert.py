@@ -156,11 +156,28 @@ def resnet_variables(model: resnet.ResNet) -> dict:
 # optax.adamw's state is (ScaleByAdamState(count, mu, nu), EmptyState(),
 # EmptyState()).  These types carry optax's names and modules without
 # importing it, so a checkpoint of `train_state_to_tree` has the
-# skeleton of the reference's own train state.
-ScaleByAdamState = collections.namedtuple(
-    "ScaleByAdamState", ("count", "mu", "nu"), module="optax._src.transform")
-EmptyState = collections.namedtuple("EmptyState", (),
-                                    module="optax._src.base")
+# skeleton of the reference's own train state.  A pickle names them by
+# `_optax_state` instead, so a process without optax (a learner group's
+# rank) sends and receives them as they are.
+_OPTAX_STATES: dict = {}
+
+
+def _optax_state(name: str, fields: tuple = ()):
+    """One of the look-alikes below rebuilt from its fields (what their
+    pickles call)."""
+    return _OPTAX_STATES[name](*fields)
+
+
+def _optax_state_type(name: str, fields: tuple, module: str) -> type:
+    t = collections.namedtuple(name, fields, module=module)
+    t.__reduce__ = lambda self: (_optax_state, (name, tuple(self)))
+    _OPTAX_STATES[name] = t
+    return t
+
+
+ScaleByAdamState = _optax_state_type(
+    "ScaleByAdamState", ("count", "mu", "nu"), "optax._src.transform")
+EmptyState = _optax_state_type("EmptyState", (), "optax._src.base")
 
 
 def train_state_from_numpy(tree: dict, config, optimizer,
@@ -323,8 +340,8 @@ def actor_critic_variables(tensors) -> dict:
 # optax.chain(clip_by_global_norm, adam(lr)) keeps (EmptyState(),
 # (ScaleByAdamState(count, mu, nu), EmptyState())); with a schedule the
 # last is ScaleByScheduleState(count).
-ScaleByScheduleState = collections.namedtuple(
-    "ScaleByScheduleState", ("count",), module="optax._src.transform")
+ScaleByScheduleState = _optax_state_type(
+    "ScaleByScheduleState", ("count",), "optax._src.transform")
 
 
 def model_moments(tree, models) -> list:

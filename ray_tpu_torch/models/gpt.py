@@ -27,8 +27,8 @@ table read at the rank's absolute offset.  The Switch MoE keeps the
 reference's global semantics (capacity, queue order and aux over the
 global batch) and computes only the rank's experts' slots, their
 partial outputs summed over `expert` and `tensor`.  The loss is the
-vocab-parallel `fused_cross_entropy_spmd`.  A mesh with stage above 1
-raises `NotImplementedError`.
+vocab-parallel `fused_cross_entropy_spmd`.  Stage ranks are replicas
+(no leaf and no batch dim maps to `stage`, as in the reference).
 """
 
 from __future__ import annotations
@@ -470,8 +470,7 @@ def make_train_step(config: GPTConfig, optimizer, mesh=None, *,
     """Returns (init_state, train_step), the shared functional-LM
     contract (models/_functional.py), on `device` (None -> CUDA).  Under
     a mesh the params and AdamW's moments are DTensors placed by
-    `param_specs`; stage above 1 raises."""
-    _plan(config, mesh)
+    `param_specs`."""
     return _functional.make_train_step(config, optimizer,
                                        init_params=init_params,
                                        loss_fn=loss_fn, device=device,

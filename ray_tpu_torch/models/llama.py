@@ -24,8 +24,8 @@ on the rank's own kv heads (`n_kv_heads % tensor == 0`, else the
 placement raises); over a seq axis RoPE rotates at the rank's absolute
 positions and the ring (`ring_attention`) carries the repeated kv
 heads, as the reference's does; the loss is the vocab-parallel
-`fused_cross_entropy_spmd` on the untied head.  A mesh with stage above
-1 raises `NotImplementedError`.
+`fused_cross_entropy_spmd` on the untied head.  Stage ranks are
+replicas, as in gpt.py.
 """
 
 from __future__ import annotations
@@ -373,8 +373,7 @@ def make_train_step(config: LlamaConfig, optimizer, mesh=None, *,
     """Returns (init_state, train_step), the shared functional-LM
     contract (models/_functional.py), on `device` (None -> CUDA).  Under
     a mesh the params and AdamW's moments are DTensors placed by
-    `param_specs`; stage above 1 raises."""
-    _plan(config, mesh)
+    `param_specs`."""
     return _functional.make_train_step(config, optimizer,
                                        init_params=init_params,
                                        loss_fn=loss_fn, device=device,

@@ -29,8 +29,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.models._functional import check_single_device
+from ray_tpu_torch._device import MULTI_DEVICE, DeviceLike, resolve_device
+from ray_tpu_torch.models._functional import multi_device
+from ray_tpu_torch.parallel import collectives
+from ray_tpu_torch.parallel.mesh import axis_sizes
+from ray_tpu_torch.parallel.sharding import (BATCH_AXES, local_shard,
+                                             mesh_device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,6 +230,27 @@ def num_params(config: ResNetConfig) -> int:
     return sum(p.numel() for p in ResNet(config).parameters())
 
 
+class _Rows:
+    """A train step's data-parallel plan on this rank of `mesh`: its
+    rows of a batch (`sharding`'s "batch" rule), and the group of row
+    ranks over which each gradient (and the loss and the accuracy) is
+    averaged."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.n = math.prod(axis_sizes(mesh).get(a, 1) for a in BATCH_AXES)
+        self.group = collectives.axis_group(mesh, BATCH_AXES)
+        self.device = mesh_device(mesh)
+
+    def local(self, x):
+        if x.shape[0] % self.n:
+            raise NotImplementedError(
+                f"a batch of {x.shape[0]} rows does not split evenly over "
+                f"the {self.n} ranks of {BATCH_AXES}: uneven shards wait "
+                f"for {MULTI_DEVICE}")
+        return local_shard(x, self.mesh, (BATCH_AXES,)).to(self.device)
+
+
 def make_train_step(config: ResNetConfig, optimizer, mesh=None, *,
                     device: DeviceLike = None):
     """(init_state, train_step): batch = {"images" [B,H,W,C], "labels"
@@ -234,9 +259,18 @@ def make_train_step(config: ResNetConfig, optimizer, mesh=None, *,
     seeded by `key` (an int or a torch.Generator), then loads `params`
     (a state dict, e.g. from convert.resnet_state_dict) when given.  The
     step updates the model's parameters and the optimizer's moments in
-    place.  A mesh with an axis above 1 raises."""
-    check_single_device(mesh)
-    device = resolve_device(device)
+    place.
+
+    Under a mesh (on every rank of its process group; the model on the
+    rank's device), as in the reference: the params are replicated, the
+    batch (global tensors, or DTensors split over (data, fsdp)) splits
+    its rows over (data, fsdp) and every other axis is a replica; each
+    gradient, the loss and the accuracy are averaged over the row ranks
+    before the optimizer's step.  GroupNorm takes no statistic across
+    the batch, so the split is exact.  A batch whose rows do not split
+    evenly raises, before any collective."""
+    rows = _Rows(mesh) if multi_device(mesh) else None
+    device = rows.device if rows is not None else resolve_device(device)
 
     def init_state(key=0, params: Optional[dict] = None) -> dict:
         gen = key if isinstance(key, torch.Generator) \
@@ -250,15 +284,27 @@ def make_train_step(config: ResNetConfig, optimizer, mesh=None, *,
 
     def train_step(state: dict, batch: dict):
         model, opt = state["params"], state["opt_state"]
+        images, labels = batch["images"], batch["labels"]
+        if rows is not None:
+            images, labels = rows.local(images), rows.local(labels)
         opt.zero_grad(set_to_none=True)
-        logits = model(batch["images"].to(device, non_blocking=True))
-        labels = batch["labels"].to(device, non_blocking=True).long()
+        logits = model(images.to(device, non_blocking=True))
+        labels = labels.to(device, non_blocking=True).long()
         loss = F.cross_entropy(logits.float(), labels)
         loss.backward()
-        opt.step()
         acc = (logits.argmax(-1) == labels).float().mean()
+        loss = loss.detach()
+        if rows is not None:
+            params = [p for p in model.parameters() if p.grad is not None]
+            grads = collectives.all_reduce_mean(
+                [p.grad for p in params] + [loss, acc], rows.group)
+            with torch.no_grad():
+                for p, g in zip(params, grads):
+                    p.grad.copy_(g)
+            loss, acc = grads[-2:]
+        opt.step()
         return ({"params": model, "opt_state": opt,
                  "step": state["step"] + 1},
-                {"loss": loss.detach(), "accuracy": acc})
+                {"loss": loss, "accuracy": acc})
 
     return init_state, train_step

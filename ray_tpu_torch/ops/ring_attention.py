@@ -112,25 +112,7 @@ def ring_attention_plain(q, k, v, *, mesh, axis: str = "seq",
             continue
         m, l, acc = _merge(m, l, acc, *_block_attend(q, kv[0], kv[1], scale,
                                                      None))
-    return _Tie.apply(_finish(l, acc, q.dtype), kv)
-
-
-class _Tie(torch.autograd.Function):
-    """`out` as it is, with the end of the rotation chain tied to it: a
-    zero gradient flows into the chain's last block, so the backward
-    rotates the chain's gradients on every rank as often as the forward
-    rotated its blocks, whichever blocks the rank skipped (JAX's
-    transpose of the reference's scan rotates zeros alike)."""
-
-    @staticmethod
-    def forward(ctx, out, chain):
-        ctx.chain = (chain.shape, chain.dtype, chain.device)
-        return out.view_as(out)
-
-    @staticmethod
-    def backward(ctx, g):
-        shape, dtype, device = ctx.chain
-        return g, torch.zeros(shape, dtype=dtype, device=device)
+    return collectives.tie(_finish(l, acc, q.dtype), kv)
 
 
 def _attended(r: int, n: int, causal: bool):

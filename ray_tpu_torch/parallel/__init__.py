@@ -11,12 +11,11 @@ the pipeline helpers.
   and their placements as DTensors (`named_sharding`, `tree_shardings`,
   `shard_opt_state`, `shard_batch`, `global_batch`, ...);
 - `collectives.py`: every collective of the mesh path;
-- `launch.py`: `run_ranks`, the ranks of a mesh as spawned processes;
-- `pipeline.py`: `chunk_assignment` (the MPMD pump's chunk ownership)
-  and `stack_stage_params`.
-
-The SPMD pipeline (`pipeline_apply`, `pipeline_loss_dryrun`) waits for
-its item of ROADMAP A8.
+- `launch.py`: `run_ranks`, the ranks of a mesh as spawned processes
+  for one call, and `RankGang`, ranks that stay up across calls;
+- `pipeline.py`: the SPMD pipeline over the stage axis
+  (`pipeline_apply`, `pipeline_loss_dryrun`), `chunk_assignment` (the
+  MPMD pump's chunk ownership) and `stack_stage_params`.
 """
 
 from ray_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -47,5 +46,7 @@ from ray_tpu_torch.parallel.sharding import (  # noqa: F401
 )
 from ray_tpu_torch.parallel.pipeline import (  # noqa: F401
     chunk_assignment,
+    pipeline_apply,
+    pipeline_loss_dryrun,
     stack_stage_params,
 )

@@ -3,11 +3,13 @@
 Every collective of the mesh path (the train step's parameter gathers
 and gradient reductions, the tensor-parallel activation sums, the
 vocab-parallel cross-entropy) goes through the functions here:
-`all_reduce`, `all_gather` and `reduce_scatter` on tensors, and their
+`all_reduce`, `all_gather` and `reduce_scatter` on tensors
+(`all_reduce_mean` for the replicas of a data-parallel learner), and their
 autograd pairs (`all_gather_value` / `reduce_scatter_value`,
 `all_reduce_value` / `all_reduce_grad`); `gather_replicated`, a gather
 for a computation that every rank of the group repeats; and the ring's
-rotation, `rotate` on tensors and `ppermute` with its autograd form.
+rotation, `rotate` on tensors and `ppermute` with its autograd form,
+and `tie`, which keeps a chain of rotations in every rank's backward.
 A group of one rank is `None`, and every function is then the identity.
 
 The rotation (each rank of a group sends to the rank `shift` places on
@@ -104,6 +106,19 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     with _timed(t, "all_reduce"):
         dist.all_reduce(t, op=_REDUCE_OPS[op], group=group)
     return t
+
+
+def all_reduce_mean(tensors: list, group) -> list:
+    """Each tensor's mean over `group` (data-parallel replicas' gradients
+    and metrics), in one all-reduce of the tensors laid end to end; as
+    they are when `group` is None."""
+    if group is None:
+        return list(tensors)
+    flat = all_reduce(torch.cat([t.detach().reshape(-1).float()
+                                 for t in tensors]), group)
+    flat /= dist.get_world_size(group)
+    return [part.view(t.shape).to(t.dtype) for t, part in
+            zip(tensors, flat.split([t.numel() for t in tensors]))]
 
 
 def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -231,6 +246,30 @@ def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
     """`rotate` of one tensor with an autograd form: the gradient takes
     the reverse shift."""
     return x if group is None else _Ppermute.apply(x, group, shift)
+
+
+class _Tie(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, out, chain):
+        ctx.chain = (chain.shape, chain.dtype, chain.device)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.chain
+        return g, torch.zeros(shape, dtype=dtype, device=device)
+
+
+def tie(out: torch.Tensor, chain: torch.Tensor) -> torch.Tensor:
+    """`out` as it is, with `chain` (the end of a chain of `ppermute`s)
+    tied to it: a zero gradient flows into the chain, so the backward
+    rotates the chain's gradients on every rank as often as the forward
+    rotated it, whatever the rank did with what it received (JAX's
+    transpose of a scan rotates zeros alike).  A collective that runs
+    on some ranks' backward and not on others' would desynchronise the
+    group."""
+    return _Tie.apply(out, chain)
 
 
 class _GatherReplicated(torch.autograd.Function):

@@ -27,11 +27,26 @@ dict of axis sizes, and returns plain data:
 - `batches`: a global batch through `shard_batch`, `global_batch`,
   the device feed and `with_logical_constraint`, and an optimizer
   state through `shard_opt_state`;
+- `pipeline`: `pipeline_apply` and `pipeline_loss_dryrun` of tanh
+  stages on this rank's stage and rows, with the dryrun's gradients;
+- `pipeline_gpt`: gpt's blocks as pipeline stages, a few AdamW steps
+  through `pipeline_loss_dryrun` (the embeddings and the head fixed);
+- `resnet`: ResNet's `make_train_step` under the mesh for a few AdamW
+  steps;
+- `learner`: the RL learners (`TorchLearner`, `_VTraceLearner`)
+  data-parallel over the ranks for a few updates;
 - `sequence`: several of these in turn on one group of ranks.
+
+`gang_keep` and `gang_stall` take a `RankGang`'s state: what the
+launcher's checks drive.  With `sizes` None, `pipeline_gpt` and `resnet`
+run on one device with no process group (the plain version that the
+mesh runs are held against), and save their start and final params
+where `save` says.
 """
 
 from __future__ import annotations
 
+import hashlib
 import statistics
 import time
 from typing import Optional
@@ -383,12 +398,13 @@ def train(rank: int, world_size: int, family: str, config, sizes: dict,
           np_params: Optional[dict], batches: list, lr: float,
           device: str = "cpu", return_params: bool = True,
           rules: Optional[dict] = None, reference: Optional[str] = None,
-          control: Optional[str] = None) -> dict:
+          control: Optional[str] = None, digest: bool = False) -> dict:
     """One AdamW step per batch, each timed (host clock around a
     synchronize; the median leaves out the first, which warms up), the
     K1-K3 counts set to 0 just before the steps and read just after;
     the params' shards after these steps (`shards`, with
-    `return_params`), and each leaf's update against a single-device
+    `return_params`; with `digest`, a sha256 of their bytes, which
+    replicas share), and each leaf's update against a single-device
     run's (`update_rel_err`, with `reference`, see `_update_errors`);
     then one more step on the last batch under `collectives.measure()`
     for the share of a step spent in collectives, whose loss
@@ -450,6 +466,9 @@ def train(rank: int, world_size: int, family: str, config, sizes: dict,
     if reference is not None:
         out["update_rel_err"] = _update_errors(state["params"], specs, mesh,
                                                reference)
+    if digest:
+        out["params_digest"] = _digest(
+            p.to_local() for p in _flat(state["params"]).values())
     _sync(dev)
     t0 = time.perf_counter()
     with collectives.measure() as stats:
@@ -528,6 +547,448 @@ def restore(rank: int, world_size: int, sizes: dict, path: str,
                        _numpy(node.to_local()))
     walk(tree, "")
     return out
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def _collective_stats(stats: dict, step_ms: float) -> dict:
+    return {"calls": stats["calls"], "ms": stats["seconds"] * 1e3,
+            "bytes": stats["bytes"], "step_ms": step_ms,
+            "share": stats["seconds"] * 1e3 / step_ms,
+            "by_op": {op: {"calls": o["calls"], "ms": o["seconds"] * 1e3,
+                           "bytes": o["bytes"]}
+                      for op, o in stats["by_op"].items()}}
+
+
+def _coordinate(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def _rel_update(start, got, want) -> float:
+    """||(got - start) - (want - start)||_2 / ||want - start||_2."""
+    moved = want.double() - start.double()
+    return float((got.double() - want.double()).norm()
+                 / moved.norm().clamp_min(1e-30))
+
+
+def _rel_err(got, want) -> float:
+    """||got - want||_2 / ||want||_2."""
+    return _rel_update(torch.zeros_like(want), got, want)
+
+
+def _tanh_stage(p, x):
+    y = x @ p["w"]
+    return torch.tanh(y + p["b"] if "b" in p else y)
+
+
+def _mean_square(y, t):
+    return ((y - t) ** 2).mean()
+
+
+class _SumBoth(torch.autograd.Function):
+    """A fault for `pipeline`'s control: an all-reduce whose backward
+    sums the gradient over the group too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from ray_tpu_torch.parallel import collectives
+
+        ctx.group = group
+        return collectives.all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ray_tpu_torch.parallel import collectives
+
+        return collectives.all_reduce(g.clone(), ctx.group), None
+
+
+def pipeline(rank: int, world_size: int, sizes: dict, stages: dict,
+             microbatches: np.ndarray, targets: Optional[np.ndarray] = None,
+             control: Optional[str] = None, device: str = "cpu") -> dict:
+    """`pipeline_apply` of `_tanh_stage` (tanh(x @ w [+ b])) with the
+    stacked numpy `stages` (leading dim n_stages) on this rank's rows
+    of `microbatches` [n_micro, B, D]: {"coordinate", "rows", "out"}.
+    With `targets`, also `pipeline_loss_dryrun`'s mean-square loss and
+    its gradients: of this rank's stage (summed over the row ranks, so
+    each is the gradient of the replicated stage params, as the
+    reference's `jax.grad` gives it) and of this rank's rows of the
+    microbatches (summed over the stage group: only stage 0 reads
+    them).  `control` "sum_backward" swaps the final all-reduce for one
+    whose backward sums as well, a fault the gradient check must
+    catch."""
+    from ray_tpu_torch.parallel import collectives
+    from ray_tpu_torch.parallel import pipeline as P
+    from ray_tpu_torch.parallel.sharding import BATCH_AXES, local_index
+
+    mesh = _mesh(sizes, device)
+    dev = _device(device)
+    coord = _coordinate(mesh)
+    rows = local_index((microbatches.shape[1],), (BATCH_AXES,), mesh)[0]
+    params = {k: torch.from_numpy(v).to(dev).requires_grad_()
+              for k, v in stages.items()}
+    mb = torch.from_numpy(microbatches[:, rows]).to(dev).requires_grad_()
+    out = {"coordinate": coord, "rows": [rows.start, rows.stop],
+           "out": _numpy(P.pipeline_apply(_tanh_stage, mesh, params, mb))}
+    if targets is None:
+        return out
+    if control not in (None, "sum_backward"):
+        raise ValueError(f"control {control!r}")
+    original = collectives.all_reduce_value
+    if control == "sum_backward":
+        collectives.all_reduce_value = _SumBoth.apply
+    try:
+        loss = P.pipeline_loss_dryrun(
+            _tanh_stage, _mean_square, mesh, params, mb,
+            torch.from_numpy(targets[:, rows]).to(dev))
+        grads = torch.autograd.grad(loss, list(params.values()) + [mb],
+                                    allow_unused=True)
+    finally:
+        collectives.all_reduce_value = original
+    row_group = collectives.axis_group(mesh, BATCH_AXES)
+    stage_group = collectives.axis_group(mesh, ("stage",))
+    stage = coord["stage"]
+    out["loss"] = float(loss)
+    out["grads"] = {k: _numpy(collectives.all_reduce(
+        g[stage].contiguous(), row_group)) for k, g in zip(params, grads)}
+    dmb = torch.zeros_like(mb) if grads[-1] is None else grads[-1]
+    out["dmicrobatches"] = _numpy(collectives.all_reduce(
+        dmb.contiguous(), stage_group))
+    return out
+
+
+def _mesh_or_none(sizes: Optional[dict], device: str):
+    return None if sizes is None else _mesh(sizes, device)
+
+
+def _timed_steps(dev, steps, step) -> tuple:
+    """Run `step(i)` for each i, each timed on the host clock around a
+    synchronize, with K1-K3's counts set to 0 just before and read just
+    after: (results, step ms, launches)."""
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _zero_flash_launches()
+    results, step_ms = [], []
+    for i in range(steps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        results.append(step(i))
+        _sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return results, step_ms, _flash_launches()
+
+
+def _measured_step(dev, step) -> tuple:
+    """One more step under `collectives.measure()`: (its result, the
+    collective stats)."""
+    from ray_tpu_torch.parallel import collectives
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    with collectives.measure() as stats:
+        result = step()
+        _sync(dev)
+    return result, _collective_stats(stats, (time.perf_counter() - t0) * 1e3)
+
+
+def _peak_gib(dev):
+    return (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else None)
+
+
+def pipeline_gpt(rank: int, world_size: int, sizes: Optional[dict], config,
+                 batches: list, lr: float, device: str = "cpu",
+                 n_stages: int = 4, reference: Optional[str] = None,
+                 save: Optional[str] = None,
+                 control: Optional[str] = None) -> dict:
+    """gpt's blocks as `n_stages` pipeline stages of n_layers / n_stages
+    blocks each (hidden in, hidden out), one AdamW step per batch of
+    tokens [n_micro, micro_batch, L] through `pipeline_loss_dryrun` on
+    the `stage` axis of `sizes`: the embeddings are looked up before the
+    stages and the final LayerNorm, the tied head and
+    `fused_cross_entropy` (on the tokens rolled left, the last position
+    masked) follow them, all fixed.  The params are the family's init on
+    seed 0 (drawn on the CPU, as on one device), f32, the activations in
+    `config.dtype`.  Returns the losses, step ms, K1-K3 launches,
+    peak memory, then one more step on the last batch under
+    `collectives.measure()` (its loss is the first that sees the last
+    update); with `reference` (torch.save of {"start", "final", "grad"}:
+    the one-device stacks, and the first step's gradients before the
+    optimizer's) each stage leaf's update (`_rel_update`) and first
+    gradient (`_rel_err`) against it.  With `sizes` None: every stage in
+    turn on one device, its start and final stacks and first gradients
+    saved to `save`.  `control` "sum_backward" swaps the final
+    all-reduce for one whose backward sums as well, so that every stage
+    takes n_stages times its gradient: a fault the gradient check must
+    catch (AdamW's update barely moves under a common scale)."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models._functional import adamw
+    from ray_tpu_torch.ops.cross_entropy import fused_cross_entropy
+    from ray_tpu_torch.parallel import collectives
+    from ray_tpu_torch.parallel.pipeline import pipeline_loss_dryrun
+
+    if control not in (None, "sum_backward"):
+        raise ValueError(f"control {control!r}")
+    c = config
+    dev = _device(device)
+    mesh = _mesh_or_none(sizes, device)
+    stage = 0 if mesh is None else _coordinate(mesh)["stage"]
+    full = gpt.init_params(c, torch.Generator().manual_seed(0),
+                           device="cpu")
+    per = c.n_layers // n_stages
+    stack = {k: v.view((n_stages, per) + v.shape[1:])
+             for k, v in full["blocks"].items()}
+    own = stack if mesh is None else {k: v[stage:stage + 1]
+                                      for k, v in stack.items()}
+    params = {k: v.to(dev, copy=True).requires_grad_()
+              for k, v in own.items()}
+    start = {k: v.detach().clone() for k, v in own.items()}
+    fixed = {k: full[k].to(dev) for k in ("tok_embed", "pos_embed",
+                                          "final_ln_scale",
+                                          "final_ln_bias")}
+    head = fixed["tok_embed"].T.to(c.dtype)
+    del full, stack
+    opt = adamw(lr).init(params)
+
+    def stage_fn(p, x):
+        layers = {k: v.unbind(0) for k, v in p.items()}
+        for i in range(per):
+            x, _ = gpt._block(x, {k: v[i] for k, v in layers.items()}, c)
+        return x
+
+    def loss_fn(y, tokens):
+        x = gpt._layernorm(y, fixed["final_ln_scale"],
+                           fixed["final_ln_bias"])
+        valid = torch.ones(tokens.shape, dtype=torch.float32,
+                           device=tokens.device)
+        valid[:, -1] = 0.0
+        b, l, d = x.shape
+        return fused_cross_entropy(
+            x.reshape(b * l, d), head,
+            torch.roll(tokens, -1, dims=1).reshape(-1), valid.reshape(-1))
+
+    feed = [torch.from_numpy(b).to(dev) for b in batches]
+    grad: dict = {}
+
+    def step(tokens):
+        opt.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            hidden = (fixed["tok_embed"][tokens.long()]
+                      + fixed["pos_embed"][:tokens.shape[-1]]).to(c.dtype)
+        loss = pipeline_loss_dryrun(stage_fn, loss_fn, mesh, params, hidden,
+                                    tokens)
+        loss.backward()
+        if not grad:
+            grad.update({k: v.grad.detach().cpu().clone()
+                         for k, v in params.items()})
+        opt.step()
+        return float(loss.detach())
+
+    original = collectives.all_reduce_value
+    if control == "sum_backward":
+        collectives.all_reduce_value = _SumBoth.apply
+    try:
+        losses, step_ms, launches = _timed_steps(
+            dev, len(feed), lambda i: step(feed[i]))
+        final = {k: v.detach().cpu().clone() for k, v in params.items()}
+        final_loss, stats = _measured_step(dev, lambda: step(feed[-1]))
+    finally:
+        collectives.all_reduce_value = original
+    out = {"coordinate": None if mesh is None else _coordinate(mesh),
+           "losses": losses, "step_ms": step_ms,
+           "median_step_ms": statistics.median(step_ms[1:] or step_ms),
+           "launches": launches, "peak_memory_gib": _peak_gib(dev),
+           "final_loss": final_loss, "collectives": stats}
+    if save is not None:
+        torch.save({"start": start, "final": final, "grad": grad}, save)
+    if reference is not None:
+        ref = torch.load(reference, weights_only=True)
+        own = slice(stage, stage + 1)
+        out["update_rel_err"] = {
+            k: _rel_update(start[k], final[k], ref["final"][k][own])
+            for k in final}
+        out["grad_rel_err"] = {k: _rel_err(grad[k], ref["grad"][k][own])
+                               for k in grad}
+        out["start_differs"] = [k for k in final if not torch.equal(
+            start[k], ref["start"][k][own])]
+    return out
+
+
+def _split_resnet_step(k: int, device: torch.device):
+    """A one-device ResNet train step that does the data = k mesh step's
+    arithmetic in one place: each of the batch's k row chunks' loss,
+    accuracy and f32 gradients computed alone, as a row rank computes
+    its own, then summed in rank order and divided by k, as
+    `collectives.all_reduce_mean` does, before the optimizer's step."""
+    import torch.nn.functional as F
+
+    def train_step(state: dict, batch: dict):
+        model, opt = state["params"], state["opt_state"]
+        opt.zero_grad(set_to_none=True)
+        loss = acc = 0.0
+        for images, labels in zip(batch["images"].chunk(k),
+                                  batch["labels"].chunk(k)):
+            logits = model(images.to(device))
+            labels = labels.to(device).long()
+            part = F.cross_entropy(logits.float(), labels)
+            part.backward()                     # adds into each .grad
+            loss = loss + part.detach()
+            acc = acc + (logits.argmax(-1) == labels).float().mean()
+        with torch.no_grad():
+            for p in model.parameters():
+                p.grad /= k
+        opt.step()
+        return (dict(state, step=state["step"] + 1),
+                {"loss": loss / k, "accuracy": acc / k})
+
+    return train_step
+
+
+def resnet(rank: int, world_size: int, sizes: Optional[dict], config,
+           batches, lr: float, device: str = "cpu",
+           params: Optional[dict] = None,
+           references: Optional[dict] = None, save: Optional[str] = None,
+           control: Optional[str] = None, split: int = 1) -> dict:
+    """ResNet's `make_train_step(config, adamw(lr), mesh)` under `sizes`
+    (None: one device), one step per batch: `batches` a list of
+    {"images", "labels"} numpy (global), or {"seed", "steps", "batch",
+    "image"} to draw them here (torch's CPU generator, normal images and
+    uniform labels).  The params are `params` (a state dict of numpy,
+    e.g. the reference's through convert.resnet_state_dict) or the init
+    on seed 0.  Returns the losses, accuracies, step ms, peak memory and
+    this rank's final state dict as numpy (`final`); with `references`
+    ({name: path of a torch.save of {"start", "final"} state dicts})
+    each leaf's update against each (`update_rel_err[name]`); with
+    `save`, its own start and final saved there.  `control`
+    "no_grad_sync" leaves every rank's gradients (and loss) its own: a
+    fault the checks must catch.  `split` k > 1 (one device only) takes
+    each step as `_split_resnet_step` does."""
+    from ray_tpu_torch.models import resnet as R
+    from ray_tpu_torch.models._functional import adamw
+    from ray_tpu_torch.parallel import collectives
+
+    if control not in (None, "no_grad_sync"):
+        raise ValueError(f"control {control!r}")
+
+    dev = _device(device)
+    mesh = _mesh_or_none(sizes, device)
+    if isinstance(batches, dict):
+        gen = torch.Generator().manual_seed(batches["seed"])
+        batches = [{"images": torch.randn(
+            (batches["batch"],) + tuple(batches["image"]), generator=gen),
+            "labels": torch.randint(0, config.num_classes,
+                                    (batches["batch"],), generator=gen)}
+            for _ in range(batches["steps"])]
+    else:
+        batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+                   for b in batches]
+    init_state, train_step = R.make_train_step(config, adamw(lr), mesh,
+                                               device=dev)
+    if split > 1:
+        if mesh is not None:
+            raise ValueError("split is a one-device step")
+        train_step = _split_resnet_step(split, dev)
+    state = init_state(0, params=None if params is None else {
+        k: torch.from_numpy(v) for k, v in params.items()})
+    model = state["params"]
+    start = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+
+    def step(i):
+        nonlocal state
+        state, metrics = train_step(state, batches[i])
+        return float(metrics["loss"]), float(metrics["accuracy"])
+
+    original = collectives.all_reduce_mean
+    if control == "no_grad_sync":
+        collectives.all_reduce_mean = lambda tensors, group: list(tensors)
+    try:
+        results, step_ms, _ = _timed_steps(dev, len(batches), step)
+    finally:
+        collectives.all_reduce_mean = original
+    final = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    out = {"losses": [r[0] for r in results],
+           "accuracies": [r[1] for r in results], "step_ms": step_ms,
+           "median_step_ms": statistics.median(step_ms[1:] or step_ms),
+           "peak_memory_gib": _peak_gib(dev),
+           "final": {k: v.numpy() for k, v in final.items()}
+           if references is None and save is None else None}
+    if save is not None:
+        torch.save({"start": start, "final": final}, save)
+    if references is not None:
+        out["update_rel_err"], out["start_differs"] = {}, set()
+        for name, path in references.items():
+            ref = torch.load(path, weights_only=True)
+            out["update_rel_err"][name] = {
+                k: _rel_update(start[k], final[k], ref["final"][k])
+                for k in final}
+            out["start_differs"] |= {k for k in final
+                                     if not torch.equal(start[k],
+                                                        ref["start"][k])}
+        out["start_differs"] = sorted(out["start_differs"])
+        out["digest"] = _digest(final.values())
+    return out
+
+
+def learner(rank: int, world_size: int, kind: str, args: tuple,
+            kwargs: dict, state: Optional[dict], batches: list,
+            permutations: Optional[list] = None,
+            device: str = "cpu") -> dict:
+    """An RL learner data-parallel over every rank (a DeviceMesh of
+    data = world_size): `TorchLearner(*args, **kwargs)` (kind "ppo") or
+    `_VTraceLearner(*args, **kwargs)` (kind "vtrace"), its state set to
+    `state` (either package's layout) when given, one update per batch.
+    With `permutations` (one [n] array per epoch, in order), the
+    TorchLearner's shuffles are these (e.g. the reference's own draws)
+    instead of its generator's.  Returns each update's metrics and the
+    final weights."""
+    from ray_tpu_torch.parallel.mesh import create_mesh
+    from ray_tpu_torch.rllib.impala import _VTraceLearner
+    from ray_tpu_torch.rllib.learner import TorchLearner
+
+    cls = {"ppo": TorchLearner, "vtrace": _VTraceLearner}[kind]
+    mesh = create_mesh(MeshConfig(data=world_size), device=device)
+    ln = cls(*args, mesh=mesh, device=device, **kwargs)
+    if state is not None:
+        ln.set_state(state)
+    if permutations is not None:
+        draws = iter(permutations)
+        ln._permutation = lambda n: torch.from_numpy(
+            np.asarray(next(draws), np.int64))
+    metrics = [ln.update(b) for b in batches]
+    return {"metrics": metrics, "weights": ln.get_weights()}
+
+
+def imported(rank: int, world_size: int, packages: tuple) -> list:
+    """The modules this rank has imported from `packages` (top-level
+    names), sorted."""
+    import sys
+
+    return sorted(m for m in sys.modules if m.split(".")[0] in packages)
+
+
+def gang_keep(rank: int, world_size: int, state: dict, value):
+    """Keep `value` in a `RankGang` rank's state; return what was kept
+    before (None the first time)."""
+    before = state.get("kept")
+    state["kept"] = value
+    return before
+
+
+def gang_stall(rank: int, world_size: int, state: dict, who: int) -> int:
+    """Rank `who` waits in a barrier that no other rank joins (a hung
+    rank, for a gang's timeout); the others return at once."""
+    import torch.distributed as dist
+
+    if rank == who:
+        dist.barrier()
+    return rank
 
 
 def sequence(rank: int, world_size: int, calls: list) -> list:

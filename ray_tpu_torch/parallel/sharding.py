@@ -35,11 +35,15 @@ from ray_tpu_torch.parallel.mesh import axis_sizes
 
 LogicalSpec = Tuple[Optional[str], ...]
 
+# The mesh axes a batch's rows split over (the "batch" rule below, and
+# the reference pipeline's `io_spec`); every other axis holds replicas.
+BATCH_AXES = ("data", "fsdp")
+
 # Default rule table: logical axis -> mesh axis (or tuple of mesh axes).
 # Covers dense transformer + MoE.  "embed" maps to fsdp so that ZeRO-3
 # style weight sharding engages when the fsdp axis is > 1.
 DEFAULT_RULES: Mapping[str, Union[str, Tuple[str, ...], None]] = {
-    "batch": ("data", "fsdp"),   # global batch split over both DP axes
+    "batch": BATCH_AXES,         # global batch split over both DP axes
     "length": "seq",             # sequence dim: context parallelism
     "embed": "fsdp",             # param embed dim: FSDP shard
     "act_embed": None,           # activation embed dim: full

@@ -24,8 +24,9 @@ runtime reaches the port only as a handle that the caller passes
 `report` (`Algorithm.as_trainable`) and the Data layer
 (`DatasetReader.from_path`, `JsonReader.to_dataset`).
 
-Waiting for a later slice: the data-parallel learners of the
-multi-device slice (`learner_mesh`).
+`AlgorithmConfig.resources(learner_mesh=...)` makes an algorithm's
+learner a group of data-parallel learners on spawned ranks
+(`learner_group.LearnerGroup`).
 """
 
 from ray_tpu_torch.rllib.a2c import A2C, A2CConfig, a2c_loss  # noqa: F401
@@ -49,6 +50,7 @@ from ray_tpu_torch.rllib.impala import (  # noqa: F401
 from ray_tpu_torch.rllib.learner import (  # noqa: F401
     ClipAdam, TorchLearner, ppo_loss, ppo_loss_continuous,
     ppo_loss_recurrent)
+from ray_tpu_torch.rllib.learner_group import LearnerGroup  # noqa: F401
 from ray_tpu_torch.rllib.marwil import (  # noqa: F401
     MARWIL, MARWILConfig, compute_mc_returns)
 from ray_tpu_torch.rllib.models import (  # noqa: F401

@@ -12,6 +12,7 @@ from typing import Dict, Tuple
 import torch
 
 from ray_tpu_torch.rllib.learner import TorchLearner, policy_terms
+from ray_tpu_torch.rllib.learner_group import learner_for
 from ray_tpu_torch.rllib.ppo import PPO, PPOConfig
 from ray_tpu_torch.rllib.sample_batch import SampleBatch
 
@@ -42,14 +43,15 @@ class A2CConfig(PPOConfig):
 
 
 class A2C(PPO):
-    def _make_learner(self) -> TorchLearner:
+    def _make_learner(self):
         cfg = self.config
         mb = cfg.sgd_minibatch_size or cfg.train_batch_size
-        return TorchLearner(
-            self.obs_dim, self.num_actions, loss_fn=a2c_loss,
+        return learner_for(
+            TorchLearner, self.obs_dim, self.num_actions, loss_fn=a2c_loss,
             config={"lr": cfg.lr, "grad_clip": cfg.grad_clip,
                     "num_sgd_iter": cfg.num_sgd_iter,
                     "sgd_minibatch_size": mb,
                     "vf_loss_coeff": getattr(cfg, "vf_loss_coeff", 0.5),
                     "entropy_coeff": getattr(cfg, "entropy_coeff", 0.0)},
-            hidden=cfg.model_hidden, seed=cfg.seed, device=cfg.device)
+            hidden=cfg.model_hidden, seed=cfg.seed, device=cfg.device,
+            mesh=cfg.learner_mesh)

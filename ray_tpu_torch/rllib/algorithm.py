@@ -13,8 +13,11 @@ cannot import passed in instead:
 
 `.multi_agent(policies=..., policy_mapping_fn=...)` declares a policy
 map; the algorithm then probes a multi-agent env (`multi_agent.py`) and
-sizes one model per policy.  `learner_mesh` refuses anything but None
-(the multi-device slice).
+sizes one model per policy.  `.resources(learner_mesh=...)` (the port's
+`MeshConfig`, or anything with a `.shape` of axis sizes) makes the
+learner a group of `data` data-parallel learners
+(`learner_group.LearnerGroup`, started by `build()` and ended by
+`stop()`); any other axis above 1 raises ("data-parallel only").
 
 `save()` returns the port's dict `Checkpoint` (`ray_tpu_torch.air`) of
 `save_to_dict()` plus `iteration` and `total_env_steps`; `restore()`
@@ -32,9 +35,10 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 
-from ray_tpu_torch._device import MULTI_DEVICE
 from ray_tpu_torch.air import Checkpoint
 from ray_tpu_torch.rllib.env import make_vector_env
+from ray_tpu_torch.rllib.learner import learner_mesh_sizes
+from ray_tpu_torch.rllib.learner_group import LearnerGroup
 from ray_tpu_torch.rllib.multi_agent import make_multi_agent_env
 
 
@@ -67,6 +71,7 @@ class AlgorithmConfig:
         self.runtime: Any = None
         self.device: Any = None
         self.rollout_device: Any = None
+        self.learner_mesh: Any = None
         self.observer: Any = None
         self.extra: Dict[str, Any] = {}
 
@@ -100,9 +105,8 @@ class AlgorithmConfig:
                   device: Any = None, rollout_device: Any = None
                   ) -> "AlgorithmConfig":
         if learner_mesh is not None:
-            raise NotImplementedError(
-                f"learner_mesh (data-parallel learners) waits for "
-                f"{MULTI_DEVICE}")
+            learner_mesh_sizes(learner_mesh)
+            self.learner_mesh = learner_mesh
         if num_cpus_per_worker is not None:
             self.num_cpus_per_worker = num_cpus_per_worker
         if runtime is not None:
@@ -131,7 +135,7 @@ class AlgorithmConfig:
     def to_dict(self) -> Dict[str, Any]:
         d = {k: v for k, v in self.__dict__.items()
              if k not in ("algo_class", "extra", "runtime", "observer",
-                          "policy_mapping_fn")}
+                          "policy_mapping_fn", "learner_mesh")}
         d.update(self.extra)
         return d
 
@@ -241,6 +245,11 @@ class Algorithm:
     def stop(self) -> None:
         if getattr(self, "workers", None) is not None:
             self.workers.stop()
+        learners = [getattr(self, "learner", None)] + list(
+            getattr(self, "learners", {}).values())
+        for learner in learners:
+            if isinstance(learner, LearnerGroup):
+                learner.stop()
 
     # -- Tune integration --------------------------------------------------
     @classmethod

@@ -15,9 +15,16 @@ weights while `LearnerThread` steps.  Here the optimizer updates the
 params in place, so its step and every read of the weights hold the
 learner's lock: a read never sees half an update.
 
+Data-parallel (`mesh` with `data` = k > 1, on each rank of a process
+group): each rank takes its B / k columns of the time-major [T, B]
+fragment (and its rows of `bootstrap_obs`), and the gradients and
+metrics are averaged over `data`; V-trace is per sequence, so the slice
+is exact.
+
 `IMPALA` needs the caller's runtime handle (`.resources(runtime=...)`):
-its rollout workers are remote by construction.  Data-parallel learners
-wait for the multi-device slice.
+its rollout workers are remote by construction.  With
+`.resources(learner_mesh=...)` its learner is a learner group
+(`learner_group.py`) of data-parallel ranks.
 """
 
 from __future__ import annotations
@@ -31,10 +38,12 @@ import torch.nn.functional as F
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models import convert
-from ray_tpu_torch.models._functional import check_single_device
+from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
-from ray_tpu_torch.rllib.learner import (ClipAdam, batch_tensors,
-                                         learner_state, set_learner_state)
+from ray_tpu_torch.rllib.learner import (ClipAdam, DataParallel,
+                                         batch_tensors, learner_state,
+                                         set_learner_state)
+from ray_tpu_torch.rllib.learner_group import learner_for, picklable_config
 from ray_tpu_torch.rllib.models import make_model, make_recurrent_model
 from ray_tpu_torch.rllib.sample_batch import SampleBatch
 from ray_tpu_torch.rllib.vtrace import vtrace
@@ -61,7 +70,7 @@ class _VTraceLearner:
 
     def __init__(self, obs_dim, num_actions: int, cfg: IMPALAConfig,
                  hidden, seed: int, mesh=None, device: DeviceLike = None):
-        check_single_device(mesh)
+        self.dp = DataParallel(mesh, "_VTraceLearner")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.recurrent = bool(getattr(cfg, "use_lstm", False))
@@ -123,14 +132,32 @@ class _VTraceLearner:
         return total, {"total_loss": total, "policy_loss": pg_loss,
                        "vf_loss": vf_loss, "entropy": entropy}
 
+    def _columns(self, tb: Dict[str, torch.Tensor]) -> Dict[str,
+                                                           torch.Tensor]:
+        """This replica's B / k columns of a time-major fragment (rows of
+        `bootstrap_obs`)."""
+        k, i = self.dp.k, self.dp.index
+        if k == 1:
+            return tb
+        out = {}
+        for key, v in tb.items():
+            axis = 0 if key == "bootstrap_obs" else 1
+            n = v.shape[axis] // k
+            out[key] = v.narrow(axis, i * n, n)
+        return out
+
     def update(self, batch: SampleBatch) -> Dict[str, float]:
-        total, metrics = self.loss(batch_tensors(batch, self.device))
-        grads = torch.autograd.grad(total, self.opt.params)
+        total, metrics = self.loss(self._columns(batch_tensors(
+            batch, self.device)))
+        grads = list(torch.autograd.grad(total, self.opt.params))
+        keys = list(metrics)
+        means = collectives.all_reduce_mean(
+            grads + [metrics[k].detach() for k in keys], self.dp.group)
         with self._lock:
-            self.opt.step(grads)
+            self.opt.step(means[:len(grads)])
             self.num_updates += 1
-        values = torch.stack([v.detach() for v in metrics.values()]).tolist()
-        return dict(zip(metrics, values))
+        values = torch.stack(means[len(grads):]).tolist()
+        return dict(zip(keys, values))
 
     def get_weights(self):
         with self._lock:
@@ -192,9 +219,11 @@ class IMPALA(Algorithm):
             num_workers=max(cfg.num_rollout_workers, 1), runtime=cfg.runtime,
             num_cpus_per_worker=cfg.num_cpus_per_worker,
             worker_kwargs=self.worker_kwargs(postprocess=False, **recurrent))
-        self.learner = _VTraceLearner(
-            self.obs_dim, self.num_actions, cfg, cfg.model_hidden, cfg.seed,
-            device=cfg.device)
+        self.learner = learner_for(
+            _VTraceLearner, self.obs_dim, self.num_actions,
+            picklable_config(cfg), cfg.model_hidden, cfg.seed,
+            device=cfg.device,
+            mesh=cfg.learner_mesh)
         self.workers.sync_weights(self.learner.get_weights())
         self.learner_thread = LearnerThread(
             self.learner, cfg.learner_queue_size)

@@ -26,8 +26,16 @@ recurrent actor-critic (minibatch rows are then sequences), a continuous
 env (`num_actions == 0`, `action_dim > 0`) the Gaussian actor-critic,
 else the MLP or the Nature-CNN.
 
-The data-parallel learner (`mesh`, the reference's shard_map with a
-gradient pmean) waits for the multi-device slice.
+Data-parallel (`mesh` with `data` = k > 1, built inside each rank of a
+process group; the reference's shard_map with a gradient pmean): every
+rank holds the whole batch and draws the same permutation (its
+generator seeded alike), the advantages are normalised over each global
+minibatch of `mb_rows = (min(mb_size, n) // k) * k` rows before the
+rank takes its `mb_rows // k` of them, and the gradients and metrics
+are averaged over `data` before `ClipAdam`'s clip and step, so a dp-k
+learner walks one device's trajectory up to the order of its sums.  A
+mesh with any other axis above 1 raises ("data-parallel only").  Across
+processes the learner is a group of such ranks (`learner_group.py`).
 """
 
 from __future__ import annotations
@@ -42,11 +50,61 @@ import torch.nn.functional as F
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models import convert
-from ray_tpu_torch.models._functional import check_single_device
+from ray_tpu_torch.parallel import collectives
+from ray_tpu_torch.parallel.mesh import AXES, MeshConfig, axis_sizes
 from ray_tpu_torch.rllib.models import (gaussian_logp,
                                         make_continuous_model, make_model,
                                         make_recurrent_model)
 from ray_tpu_torch.rllib.sample_batch import SampleBatch
+
+
+def learner_mesh_sizes(mesh) -> Dict[str, int]:
+    """{axis: size} of a `learner_mesh`: the port's `MeshConfig` (every
+    axis given, no -1) or anything `axis_sizes` reads (a DeviceMesh, an
+    object with a `.shape` mapping).  Any axis above 1 but `data` raises
+    ValueError ("data-parallel only")."""
+    if isinstance(mesh, MeshConfig):
+        sizes = {a: getattr(mesh, a) for a in AXES}
+        if -1 in sizes.values():
+            raise ValueError(f"learner_mesh {mesh}: give every axis's size "
+                             f"(no -1)")
+    else:
+        sizes = axis_sizes(mesh)
+    bad = [a for a, s in sizes.items() if s > 1 and a != "data"]
+    if bad:
+        raise ValueError(
+            f"the RL learner is data-parallel only; mesh axes {bad} have "
+            f"size > 1 (shard the model with models/, not the RL learner)")
+    return sizes
+
+
+class DataParallel:
+    """This rank's place among the data-parallel replicas of a learner on
+    `mesh`: `group` over `data` (None on one device), its size `k` and
+    the rank's `index` in it.  A mesh with any other axis above 1 raises
+    ValueError, as the reference's learner does (`learner_mesh_sizes`);
+    `mesh` is None, a DeviceMesh, or anything with a `.shape` mapping
+    whose axes are all 1 (one device)."""
+
+    def __init__(self, mesh, who: str):
+        self.k = 1 if mesh is None else \
+            learner_mesh_sizes(mesh).get("data", 1)
+        self.group, self.index = None, 0
+        if self.k > 1:
+            if not hasattr(mesh, "mesh_dim_names"):
+                raise TypeError(
+                    f"{who} with data = {self.k} is built on each rank of a "
+                    f"process group with a DeviceMesh (create_mesh); an "
+                    f"algorithm's learner_mesh starts such a group itself")
+            self.group = collectives.axis_group(mesh, ("data",))
+            self.index = dict(zip(mesh.mesh_dim_names,
+                                  mesh.get_coordinate()))["data"]
+
+
+def normalize_advantages(adv: torch.Tensor) -> torch.Tensor:
+    """Over every element of a minibatch (its rows, and a recurrent
+    batch's time axis), std with ddof 0."""
+    return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
 
 
 def batch_tensors(batch, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -149,9 +207,13 @@ class TorchLearner:
                  mesh: Optional[Any] = None, action_dim: int = 0,
                  model: str = "fc", lstm_size: int = 64,
                  device: DeviceLike = None):
-        check_single_device(mesh)
+        self.dp = DataParallel(mesh, "TorchLearner")
         self.device = resolve_device(device)
         self.config = config
+        # A replica's rows are a slice of the global minibatch, whose
+        # advantages `update` normalises before the slice.
+        self._loss_config = config if self.dp.k == 1 else dict(
+            config, advantages_prenormalized=True)
         self.model = make_learner_model(
             obs_dim, num_actions, hidden, seed=seed, device=self.device,
             action_dim=action_dim, model=model, lstm_size=lstm_size)
@@ -166,28 +228,44 @@ class TorchLearner:
 
     def minibatch_step(self, mb: Dict[str, torch.Tensor]
                        ) -> Dict[str, torch.Tensor]:
-        """One loss, backward and optimizer step on one minibatch;
-        returns the loss's metrics as device scalars."""
+        """One loss, backward and optimizer step on one minibatch; the
+        gradients and metrics averaged over the data-parallel replicas
+        first.  Returns the metrics as device scalars."""
         params = self.opt.params
-        loss, metrics = self._loss_fn(self.model, mb, self.config)
-        grads = torch.autograd.grad(loss, params)
+        loss, metrics = self._loss_fn(self.model, mb, self._loss_config)
+        grads = list(torch.autograd.grad(loss, params))
+        keys = list(metrics)
+        means = collectives.all_reduce_mean(
+            grads + [metrics[k].detach() for k in keys], self.dp.group)
         with self._lock:
-            self.opt.step(grads)
-        return {k: v.detach() for k, v in metrics.items()}
+            self.opt.step(means[:len(grads)])
+        return dict(zip(keys, means[len(grads):]))
+
+    def _permutation(self, n: int) -> torch.Tensor:
+        """An epoch's shuffle of the batch's n rows (the same on every
+        data-parallel replica)."""
+        return torch.randperm(n, generator=self._gen)
 
     def update(self, batch: SampleBatch) -> Dict[str, float]:
         tb = batch_tensors(batch, self.device)
         n = next(iter(tb.values())).shape[0]
         mb_size = self.config.get("sgd_minibatch_size", 128)
         num_mb = max(n // mb_size, 1)
-        rows = min(mb_size, n)
+        k, index = self.dp.k, self.dp.index
+        rows = (min(mb_size, n) // k) * k
+        local = slice(index * rows // k, (index + 1) * rows // k)
         metrics: List[Dict[str, torch.Tensor]] = []
         for _ in range(self.config.get("num_sgd_iter", 1)):
-            perm = torch.randperm(n, generator=self._gen).to(self.device)
+            perm = self._permutation(n).to(self.device)
             for i in range(num_mb):
                 idx = perm[i * rows:(i + 1) * rows]
-                metrics.append(self.minibatch_step(
-                    {k: v[idx] for k, v in tb.items()}))
+                mb = {key: v[idx] for key, v in tb.items()}
+                if k > 1:
+                    if SampleBatch.ADVANTAGES in mb:
+                        mb[SampleBatch.ADVANTAGES] = normalize_advantages(
+                            mb[SampleBatch.ADVANTAGES])
+                    mb = {key: v[local] for key, v in mb.items()}
+                metrics.append(self.minibatch_step(mb))
         keys = list(metrics[0])
         means = torch.stack([torch.stack([m[k] for m in metrics]).mean()
                              for k in keys]).tolist()
@@ -241,7 +319,7 @@ def policy_terms(model, mb, cfg=None):
     logp = logp_all.gather(1, actions[:, None])[:, 0]
     adv = mb[SampleBatch.ADVANTAGES]
     if not (cfg or {}).get("advantages_prenormalized"):
-        adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        adv = normalize_advantages(adv)
     entropy = -(torch.exp(logp_all) * logp_all).sum(-1).mean()
     return values, logp, adv, entropy
 
@@ -257,7 +335,7 @@ def _ppo_surrogate(mb, cfg, values, logp, entropy) -> Tuple[torch.Tensor,
 
     adv = mb[SampleBatch.ADVANTAGES]
     if not cfg.get("advantages_prenormalized"):
-        adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        adv = normalize_advantages(adv)
     ratio = torch.exp(logp - mb[SampleBatch.ACTION_LOGP])
     surr = torch.minimum(ratio * adv,
                          torch.clamp(ratio, 1 - clip, 1 + clip) * adv)

@@ -21,6 +21,7 @@ from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.learner import (TorchLearner, ppo_loss,
                                          ppo_loss_continuous,
                                          ppo_loss_recurrent)
+from ray_tpu_torch.rllib.learner_group import learner_for
 from ray_tpu_torch.rllib.multi_agent import (MultiAgentBatch,
                                              MultiAgentRolloutWorker)
 from ray_tpu_torch.rllib.sample_batch import SampleBatch
@@ -68,10 +69,11 @@ class PPO(Algorithm):
     def _policy_weights(self) -> Dict[str, Any]:
         return {pid: ln.get_weights() for pid, ln in self.learners.items()}
 
-    def _make_learner(self, spec=None) -> TorchLearner:
+    def _make_learner(self, spec=None):
         """Overridable learner factory (A2C swaps the loss and config
-        here).  `spec` = (obs_dim, num_actions) of a multi-agent
-        policy."""
+        here): a `TorchLearner`, or a learner group of them under a
+        `learner_mesh`.  `spec` = (obs_dim, num_actions) of a
+        multi-agent policy."""
         cfg = self.config
         obs_dim, num_actions = spec if spec else (self.obs_dim,
                                                   self.num_actions)
@@ -81,8 +83,8 @@ class PPO(Algorithm):
             loss = ppo_loss_continuous
         else:
             loss = ppo_loss
-        return TorchLearner(
-            obs_dim, num_actions, action_dim=self.action_dim,
+        return learner_for(
+            TorchLearner, obs_dim, num_actions, action_dim=self.action_dim,
             model="lstm" if cfg.use_lstm else "fc",
             lstm_size=cfg.lstm_size, loss_fn=loss,
             config={
@@ -94,7 +96,8 @@ class PPO(Algorithm):
                 "vf_loss_coeff": getattr(cfg, "vf_loss_coeff", 0.5),
                 "entropy_coeff": getattr(cfg, "entropy_coeff", 0.0),
             },
-            hidden=cfg.model_hidden, seed=cfg.seed, device=cfg.device)
+            hidden=cfg.model_hidden, seed=cfg.seed, device=cfg.device,
+            mesh=cfg.learner_mesh)
 
     def training_step(self) -> Dict[str, Any]:
         # 1. Synchronous parallel sampling until train_batch_size rows.

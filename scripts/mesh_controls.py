@@ -45,18 +45,21 @@ def main() -> int:
     _build.build_all()
     families = sys.argv[1:] or ["gpt", "llama"]
     missed = []
-    for family, control in RUNS:
-        if family not in families:
-            continue
-        config, sizes, batches = chip_smoke.MESH_RUNS[family]()
-        out = chip_smoke._mesh_run(family, config, sizes, batches,
-                                   control=control)
-        faults = chip_smoke._mesh_faults(out, config.n_layers)
-        chip_smoke.emit("mesh_control", family=family, control=control,
-                        caught=bool(faults), faults=faults,
-                        **{k: out[k] for k in READINGS})
-        if not faults:
-            missed.append((family, control))
+    try:
+        for family, control in RUNS:
+            if family not in families:
+                continue
+            config, sizes, batches = chip_smoke.MESH_RUNS[family]()
+            out = chip_smoke._mesh_run(family, config, sizes, batches,
+                                       control=control)
+            faults = chip_smoke._mesh_faults(out, config.n_layers)
+            chip_smoke.emit("mesh_control", family=family, control=control,
+                            caught=bool(faults), faults=faults,
+                            **{k: out[k] for k in READINGS})
+            if not faults:
+                missed.append((family, control))
+    finally:
+        chip_smoke._ranks.close()
     print(chip_smoke.smi_line())
     if missed:
         print(f"mesh_controls: no check caught {missed}", file=sys.stderr)

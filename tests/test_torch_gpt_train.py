@@ -207,18 +207,30 @@ def test_num_params_matches_reference(name):
     assert gpt.CONFIGS[name].remat == jgpt.CONFIGS[name].remat
 
 
-def test_mesh_raises():
-    tokens = {"tokens": torch.zeros(1, 8, dtype=torch.long)}
+def test_a_stage_mesh_trains_as_one_device(tmp_path):
+    """data, fsdp, tensor, seq and expert run (tests/test_torch_mesh_train
+    .py, tests/test_torch_mesh_seq_expert.py); a stage mesh now builds
+    too: its ranks are replicas (tests/test_torch_mesh_replicas.py holds
+    them to the reference), so on stage = 2 each rank's losses are one
+    device's.  A one-device mesh is one device."""
+    from ray_tpu_torch.parallel import rank_bodies
+    from ray_tpu_torch.parallel.launch import run_ranks
+
     nano = gpt.CONFIGS["nano"]
+    batches = [_tokens(s, b=2, l=32) for s in (3, 4)]
+    runs = run_ranks(rank_bodies.train, 2, args=(
+        "gpt", nano, dict(stage=2), None, batches, LR, "cpu", False),
+        device="cpu", init_dir=str(tmp_path), timeout_s=240)
+    init, step = gpt.make_train_step(nano, adamw(LR), device="cpu")
+    state, single = init(0), []
+    for b in batches + batches[-1:]:
+        state, m = step(state, {"tokens": torch.from_numpy(b)})
+        single.append(float(m["loss"]))
+    for out in runs:
+        np.testing.assert_allclose(out["losses"] + [out["final_loss"]],
+                                   single, rtol=1e-5)
+    tokens = {"tokens": torch.zeros(1, 8, dtype=torch.long)}
     params = gpt.init_params(nano, device="cpu")
-    # data, fsdp, tensor, seq and expert run (tests/test_torch_mesh_train
-    # .py, tests/test_torch_mesh_seq_expert.py); stage above 1 waits for
-    # its item of ROADMAP A8.
-    mesh = types.SimpleNamespace(shape={"data": 1, "stage": 2})
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        gpt.loss_fn(params, tokens, nano, mesh)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        gpt.make_train_step(nano, adamw(1e-4), mesh, device="cpu")
     one = types.SimpleNamespace(shape={"data": 1, "tensor": 1})
     assert torch.isfinite(gpt.loss_fn(params, tokens, nano, one))
 

@@ -343,17 +343,29 @@ def test_forward_cached_matches_reference_bf16():
     assert _rel_err(got, want) <= 2e-2
 
 
-def test_mesh_with_an_axis_above_one_raises():
+def test_a_stage_mesh_trains_as_one_device(tmp_path):
+    """seq runs (tests/test_torch_mesh_seq_expert.py); a stage mesh now
+    builds too: its ranks are replicas (tests/test_torch_mesh_replicas
+    .py holds them to the reference), so on stage = 2 each rank's losses
+    are one device's.  A one-device mesh is one device."""
+    from ray_tpu_torch.parallel import rank_bodies
+    from ray_tpu_torch.parallel.launch import run_ranks
+
     tiny = llama.CONFIGS["llama-tiny"]
+    batches = [_tokens(s, b=2, l=32) for s in (3, 4)]
+    runs = run_ranks(rank_bodies.train, 2, args=(
+        "llama", tiny, dict(stage=2), None, batches, LR, "cpu", False),
+        device="cpu", init_dir=str(tmp_path), timeout_s=240)
+    init, step = llama.make_train_step(tiny, adamw(LR), device="cpu")
+    state, single = init(0), []
+    for b in batches + batches[-1:]:
+        state, m = step(state, {"tokens": torch.from_numpy(b)})
+        single.append(float(m["loss"]))
+    for out in runs:
+        np.testing.assert_allclose(out["losses"] + [out["final_loss"]],
+                                   single, rtol=1e-5)
     params = llama.init_params(tiny, device="cpu")
     tokens = {"tokens": torch.zeros(1, 8, dtype=torch.long)}
-    # seq runs now (tests/test_torch_mesh_seq_expert.py); stage above 1
-    # waits for its item of ROADMAP A8.
-    mesh = types.SimpleNamespace(shape={"data": 1, "stage": 2})
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        llama.loss_fn(params, tokens, tiny, mesh)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        llama.make_train_step(tiny, adamw(1e-4), mesh, device="cpu")
     one = types.SimpleNamespace(shape={"data": 1, "seq": 1})
     assert torch.isfinite(llama.loss_fn(params, tokens, tiny, one))
 

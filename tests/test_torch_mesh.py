@@ -48,7 +48,6 @@ from ray_tpu.parallel import (MeshConfig as JMeshConfig,
                               slice_index_of as jslice_index_of)
 from ray_tpu_torch._device import MULTI_DEVICE
 from ray_tpu_torch.models import gpt, llama
-from ray_tpu_torch.models._functional import adamw
 from ray_tpu_torch.parallel import (MeshConfig, logical_to_spec,
                                     mesh_layout, slice_index_of,
                                     two_level_layout)
@@ -145,6 +144,7 @@ def ranks8(tmp_path_factory):
         ("restore", (SIZES8, ref_path, "cpu", True)),
         ("plans", (dict(data=4, seq=2),)),
         ("plans", (dict(data=4, expert=2),)),
+        ("plans", (dict(data=4, stage=2),)),
     ]
     out = run_ranks(rank_bodies.sequence, 8, args=(calls,), device="cpu",
                     init_dir=str(d / "init"), timeout_s=RANK_TIMEOUT_S)
@@ -153,7 +153,8 @@ def ranks8(tmp_path_factory):
         shards={"gpt": [r[0] for r in out], "llama": [r[1] for r in out]},
         ce=[r[2] for r in out], restored=[r[4] for r in out],
         batches=[r[5] for r in out], replicated=[r[6] for r in out],
-        plans={"seq": [r[7] for r in out], "expert": [r[8] for r in out]})
+        plans={"seq": [r[7] for r in out], "expert": [r[8] for r in out],
+               "stage": [r[9] for r in out]})
 
 
 @pytest.fixture(scope="module")
@@ -242,27 +243,21 @@ def test_two_level_layout_rejects_tensor_over_dcn():
 
 
 @pytest.mark.parametrize("axis", ["seq", "expert", "stage"])
-def test_seq_expert_stage_still_raise_naming_a8(request, axis):
-    """seq and expert above 1 now build the train step's plan for both
-    families (on 8 ranks, the axis at 2 beside data 4); stage, the axis
-    of a later A8 item, is still refused above 1 by the train step and
-    the loss of both families, naming what it waits for."""
-    if axis != "stage":
-        ranks8 = request.getfixturevalue("ranks8")
-        for out in ranks8.plans[axis]:
-            for name in ("gpt", "llama"):
-                assert out[name]["plan"] == "MeshPlan"
+def test_seq_expert_stage_build_the_train_steps_plan(ranks8, axis):
+    """seq, expert and stage above 1 build the train step's plan for
+    both families (on 8 ranks, the axis at 2 beside data 4).  seq and
+    expert get their groups; stage ranks are replicas, so no group is
+    made for them and no gradient is summed over stage (the reference
+    maps no leaf and no batch dim to it)."""
+    for out in ranks8.plans[axis]:
+        for name in ("gpt", "llama"):
+            assert out[name]["plan"] == "MeshPlan"
+            if axis != "stage":
                 assert out[name]["groups"][axis] == 2
-        return
-    mesh = types.SimpleNamespace(shape={"data": 1, axis: 2})
-    tokens = {"tokens": torch.zeros(2, 8, dtype=torch.long)}
-    for mod, cfg in ((gpt, NANO_T), (llama, TINY_T)):
-        with pytest.raises(NotImplementedError,
-                           match=re.escape(MULTI_DEVICE)):
-            mod.make_train_step(cfg, adamw(1e-3), mesh, device="cpu")
-        with pytest.raises(NotImplementedError, match=axis):
-            mod.loss_fn(mod.init_params(cfg, device="cpu"), tokens, cfg,
-                        mesh)
+                continue
+            assert out[name]["groups"] == {"seq": 1, "expert": 1, "moe": 1}
+            assert all("stage" not in sums
+                       for sums in out[name]["sums"].values()), out[name]
 
 
 @pytest.mark.parametrize("sizes", [SIZES8, SIZES4, dict(data=2, seq=2),
@@ -298,10 +293,9 @@ def test_uneven_mesh_loss_raises_before_any_collective(sizes, shape):
                         mesh)
 
 
-def test_moe_under_a_mesh_waits_for_expert_parallelism(ranks8):
-    """Expert parallelism has come: a MoE config's train step builds its
-    plan under a mesh of data 4 and expert 2, its MoE partial outputs
-    summed over the expert group
+def test_moe_under_a_mesh_builds_its_expert_groups(ranks8):
+    """A MoE config's train step builds its plan under a mesh of data 4
+    and expert 2, its MoE partial outputs summed over the expert group
     (tests/test_torch_mesh_seq_expert.py holds its numbers)."""
     for out in ranks8.plans["expert"]:
         assert out["gpt-moe"]["plan"] == "MeshPlan"

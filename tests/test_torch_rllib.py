@@ -28,7 +28,6 @@
 """
 
 import functools
-import re
 import types
 
 import jax
@@ -49,7 +48,6 @@ from ray_tpu.rllib.models import make_model as jmake_model
 from ray_tpu.rllib.policy import JaxPolicy
 from ray_tpu.rllib.rollout_worker import RolloutWorker as JRolloutWorker
 from ray_tpu.rllib.sample_batch import compute_gae as jcompute_gae
-from ray_tpu_torch._device import MULTI_DEVICE
 from ray_tpu_torch.models import convert
 from ray_tpu_torch.models.resnet import _same
 from ray_tpu_torch.rllib import (PPOConfig, RolloutWorker, SampleBatch,
@@ -623,16 +621,21 @@ def test_ppo_trains_locally_and_takes_the_references_state():
         algo.stop()
 
 
-def test_ppo_refuses_what_waits():
-    """Remote rollout workers without a runtime handle, and a learner
-    mesh (the multi-device slice).  Multi-agent configs and the Tune
-    binding no longer wait (tests/test_torch_rllib_multi_agent.py,
+def test_ppo_refuses_remote_workers_without_a_runtime_and_model_axes():
+    """Remote rollout workers without a runtime handle; a learner mesh
+    takes a data axis (a learner group, tests/test_torch_mesh_replicas
+    .py trains one) and refuses any other axis above 1, as the
+    reference's learner does.  Multi-agent configs and the Tune binding
+    no longer wait (tests/test_torch_rllib_multi_agent.py,
     tests/test_torch_rllib_tune.py)."""
     with pytest.raises(ValueError, match="runtime"):
         PPOConfig().resources(device="cpu", rollout_device="cpu").build()
-    with pytest.raises(NotImplementedError, match=re.escape(MULTI_DEVICE)):
+    data = types.SimpleNamespace(shape={"data": 2})
+    assert PPOConfig().resources(learner_mesh=data).learner_mesh is data
+    with pytest.raises(ValueError, match="data-parallel only"):
         PPOConfig().resources(
-            learner_mesh=types.SimpleNamespace(shape={"data": 2}))
+            learner_mesh=types.SimpleNamespace(shape={"data": 2,
+                                                      "tensor": 2}))
 
 
 def _local_algo(cfg, device=None):
@@ -712,16 +715,22 @@ def test_entry_points_need_a_card_unless_given_the_cpu(name):
         obj.stop()
 
 
-def test_a_mesh_waits_for_the_multi_device_slice():
-    mesh = types.SimpleNamespace(shape={"data": 2})
-    with pytest.raises(NotImplementedError, match=re.escape(MULTI_DEVICE)):
-        TorchLearner(4, 2, loss_fn=ppo_loss, config={}, mesh=mesh,
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match=re.escape(MULTI_DEVICE)):
-        _VTraceLearner(4, 2, IMPALAConfig(), HIDDEN, 0, mesh=mesh,
-                       device="cpu")
-    # A one-device mesh is one device, as in the reference.
-    TorchLearner(4, 2, loss_fn=ppo_loss, config={}, device="cpu",
-                 mesh=types.SimpleNamespace(shape={"data": 1}))
-    with pytest.raises(NotImplementedError, match=re.escape(MULTI_DEVICE)):
-        PPOConfig().resources(learner_mesh=mesh)
+def test_a_learner_mesh_is_data_parallel_only():
+    """A learner with data above 1 is built on each rank of a process
+    group (a DeviceMesh; tests/test_torch_mesh_replicas.py runs them);
+    any other axis above 1 raises, as in the reference; a one-device
+    mesh is one device."""
+    data = types.SimpleNamespace(shape={"data": 2})
+    model = types.SimpleNamespace(shape={"data": 2, "fsdp": 2})
+    for make in (lambda mesh: TorchLearner(4, 2, loss_fn=ppo_loss,
+                                           config={}, mesh=mesh,
+                                           device="cpu"),
+                 lambda mesh: _VTraceLearner(4, 2, IMPALAConfig(), HIDDEN,
+                                             0, mesh=mesh, device="cpu")):
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            make(data)
+        with pytest.raises(ValueError, match="data-parallel only"):
+            make(model)
+        make(types.SimpleNamespace(shape={"data": 1}))
+    with pytest.raises(ValueError, match="data-parallel only"):
+        PPOConfig().resources(learner_mesh=model)
