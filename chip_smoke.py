@@ -130,10 +130,10 @@ run with a nonzero exit code and no result line:
   rl_rollout  EngineRolloutActor("llama", "llama-1b") at full width and
            depth (bf16, weights drawn on the card, 32 lanes, block 16,
            temperature 1.0): two rollouts of 64 prompts of 48-96 tokens
-           sharing a 32-token template, 64 new tokens each, with
+           sharing a 32-token template, 32 new tokens each, with
            adopt(1, a second weight set) between them, then an adopt
            mid-flight after 5 steps of 32 live lanes.  Each batch must be
-           [64, 64] time-major, its valid log-probs finite, <= 0 and the
+           [32, 64] time-major, its valid log-probs finite, <= 0 and the
            handles' own, tagged version 0 then 1; no lane may drop; K4
            must have run 22 times per decode step.  Prints rollout
            tokens/s, decode step ms, prefix hit tokens, and two adopt
@@ -169,7 +169,7 @@ run with a nonzero exit code and no result line:
            their configs' defaults (SAC / TD3: (256, 256), batch 256, 32
            updates a step, replay 100k, warm-up 1,000, learning from
            1,500; 2 rollout actors of the in-process runtime): train()
-           past learning_starts, then 20 timed rounds each; ms per
+           past learning_starts, then 10 timed rounds each; ms per
            update, updates/s, launches per update and the device's busy
            share (torch.profiler over 5 updates); SAC's alpha; DQN's
            target net must equal the params at its last sync after every
@@ -227,8 +227,8 @@ run with a nonzero exit code and no result line:
            in f32, 2 steps, on the card and on the CPU: losses within
            1e-4 relative, each leaf's update within 2e-4 of its largest
            after one step and 4e-4 after two; K1-K3 8 launches each.
-  train_mesh  gpt2-small at full width and depth (bf16 activations, fp32
-           params, the single-device init on seed 0) on
+  train_mesh  gpt2-small at full width, 4 of its 12 layers (bf16
+           activations, fp32 params, the single-device init on seed 0) on
            MeshConfig(data=2, fsdp=2, tensor=2): eight ranks spawned by
            the port's launcher, sharing card 0 over gloo (NCCL, one card
            each, where there are enough cards), a global batch of 8 x
@@ -240,7 +240,7 @@ run with a nonzero exit code and no result line:
            runs' readings and those of runs with a fault injected,
            scripts/mesh_controls.py); with_logical_constraint's round
            trip of the token table exact; K1, K2 and K3 must each have
-           run 12 times per step on every rank (counts set to 0 just
+           run once per layer per step on every rank (counts set to 0 just
            before the steps and read just after, in each rank).  Prints
            the backend, the median step ms, the share of a step spent in
            collectives (one more step with a synchronize around each
@@ -249,14 +249,14 @@ run with a nonzero exit code and no result line:
            tensor=2): four ranks, each with 16 query heads over 2 kv
            heads, a global batch of 4 x 2048, 3 AdamW steps; the same
            checks (K1-K3 2 launches per step per rank).
-  train_mesh_seq  gpt2-small at full width and depth on MeshConfig(
+  train_mesh_seq  gpt2-small at full width, 4 layers, on MeshConfig(
            seq=4): four ranks, each with a quarter of every row, a
            global batch of 4 x 1024, 3 AdamW steps; attention is the
            ring (ops/ring_attention.py: K1 per block held, K2 and K3 per
            block in the backward).  The same checks, with K1-K3 held to
-           (r + 1) x 12 launches per step on seq rank r (the causal ring
-           skips later blocks).  First, in the same ranks, the ring on
-           bf16 inputs at the run's shape (4 x 1024, 12 heads) against
+           r + 1 launches per layer per step on seq rank r (the causal
+           ring skips later blocks).  First, in the same ranks, the ring
+           on bf16 inputs at the run's shape (4 x 1024, 12 heads) against
            flash attention on the whole sequence on one card and
            against the plain ring in f32 (RING_TOLERANCE); the rotations'
            bytes and ms a step are printed apart.
@@ -264,10 +264,10 @@ run with a nonzero exit code and no result line:
            tensor=2, seq=2): four ranks, 16 query heads (the repeated
            kv heads ride the ring) and half of every row each, 4 x 2048,
            3 AdamW steps; the ring checked first at 4 x 2048, 32 heads.
-  train_mesh_moe  gpt2-small with 8 Switch experts on MeshConfig(
-           data=2, expert=2): four ranks, 4 experts each, the global
-           capacity and queue order, 8 x 1024, 3 AdamW steps; the same
-           checks (K1-K3 12 launches per step per rank).
+  train_mesh_moe  gpt2-small's widths at 4 layers with 8 Switch experts
+           on MeshConfig(data=2, expert=2): four ranks, 4 experts each,
+           the global capacity and queue order, 8 x 1024, 3 AdamW steps;
+           the same checks (K1-K3 4 launches per step per rank).
   pipeline_spmd  gpt2-small at full width and depth through
            pipeline_loss_dryrun on MeshConfig(stage=4): four ranks of 3
            blocks each, 4 microbatches of 2 x 1024 a step, the
@@ -279,16 +279,32 @@ run with a nonzero exit code and no result line:
            launches per step on every rank (a stage skips its blocks in
            the bubble).  Prints the hops' and the final all-reduce's
            bytes and ms.
-  train_mesh_stage  gpt2-small on MeshConfig(data=2, stage=2): four
-           ranks, 4 x 1024, 3 AdamW steps; the mesh checks, and the two
-           stage ranks of each data rank equal to the bit (losses and a
-           sha256 of their params).
+  train_mesh_stage  gpt2-small at 4 layers on MeshConfig(data=2,
+           stage=2): four ranks, 4 x 1024, 3 AdamW steps; the mesh
+           checks, and the two stage ranks of each data rank equal to
+           the bit (losses and a sha256 of their params).
   rl_learner_dp  PPO's TorchLearner (512 rows, obs 6, 3 actions, 4
            epochs of 128) and the V-trace learner (T 16, B 8) on two
            data-parallel ranks against one device, f32, two updates:
            the weights within rtol 1e-4, atol 1e-5; then one PPO.train()
            with learner_mesh MeshConfig(data=2), a LearnerGroup, against
            one device's.
+  train_mesh_uneven  global batches that the row ranks do not divide
+           (GSPMD's split: ceil(B / ranks) rows a rank, the pads
+           masked), on the 4-rank gang, 3 AdamW steps each against one
+           device: gpt2-small (12 layers) at 3 x 1024 on
+           MeshConfig(data=2, tensor=2) and MeshConfig(data=4) (the last
+           rank holds a pad row only and must still run K1-K3 12 times
+           a step, its losses and params the others'), with each rank's
+           first summed gradients within UNEVEN_GRAD_TOL of one device's
+           and a rank_means control (each row rank normalised by its own
+           count) beyond it; gpt2-small with 8 experts at 3 x 1024 on
+           MeshConfig(data=2, expert=2): capacity 480 in every layer on
+           every rank (a capacity_from_padded control reads 640), the
+           dropped tokens per layer one device's; resnet50 at 63 x 224 x
+           224 x 3 on MeshConfig(data=2) against one device taking the
+           same 32 / 31 halves (equal to the bit) and the whole batch,
+           with a rank_means control that must fail against the halves.
   train_resnet_mesh  resnet50 at train_resnet's batch (64 x 224 x 224 x
            3, bf16) on MeshConfig(data=2), 3 AdamW steps, against one
            device: losses within 0.05, each leaf's update within 0.85,
@@ -2360,7 +2376,7 @@ def phase_train_resnet() -> None:
 
 # --------------------------------------------------------------------- RL
 
-RL_PROMPTS, RL_NEW_TOKENS, RL_TEMPLATE = 64, 64, 32
+RL_PROMPTS, RL_NEW_TOKENS, RL_TEMPLATE = 64, 32, 32
 
 
 def _rl_prompts(vocab: int) -> list:
@@ -2927,7 +2943,7 @@ def phase_rl_continuous() -> None:
               f"rl_continuous: {name} losses {losses}")
 
 
-RL_OFFPOLICY_ROUNDS = 20
+RL_OFFPOLICY_ROUNDS = 10
 
 
 def phase_rl_offpolicy() -> None:
@@ -4629,51 +4645,91 @@ MESH_LOSS_TOL = 3e-3
 MESH_UPDATE_TOL = 0.35
 
 
-def _mesh_run(family: str, config, sizes: dict, batches: list,
-              control=None, ring=None, digest: bool = False) -> dict:
-    """`rank_bodies.train` on every rank of a `sizes` mesh (with
-    `control`, a fault injected there), and the port's single-device
-    train step on the card from the same weights (the family's init on
-    seed 0) on the same global batches, its start and final params
-    handed to the ranks in a file.  With `ring` (a global [B, L, H, D]),
-    the ranks first run `rank_bodies.ring` on bf16 inputs of that shape,
-    held by `_ring_check`.  With `digest`, each rank also hands back a
-    sha256 of its params' shards (replicas must agree to the bit).
-    Returns the readings; `_mesh_faults` judges them."""
+def _single_reference(family: str, config, batches: list, path: str,
+                      grads: bool = False) -> tuple:
+    """The port's single-device train step on the card from the family's
+    init on seed 0, one AdamW(MESH_LR) step per batch and one more on
+    the last: (its losses, the host seconds of its parts); its start and
+    final params (after the batches) saved to `path`, with `grads` its
+    first step's gradients too ("grad"), as `rank_bodies.train` reads
+    them."""
     from ray_tpu_torch.models import gpt, llama
     from ray_tpu_torch.models._functional import adamw
     from ray_tpu_torch.parallel import rank_bodies
-    from ray_tpu_torch.parallel.mesh import AXES
 
     model = {"gpt": gpt, "llama": llama}[family]
-    world = math.prod(sizes.values())
 
     def host(params):
         return {k: v.detach().cpu().clone()
                 for k, v in rank_bodies._flat(params).items()}
 
+    seconds, lap = {}, time.perf_counter()
+
+    def clock(name):
+        nonlocal lap
+        now = time.perf_counter()
+        seconds[name] = now - lap
+        lap = now
+
     gc.collect()
     torch.cuda.empty_cache()
+    clock("collect")
     init_state, train_step = model.make_train_step(config, adamw(MESH_LR),
                                                    device="cuda")
     state = init_state(0)
-    start = host(state["params"])
+    clock("init")
+    saved = {"start": host(state["params"])}
     single = []
     for b in batches + batches[-1:]:
         if len(single) == len(batches):
-            final = host(state["params"])
+            saved["final"] = host(state["params"])
         state, metrics = train_step(state, {"tokens": torch.from_numpy(b)})
         single.append(float(metrics["loss"]))
+        if grads and "grad" not in saved:
+            saved["grad"] = {k: v.grad.detach().cpu().clone() for k, v in
+                             rank_bodies._flat(state["params"]).items()}
+    clock("steps")
     del state, init_state, train_step
+    torch.save(saved, path)
+    clock("save")
+    del saved
     gc.collect()
     torch.cuda.empty_cache()
+    clock("collect_after")
+    return single, seconds
+
+
+def _mesh_run(family: str, config, sizes: dict, batches: list,
+              control=None, ring=None, digest: bool = False,
+              grad_controls: tuple = (), reference=None) -> dict:
+    """`rank_bodies.train` on every rank of a `sizes` mesh (with
+    `control`, a fault injected there), against the port's single-device
+    train step on the card from the same weights on the same global
+    batches (`_single_reference`, or `reference` made already), its
+    params handed to the ranks in a file.  With
+    `ring` (a global [B, L, H, D]), the ranks first run
+    `rank_bodies.ring` on bf16 inputs of that shape, held by
+    `_ring_check`.  With `digest`, each rank also hands back a sha256 of
+    its params' shards (replicas must agree to the bit).  With
+    `grad_controls` (the reference made with its first gradients), each
+    rank reads its first summed gradients against one device's
+    (`max_grad_rel_err`), and those of each control named
+    (`grad_controls_read`).  `reference` is `_single_reference`'s
+    result and its path.  Returns the readings; `_mesh_faults` judges
+    them."""
+    from ray_tpu_torch.parallel import rank_bodies
+    from ray_tpu_torch.parallel.mesh import AXES
+
+    world = math.prod(sizes.values())
     with tempfile.TemporaryDirectory() as tmp:
-        reference = os.path.join(tmp, "single.pt")
-        torch.save({"start": start, "final": final}, reference)
-        del start, final
-        train = ("train", (family, config, sizes, None, batches, MESH_LR,
-                           "cuda", False, None, reference, control, digest))
-        calls = [train]
+        if reference is None:
+            path = os.path.join(tmp, "single.pt")
+            reference = _single_reference(family, config, batches, path,
+                                          bool(grad_controls)) + (path,)
+        single, single_s, path = reference
+        calls = [("train", (family, config, sizes, None, batches, MESH_LR,
+                            "cuda", False, None, path, control, digest,
+                            grad_controls))]
         if ring is not None:
             calls.insert(0, ("ring", (sizes,) + _ring_inputs(ring)
                              + (True, "cuda", "bfloat16")))
@@ -4683,6 +4739,7 @@ def _mesh_run(family: str, config, sizes: dict, batches: list,
     ring_check = None if ring is None else _ring_check(
         ring, [r[0] for r in ranks])
     ranks = [r[-1] for r in ranks]
+    controls_read = {c: _max_grad_err(ranks, c) for c in grad_controls}
     loss_diff = max(abs(a - b) for r in ranks
                     for a, b in zip(r["losses"] + [r["final_loss"]], single))
     update_err, update_leaf = max(
@@ -4714,12 +4771,26 @@ def _mesh_run(family: str, config, sizes: dict, batches: list,
                             for r in ranks],
         losses_by_rank=[r["losses"] + [r["final_loss"]] for r in ranks],
         digest_by_rank=[r.get("params_digest") for r in ranks],
+        real_rows_by_rank=[r["real_rows"] for r in ranks],
+        max_grad_rel_err=_max_grad_err(ranks) if grad_controls else None,
+        grad_controls_read=controls_read,
         ring_check=ring_check,
-        ranks_wall_s=wall_s,
+        ranks_wall_s=wall_s, single_device_seconds=single_s,
+        rank0_host_seconds=ranks[0]["host_seconds"],
         note=("ranks share card 0 over gloo: every collective passes "
               "through host memory" if ranks[0]["backend"] == "gloo" else
               "one card per rank over NCCL") + "; collective share from "
              "one extra step with a synchronize around each collective")
+
+
+def _max_grad_err(ranks: list, control=None) -> list:
+    """[the largest first-step gradient error over the ranks' leaves
+    (of the sound run, or of `control`'s), where]."""
+    err, at = max((err, f"rank {rank} {leaf}")
+                  for rank, r in enumerate(ranks)
+                  for leaf, err in (r["grad_rel_err"] if control is None
+                                    else r["grad_controls"][control]).items())
+    return [err, at]
 
 
 def _mesh_faults(out: dict, n_layers: int) -> list:
@@ -4822,10 +4893,21 @@ def _mesh_batches(vocab: int, batch: int, seq: int, steps: int) -> list:
             for _ in range(steps)]
 
 
-def _gpt_mesh_run():
+# The depth the gpt2-small mesh phases run at (of its 12 layers): the
+# widths are whole, and the one-card run's time is mostly gloo moving
+# each step's gradients, which the layers' count scales.
+MESH_GPT_LAYERS = 4
+
+
+def _gpt_mesh_config(**kw):
     from ray_tpu_torch.models import gpt
 
-    config = gpt.CONFIGS["gpt2-small"]
+    return dataclasses.replace(gpt.CONFIGS["gpt2-small"],
+                               n_layers=MESH_GPT_LAYERS, **kw)
+
+
+def _gpt_mesh_run():
+    config = _gpt_mesh_config()
     return (config, dict(data=2, fsdp=2, tensor=2),
             _mesh_batches(config.vocab_size, 8, 1024, 3))
 
@@ -4839,9 +4921,7 @@ def _llama_mesh_run():
 
 
 def _gpt_seq_run():
-    from ray_tpu_torch.models import gpt
-
-    config = gpt.CONFIGS["gpt2-small"]
+    config = _gpt_mesh_config()
     return (config, dict(seq=4), _mesh_batches(config.vocab_size, 4, 1024,
                                                3))
 
@@ -4855,10 +4935,7 @@ def _llama_seq_run():
 
 
 def _moe_mesh_run():
-    from ray_tpu_torch.models import gpt
-
-    config = dataclasses.replace(gpt.CONFIGS["gpt2-small"],
-                                 n_experts=MOE_EXPERTS)
+    config = _gpt_mesh_config(n_experts=MOE_EXPERTS)
     return (config, dict(data=2, expert=2),
             _mesh_batches(config.vocab_size, 8, 1024, 3))
 
@@ -4890,13 +4967,14 @@ def _mesh_report(report: dict, key: str, out: dict) -> None:
 
 
 def phase_train_mesh(report: dict) -> None:
-    """gpt2-small at full width and depth (bf16, fp32 params) on
-    MeshConfig(data=2, fsdp=2, tensor=2): eight ranks, a global batch of
-    8 x 1024, 3 AdamW steps."""
+    """gpt2-small at full width, MESH_GPT_LAYERS layers (bf16, fp32
+    params) on MeshConfig(data=2, fsdp=2, tensor=2): eight ranks, a
+    global batch of 8 x 1024, 3 AdamW steps."""
     config, sizes, batches = MESH_RUNS["gpt"]()
     out = _mesh_run("gpt", config, sizes, batches)
     _mesh_report(report, "train_mesh", out)
-    emit("train_mesh", config="gpt2-small", **out)
+    emit("train_mesh", config=f"gpt2-small, {config.n_layers} layers",
+         **out)
     for fault in _mesh_faults(out, config.n_layers):
         check(False, f"train_mesh: {fault}")
 
@@ -4914,7 +4992,7 @@ def phase_train_mesh_llama(report: dict) -> None:
 
 
 def phase_train_mesh_seq(report: dict) -> None:
-    """gpt2-small at full width and depth (bf16, fp32 params) on
+    """gpt2-small at full width, MESH_GPT_LAYERS layers (bf16, fp32 params) on
     MeshConfig(seq=4): four ranks, each with a quarter of every row's
     1024 positions, a global batch of 4 x 1024, 3 AdamW steps; attention
     is the ring (K1-K3 per block), checked first at the run's own block
@@ -4923,7 +5001,8 @@ def phase_train_mesh_seq(report: dict) -> None:
     out = _mesh_run("gpt", config, sizes, batches,
                     ring=(4, 1024, config.n_heads, config.head_dim))
     _mesh_report(report, "train_mesh_seq", out)
-    emit("train_mesh_seq", config="gpt2-small", **out)
+    emit("train_mesh_seq", config=f"gpt2-small, {config.n_layers} layers",
+         **out)
     for fault in _mesh_faults(out, config.n_layers):
         check(False, f"train_mesh_seq: {fault}")
 
@@ -4944,14 +5023,16 @@ def phase_train_mesh_seq_llama(report: dict) -> None:
 
 
 def phase_train_mesh_moe(report: dict) -> None:
-    """gpt2-small with train_moe's 8 Switch experts per layer (bf16,
+    """gpt2-small's widths at MESH_GPT_LAYERS layers with train_moe's 8
+    Switch experts per layer (bf16,
     fp32 params) on MeshConfig(data=2, expert=2): four ranks, each with
     4 experts, routing its rows against all 8 with the global capacity
     and queue order, a global batch of 8 x 1024, 3 AdamW steps."""
     config, sizes, batches = MESH_RUNS["moe"]()
     out = _mesh_run("gpt", config, sizes, batches)
     _mesh_report(report, "train_mesh_moe", out)
-    emit("train_mesh_moe", config=f"gpt2-small, {config.n_experts} experts",
+    emit("train_mesh_moe", config=f"gpt2-small, {config.n_layers} layers, "
+         f"{config.n_experts} experts",
          **out)
     for fault in _mesh_faults(out, config.n_layers):
         check(False, f"train_mesh_moe: {fault}")
@@ -5088,9 +5169,7 @@ def phase_pipeline_spmd(report: dict) -> None:
 
 
 def _gpt_stage_run():
-    from ray_tpu_torch.models import gpt
-
-    config = gpt.CONFIGS["gpt2-small"]
+    config = _gpt_mesh_config()
     return (config, dict(data=2, stage=2),
             _mesh_batches(config.vocab_size, 4, 1024, 3))
 
@@ -5099,7 +5178,7 @@ MESH_RUNS["gpt_stage"] = _gpt_stage_run
 
 
 def phase_train_mesh_stage(report: dict) -> None:
-    """gpt2-small at full width and depth (bf16, fp32 params) on
+    """gpt2-small at full width, MESH_GPT_LAYERS layers (bf16, fp32 params) on
     MeshConfig(data=2, stage=2): four ranks, a global batch of 4 x 1024
     split over data, 3 AdamW steps.  The reference maps no leaf and no
     batch dim to stage, so the two stage ranks of a data rank are
@@ -5116,11 +5195,146 @@ def phase_train_mesh_stage(report: dict) -> None:
     out["stage_replicas_equal"] = all(
         len(set((tuple(l), d) for l, d in group)) == 1 and len(group) == 2
         for group in replicas.values())
-    emit("train_mesh_stage", config="gpt2-small", **out)
+    emit("train_mesh_stage", config=f"gpt2-small, {config.n_layers} layers",
+         **out)
     for fault in _mesh_faults(out, config.n_layers):
         check(False, f"train_mesh_stage: {fault}")
     check(out["stage_replicas_equal"],
           f"train_mesh_stage: stage replicas differ: {replicas}")
+
+
+# Uneven rows: global batches whose rows the row ranks (data x fsdp) do
+# not divide, split as GSPMD pads them (each row rank holds
+# ceil(B / ranks) rows, its pad rows masked), against the port's
+# single-device step on the same weights and rows.  Beside the mesh
+# phases' checks, each rank's first summed gradients (before AdamW,
+# whose update barely moves under a common scale) within
+# UNEVEN_GRAD_TOL of one device's in L2 norm, per leaf.  The limit sits
+# between the sound runs' readings and those of the "rank_means"
+# control (each row rank's loss normalised by its own count, then the
+# ranks averaged: what an uneven split must not do), both in PERF.md.
+UNEVEN_GRAD_TOL = 0.05
+UNEVEN_BATCH = 3
+# gpt2-small with 8 experts on 3 x 1024 tokens: ceil(3072 / 8 * 1.25).
+# Counting the pad row's tokens too ("capacity_from_padded") gives 640.
+UNEVEN_MOE_CAPACITY = 480
+
+
+def _uneven_rows(out: dict, n: int) -> list:
+    """Each rank's real rows of `n` under GSPMD's split, by its
+    coordinate: what `real_rows_by_rank` must read."""
+    sizes = out["mesh"]
+    parts = sizes.get("data", 1) * sizes.get("fsdp", 1)
+    chunk = -(-n // parts)
+    want = []
+    for c in out["coordinate_by_rank"]:
+        i = c["data"] * sizes.get("fsdp", 1) + c["fsdp"]
+        want.append(max(0, min(n, (i + 1) * chunk) - i * chunk))
+    return want
+
+
+def _uneven_lm(report: dict, name: str, config, sizes: dict,
+               batches: list, reference: tuple) -> list:
+    """One LM run of train_mesh_uneven: `_mesh_run` against `reference`
+    with the first gradients and the rank_means control; its faults."""
+    out = _mesh_run("gpt", config, sizes, batches, digest=True,
+                    grad_controls=("rank_means",), reference=reference)
+    _mesh_report(report, f"train_mesh_uneven_{name}", out)
+    out["want_real_rows"] = _uneven_rows(out, batches[0].shape[0])
+    out["grad_tolerance"] = UNEVEN_GRAD_TOL
+    emit("train_mesh_uneven", run=name, config="gpt2-small", **out)
+    faults = _mesh_faults(out, config.n_layers)
+    err, at = out["max_grad_rel_err"]
+    if not err <= UNEVEN_GRAD_TOL:
+        faults.append(f"first gradient of {at} {err} of one device's")
+    bad = out["grad_controls_read"]["rank_means"]
+    if not bad[0] > UNEVEN_GRAD_TOL:
+        faults.append(f"the rank_means control passed the gradient "
+                      f"check: {bad}")
+    if out["real_rows_by_rank"] != out["want_real_rows"]:
+        faults.append(f"real rows {out['real_rows_by_rank']}, want "
+                      f"{out['want_real_rows']}")
+    replicas = {}
+    for c, d in zip(out["coordinate_by_rank"], out["digest_by_rank"]):
+        replicas.setdefault(c["tensor"], set()).add(d)
+    if any(len(d) != 1 for d in replicas.values()):
+        faults.append("the row ranks' replicated params differ")
+    if any(l != out["losses_by_rank"][0] for l in out["losses_by_rank"]):
+        faults.append(f"the ranks' losses differ: {out['losses_by_rank']}")
+    return [f"{name}: {f}" for f in faults]
+
+
+def phase_train_mesh_uneven(report: dict) -> None:
+    """Global batches that the row ranks do not divide, at full width:
+    - gpt2-small (12 layers, bf16, fp32 params) on MeshConfig(data=2,
+      tensor=2), 3 x 1024 tokens a step: real rows [2, 1] by data rank;
+    - the same on MeshConfig(data=4): the last rank holds a pad row
+      only, yet runs K1-K3 and joins every collective, its losses and
+      params those of the others;
+    - gpt2-small with train_moe's 8 experts (12 layers) on
+      MeshConfig(data=2, expert=2), 3 x 1024: the capacity counts the
+      3,072 real tokens (480 in every layer on every rank) and the
+      dropped tokens per layer are one device's (on weights drawn on the
+      card from seed 0), with the capacity_from_padded control reading
+      640;
+    - resnet50 on MeshConfig(data=2), 63 images of 224 x 224: 32 and 31
+      a rank, against one device taking the same halves (each image
+      weighted alike) and the whole batch, with the rank_means control.
+    Each LM run takes 3 AdamW steps against the port's single-device
+    step on the same seed-0 weights and rows (`_mesh_run`)."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import rank_bodies
+
+    config = gpt.CONFIGS["gpt2-small"]
+    batches = _mesh_batches(config.vocab_size, UNEVEN_BATCH, 1024, 3)
+    faults = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "single.pt")
+        reference = _single_reference("gpt", config, batches, path,
+                                      True) + (path,)
+        for name, sizes in (("dense", dict(data=2, tensor=2)),
+                            ("empty_rank", dict(data=4))):
+            faults += _uneven_lm(report, name, config, sizes, batches,
+                                 reference)
+    moe = dataclasses.replace(config, n_experts=MOE_EXPERTS)
+    sizes = dict(data=2, expert=2)
+    out = _mesh_run("gpt", moe, sizes, batches)
+    _mesh_report(report, "train_mesh_uneven_moe", out)
+    faults += [f"moe: {f}" for f in _mesh_faults(out, moe.n_layers)]
+    single = rank_bodies.routing(0, 1, None, moe, batches[0], "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    routed = _ranks(4).run(rank_bodies.sequence, [
+        ("routing", (sizes, moe, batches[0], "cuda")),
+        ("routing", (sizes, moe, batches[0], "cuda", None,
+                     "capacity_from_padded"))])
+    sound, padded = [r[0] for r in routed], [r[1] for r in routed]
+    want_cap = [UNEVEN_MOE_CAPACITY] * moe.n_layers
+    for rank, (r, p) in enumerate(zip(sound, padded)):
+        if r["capacity"] != want_cap:
+            faults.append(f"moe: rank {rank} capacity {r['capacity']}")
+        if r["dropped"] != single["dropped"]:
+            faults.append(f"moe: rank {rank} dropped {r['dropped']}, one "
+                          f"device {single['dropped']}")
+        if p["capacity"] == want_cap:
+            faults.append(f"moe: capacity_from_padded read {p['capacity']}")
+    emit("train_mesh_uneven", run="moe",
+         config=f"gpt2-small, {moe.n_layers} layers, {MOE_EXPERTS} experts",
+         **out,
+         capacity_by_rank=[r["capacity"] for r in sound],
+         capacity_from_padded_by_rank=[p["capacity"] for p in padded],
+         dropped_by_rank=[r["dropped"] for r in sound],
+         single_device_dropped=single["dropped"],
+         aux_by_rank=[r["aux"] for r in sound],
+         single_device_aux=single["aux"],
+         routing_real_rows_by_rank=[r["real_rows"] for r in sound])
+    res = _resnet_mesh(dict(seed=1, steps=3, batch=63, image=[224, 224, 3]),
+                       "rank_means")
+    emit("train_mesh_uneven", run="resnet", **res)
+    faults += [f"resnet: {f}" for f in _resnet_faults(res, "rank_means",
+                                                      ("split",))]
+    for fault in faults:
+        check(False, f"train_mesh_uneven: {fault}")
 
 
 # The RL learners' learner group and ResNet under a mesh: data = 2
@@ -5319,21 +5533,17 @@ def _resnet_readings(ranks: list, losses: list, ref: str) -> dict:
                     for k, v in kinds.items()})
 
 
-def phase_train_resnet_mesh() -> None:
-    """resnet50 at train_resnet's batch (64 x 224 x 224 x 3, bf16
-    convolutions and norms, fp32 params) on MeshConfig(data=2): two
-    ranks of 32 images each, 3 AdamW(1e-4) steps on batches drawn from
-    a seed, against one device on the same weights and batches, taking
-    the two half batches apart ("split") and the 64 images at once
-    ("whole"): the losses and each leaf's update (L2 norm) within the
-    limits above, and the two ranks' params equal to the bit (a
-    sha256).  The same ranks then run it again with each rank's
-    gradients left its own, which the checks must catch."""
+def _resnet_mesh(data: dict, control: str) -> dict:
+    """resnet50 (bf16 convolutions and norms, fp32 params) on
+    MeshConfig(data=2) against one device on the same weights and the
+    batches `data` draws, taking the two row halves apart as the ranks
+    split them ("split", `rank_bodies._split_resnet_step`) and the whole
+    batch at once ("whole"); then the same ranks again with `control`,
+    which the checks must catch.  Returns the readings."""
     from ray_tpu_torch.models import resnet
     from ray_tpu_torch.parallel import rank_bodies
 
     config = resnet.CONFIGS["resnet50"]
-    data = dict(seed=1, steps=3, batch=64, image=[224, 224, 3])
     singles = {}
     with tempfile.TemporaryDirectory() as tmp:
         paths = {ref: os.path.join(tmp, f"{ref}.pt")
@@ -5350,50 +5560,75 @@ def phase_train_resnet_mesh() -> None:
         args = (dict(data=2), config, data, 1e-4, "cuda", None, paths)
         t0 = time.perf_counter()
         ranks = _ranks(2).run(rank_bodies.sequence, [
-            ("resnet", args), ("resnet", args + (None, "no_grad_sync"))])
+            ("resnet", args), ("resnet", args + (None, control))])
         wall_s = time.perf_counter() - t0
-    sound, control = [r[0] for r in ranks], [r[1] for r in ranks]
+    sound, faulted = [r[0] for r in ranks], [r[1] for r in ranks]
     limits = {"split": (RESNET_SPLIT_LOSS_TOL, RESNET_SPLIT_UPDATE_TOL),
               "whole": (RESNET_MESH_LOSS_TOL, RESNET_MESH_UPDATE_TOL)}
     readings = {ref: dict(
         loss_tolerance=limits[ref][0], update_tolerance=limits[ref][1],
         losses=singles[ref]["losses"],
         sound=_resnet_readings(sound, singles[ref]["losses"], ref),
-        no_grad_sync=_resnet_readings(control, singles[ref]["losses"], ref))
+        **{control: _resnet_readings(faulted, singles[ref]["losses"], ref)})
         for ref in ("split", "whole")}
-    split_vs_whole = _resnet_readings([singles["split"]],
-                                      singles["whole"]["losses"], "whole")
-    emit("train_resnet_mesh", config="resnet50", mesh=dict(data=2),
-         global_batch=data["batch"], image=data["image"],
-         steps=data["steps"], losses=sound[0]["losses"], vs=readings,
-         split_vs_whole=split_vs_whole,
-         ranks_agree=sound[0]["digest"] == sound[1]["digest"],
-         started_alike=not any(r["start_differs"] for r in sound),
-         median_step_ms=statistics.median(r["median_step_ms"]
-                                          for r in sound),
-         single_device_step_ms=singles["whole"]["median_step_ms"],
-         split_step_ms=singles["split"]["median_step_ms"],
-         peak_memory_gib_by_rank=[r["peak_memory_gib"] for r in sound],
-         single_device_peak_memory_gib=singles["whole"]["peak_memory_gib"],
-         ranks_wall_s=wall_s)
-    for ref, r in readings.items():
-        loss_tol, update_tol = limits[ref]
+    return dict(
+        config="resnet50", mesh=dict(data=2), global_batch=data["batch"],
+        image=data["image"], steps=data["steps"],
+        losses=sound[0]["losses"], vs=readings,
+        split_vs_whole=_resnet_readings([singles["split"]],
+                                        singles["whole"]["losses"], "whole"),
+        ranks_agree=sound[0]["digest"] == sound[1]["digest"],
+        started_alike=not any(r["start_differs"] for r in sound),
+        median_step_ms=statistics.median(r["median_step_ms"]
+                                         for r in sound),
+        single_device_step_ms=singles["whole"]["median_step_ms"],
+        split_step_ms=singles["split"]["median_step_ms"],
+        peak_memory_gib_by_rank=[r["peak_memory_gib"] for r in sound],
+        single_device_peak_memory_gib=singles["whole"]["peak_memory_gib"],
+        ranks_wall_s=wall_s)
+
+
+def _resnet_faults(out: dict, control: str, against=("split", "whole")):
+    """What `_resnet_mesh`'s readings fail: the sound run within both
+    limits, the control outside those of each reference in `against`."""
+    faults = []
+    for ref, r in out["vs"].items():
         got = r["sound"]
-        check(got["max_loss_diff"] <= loss_tol,
-              f"train_resnet_mesh: losses {got['losses']} vs one device "
-              f"({ref}) {r['losses']}")
-        check(got["max_update_rel_err"] <= update_tol,
-              f"train_resnet_mesh: update of {got['max_update_rel_err_at']} "
-              f"{got['max_update_rel_err']} vs one device ({ref})")
-        bad = r["no_grad_sync"]
-        check(bad["max_update_rel_err"] > update_tol
-              or bad["max_loss_diff"] > loss_tol,
-              f"train_resnet_mesh: the no_grad_sync control passed against "
-              f"one device ({ref}): {bad}")
-    check(not any(r["start_differs"] for r in sound),
-          "train_resnet_mesh: a rank started from other weights")
-    check(sound[0]["digest"] == sound[1]["digest"],
-          "train_resnet_mesh: the replicas differ")
+        if not got["max_loss_diff"] <= r["loss_tolerance"]:
+            faults.append(f"losses {got['losses']} vs one device ({ref}) "
+                          f"{r['losses']}")
+        if not got["max_update_rel_err"] <= r["update_tolerance"]:
+            faults.append(f"update of {got['max_update_rel_err_at']} "
+                          f"{got['max_update_rel_err']} vs one device "
+                          f"({ref})")
+        bad = r[control]
+        if ref in against and not (
+                bad["max_update_rel_err"] > r["update_tolerance"]
+                or bad["max_loss_diff"] > r["loss_tolerance"]):
+            faults.append(f"the {control} control passed against one "
+                          f"device ({ref}): {bad}")
+    if not out["started_alike"]:
+        faults.append("a rank started from other weights")
+    if not out["ranks_agree"]:
+        faults.append("the replicas differ")
+    return faults
+
+
+def phase_train_resnet_mesh() -> None:
+    """resnet50 at train_resnet's batch (64 x 224 x 224 x 3, bf16
+    convolutions and norms, fp32 params) on MeshConfig(data=2): two
+    ranks of 32 images each, 3 AdamW(1e-4) steps on batches drawn from
+    a seed, against one device on the same weights and batches, taking
+    the two half batches apart ("split") and the 64 images at once
+    ("whole"): the losses and each leaf's update (L2 norm) within the
+    limits above, and the two ranks' params equal to the bit (a
+    sha256).  The same ranks then run it again with each rank's
+    gradients left its own, which the checks must catch."""
+    out = _resnet_mesh(dict(seed=1, steps=3, batch=64, image=[224, 224, 3]),
+                       "no_grad_sync")
+    emit("train_resnet_mesh", **out)
+    for fault in _resnet_faults(out, "no_grad_sync"):
+        check(False, f"train_resnet_mesh: {fault}")
 
 
 def main() -> int:
@@ -5452,6 +5687,7 @@ def main() -> int:
               ("train_mesh_moe", phase_train_mesh_moe),
               ("pipeline_spmd", phase_pipeline_spmd),
               ("train_mesh_stage", phase_train_mesh_stage),
+              ("train_mesh_uneven", phase_train_mesh_uneven),
               ("rl_learner_dp", lambda _: phase_rl_learner_dp()),
               ("train_resnet_mesh", lambda _: phase_train_resnet_mesh()))
     wanted = sys.argv[1:]

@@ -13,9 +13,6 @@ import torch
 
 DeviceLike = Union[None, str, torch.device]
 
-# What every refusal of more than one device names.
-MULTI_DEVICE = "the multi-device slice of the port (ROADMAP A8)"
-
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """`None` -> "cuda"; a CUDA device without CUDA raises."""

@@ -73,7 +73,7 @@ def _host_copy(leaf):
     """A host snapshot of one leaf: a tensor is copied (the train step
     updates params and moments in place), a device tensor into pinned
     memory without waiting, a numpy leaf is the caller's own, as in the
-    reference.  The caller waits for the device's copies."""
+    reference.  The caller synchronises with the device's copies."""
     if isinstance(leaf, torch.Tensor):
         host = torch.empty(leaf.shape, dtype=leaf.dtype,
                            pin_memory=leaf.is_cuda)

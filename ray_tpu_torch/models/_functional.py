@@ -22,7 +22,16 @@ seq axis is `ring_attention` at the rank's absolute positions, the
 Switch MoE computes the rank's experts' slots and sums them over
 `expert` and `tensor`, and after the backward each gradient is summed
 over the row axes that its parameter is not sharded over.  The rows of
-a batch split over (data, fsdp) and their length over seq.  No leaf and
+a batch split over (data, fsdp) and their length over seq.  Rows of any
+count split as GSPMD pads them (`sharding.row_split`): each row rank
+holds ceil(B / (data x fsdp)) rows, its real rows first and pad rows
+(token 0) after them, so every rank has the same shapes (every
+collective stays even, and no kernel sees an empty batch); a rank may
+hold pad rows only, and still joins every collective.  The pad rows
+weigh nothing: their targets are masked, the Switch MoE neither counts
+nor queues them, and the means take the global real tokens.  Under seq
+above 1 the rows and the length must split evenly (the ring's blocks),
+as the reference's `shard_map` requires.  No leaf and
 no batch dim maps to `stage` (as in the reference, whose GSPMD step is
 then replicated over it): stage ranks are replicas that hold the same
 rows and params, and no gradient is summed over them.
@@ -32,21 +41,22 @@ forward is one code path.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Optional, Union
 
 import torch
 
-from ray_tpu_torch._device import MULTI_DEVICE, DeviceLike, resolve_device
+from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import flash_attention
-from ray_tpu_torch.ops.cross_entropy import ROW_AXES, spmd_ce_applicable
+from ray_tpu_torch.ops.cross_entropy import ROW_AXES
 from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.parallel.mesh import axis_sizes
 from ray_tpu_torch.parallel.sharding import (
-    _batch_logical, _entry_axes, _is_spec, local_shard, logical_to_spec,
-    mesh_device, redistribute, spec_axes, tree_map, tree_shardings)
+    BATCH_AXES, _entry_axes, _is_spec, logical_to_spec, mesh_device,
+    pad_rows, redistribute, row_split, spec_axes, tree_map, tree_shardings)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,20 +166,32 @@ def multi_device(mesh) -> bool:
                                     axis_sizes(mesh).values())
 
 
-def check_mesh_loss(mesh, vocab: int, shape) -> None:
-    """Under a mesh the LM loss is the vocab-parallel cross-entropy
-    (`spmd_ce_applicable`).  The reference falls back to materialised
-    logits where the mesh does not divide the batch, the length or the
-    vocab; the port places shards evenly only, so such a batch or
-    config raises here, before any collective."""
+def check_mesh_rows(mesh, shape) -> None:
+    """A batch of `shape` [B, L, ...] under a mesh with seq above 1: the
+    ring's blocks need the rows to split evenly over (data, fsdp) and the
+    length over seq, as the reference's `shard_map` does; either raises
+    ValueError here, before any collective.  Without seq, rows of any
+    count split (`sharding.row_split`)."""
     if not multi_device(mesh):
         return
-    if not spmd_ce_applicable(mesh, vocab, *tuple(shape)[:2]):
-        raise NotImplementedError(
-            f"a batch of {tuple(shape)} over vocab {vocab} does not split "
-            f"evenly over the mesh {axis_sizes(mesh)}: the reference's "
-            f"fallback to materialised logits waits for uneven shards in "
-            f"{MULTI_DEVICE}")
+    sizes = axis_sizes(mesh)
+    if sizes.get("seq", 1) == 1:
+        return
+    rows = math.prod(sizes.get(a, 1) for a in BATCH_AXES)
+    for dim, axes, parts in ((0, BATCH_AXES, rows),
+                             (1, ("seq",), sizes["seq"])):
+        if shape[dim] % parts:
+            raise ValueError(
+                f"dim {dim} of the batch {tuple(shape)} is not evenly "
+                f"divisible by {parts}, the size of {axes}: the ring over "
+                f"seq takes even blocks")
+
+
+def batch_plan(mesh, logical_specs: Optional[dict], shape):
+    """The forward's plan for a global batch of `shape` [B, L, ...]
+    (`check_mesh_rows`, then `plan_for(...).for_batch(B)`)."""
+    check_mesh_rows(mesh, shape)
+    return plan_for(mesh, logical_specs).for_batch(shape[0])
 
 
 class OneDevice:
@@ -180,6 +202,10 @@ class OneDevice:
 
     def local(self, params: dict) -> dict:
         return params
+
+    def for_batch(self, n: int):
+        """The plan for a global batch of `n` rows."""
+        return self
 
     def rows(self, x):
         return x
@@ -222,6 +248,15 @@ class OneDevice:
     def global_rows(self, x):
         """The global [B, L] of a per-token int tensor on the rows."""
         return x
+
+    def real_rows(self, x):
+        """Which rows of a global [B, L] (`global_rows`) are real, as a
+        [B, 1] bool; None when all are."""
+        return None
+
+    def real_tokens(self, x) -> int:
+        """The number of real tokens of a global [B, L]."""
+        return x.numel()
 
     def local_rows(self, x):
         """The rank's [b, l] of a global [B, L] tensor."""
@@ -292,17 +327,37 @@ class MeshPlan(OneDevice):
         self.coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
         self.sizes = axis_sizes(mesh)
         self.device = mesh_device(mesh)
+        self.n_rows = None
 
     def local(self, params: dict) -> dict:
         return _map(params, _LocalShard.apply)
 
+    def for_batch(self, n: int) -> "MeshPlan":
+        """A copy of the plan bound to a global batch of `n` rows: this
+        rank's real rows (`n_real`) of the `chunk` it holds
+        (`sharding.row_split`)."""
+        plan = copy.copy(self)
+        own, plan.chunk = row_split(n, self.mesh)
+        plan.n_rows, plan.n_real = n, own.stop - own.start
+        return plan
+
     def rows(self, x):
         """This rank's rows of a batch leaf (its batch rows over (data,
-        fsdp) and, for a [B, L, ...] leaf, its length slice over seq): a
-        DTensor's local tensor, or the slice of a plain (global) tensor,
-        on the mesh's device."""
-        return local_shard(x, self.mesh, logical_to_spec(
-            _batch_logical(x), mesh=self.mesh)).to(self.device)
+        fsdp), padded with zero rows to the chunk every row rank holds,
+        and, for a [B, L, ...] leaf, its length slice over seq): a
+        DTensor's local tensor (placed evenly), or the slice of a plain
+        (global) tensor, on the mesh's device."""
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(x, DTensor):
+            return x.to_local().to(self.device)
+        x = torch.as_tensor(x)
+        own, chunk = row_split(x.shape[0], self.mesh)
+        x = x[own]
+        if x.dim() >= 2 and self.seq is not None:
+            l = x.shape[1] // self.sizes["seq"]
+            x = x[:, self.coord["seq"] * l:(self.coord["seq"] + 1) * l]
+        return pad_rows(x, chunk).to(self.device)
 
     def position_offset(self, length: int) -> int:
         return self.coord["seq"] * length
@@ -314,16 +369,18 @@ class MeshPlan(OneDevice):
     def targets(self, tokens):
         """Under seq a row's last local position predicts the first token
         of the next seq rank's slice; only the last seq rank masks its
-        last position."""
+        last position.  The pad rows' targets are masked."""
         if self.seq is None:
-            return super().targets(tokens)
-        nxt = collectives.rotate([tokens[:, :1].contiguous()], self.seq,
-                                 -1)[0]
-        targets = torch.cat([tokens[:, 1:], nxt], dim=1)
-        valid = torch.ones(tokens.shape, dtype=torch.float32,
-                           device=tokens.device)
-        if self.coord["seq"] == self.sizes["seq"] - 1:
-            valid[:, -1] = 0.0
+            targets, valid = super().targets(tokens)
+        else:
+            nxt = collectives.rotate([tokens[:, :1].contiguous()], self.seq,
+                                     -1)[0]
+            targets = torch.cat([tokens[:, 1:], nxt], dim=1)
+            valid = torch.ones(tokens.shape, dtype=torch.float32,
+                               device=tokens.device)
+            if self.coord["seq"] == self.sizes["seq"] - 1:
+                valid[:, -1] = 0.0
+        valid[self.n_real:] = 0.0
         return targets, valid
 
     def experts(self, router):
@@ -350,6 +407,16 @@ class MeshPlan(OneDevice):
         return parts.view(n_batch, n_seq, b, l).transpose(1, 2).reshape(
             n_batch * b, n_seq * l)
 
+    def real_rows(self, x):
+        """The pad rows of every rank follow the real rows of all ranks
+        in the global layout (rank i's chunk holds global rows i * chunk
+        onwards), so the real ones are the first `n_rows`."""
+        return (torch.arange(x.shape[0], device=x.device)
+                < self.n_rows)[:, None]
+
+    def real_tokens(self, x) -> int:
+        return self.n_rows * x.shape[1]
+
     def local_rows(self, x):
         n_batch, n_seq = self._row_layout()
         b, l = x.shape[0] // n_batch, x.shape[1] // n_seq
@@ -358,11 +425,13 @@ class MeshPlan(OneDevice):
         return x[i * b:(i + 1) * b, s * l:(s + 1) * l]
 
     def row_mean(self, x):
-        """Summed over the row group; the gradient of each rank's term
-        is its own tokens' share."""
-        total = collectives.all_reduce_value(x.sum(0), self.row_group)
-        n = x.shape[0] * math.prod(self.sizes[a] for a in ROW_AXES)
-        return total / n
+        """The sum of the rank's real tokens (its first n_real rows'),
+        summed over the row group, over the global real tokens; the
+        gradient of each rank's term is its own tokens' share."""
+        per_row = x.shape[0] // self.chunk
+        total = collectives.all_reduce_value(
+            x[:self.n_real * per_row].sum(0), self.row_group)
+        return total / (self.n_rows * per_row * self.sizes["seq"])
 
     def _gather(self, t, spec: tuple):
         """`t` gathered over fsdp on the dim that fsdp shards (fsdp must
@@ -483,8 +552,9 @@ def make_train_step(config, optimizer: AdamW, *, init_params, loss_fn,
     DTensor leaves on `device`.  `train_step(state, batch)` runs the
     loss, its backward, the gradient sums over the row axes and one
     optimizer step; the loss it returns is a device scalar (reading it
-    waits for the step).  Under a mesh a batch leaf is a DTensor (from
-    `shard_batch` or `global_batch`) or the global batch."""
+    blocks until the step is done).  Under a mesh a batch leaf is a
+    DTensor (from `shard_batch` or `global_batch`) or the global batch,
+    of any row count without seq (`MeshPlan.rows`)."""
     device = resolve_device(device)
     plan = plan_for(mesh, param_specs(config) if param_specs else None)
 

@@ -25,10 +25,13 @@ weights gathered over fsdp where used.  Attention is flash attention
 shard, through `ring_attention` when seq is above 1, with the position
 table read at the rank's absolute offset.  The Switch MoE keeps the
 reference's global semantics (capacity, queue order and aux over the
-global batch) and computes only the rank's experts' slots, their
-partial outputs summed over `expert` and `tensor`.  The loss is the
-vocab-parallel `fused_cross_entropy_spmd`.  Stage ranks are replicas
-(no leaf and no batch dim maps to `stage`, as in the reference).
+global batch's real tokens) and computes only the rank's experts'
+slots, their partial outputs summed over `expert` and `tensor`.  The
+loss is the vocab-parallel `fused_cross_entropy_spmd`, the pad rows of
+a batch the row ranks do not divide masked: the reference's fallback's
+Σ nll · valid / max(Σ valid, 1) over the global real tokens.  Stage
+ranks are replicas (no leaf and no batch dim maps to `stage`, as in the
+reference).
 """
 
 from __future__ import annotations
@@ -254,21 +257,27 @@ def _route(x, router, config: GPTConfig, plan=_functional.ONE_DEVICE,
     the largest probability, expert = its first index, each token's rank
     in its expert's queue in global token order (b * L + l).  Returns
     (probs [T, E] f32, gate [T] f32, expert [T], rank [T], cap); a token
-    is kept iff rank < cap.
+    is kept iff 0 <= rank < cap.
 
     Under a mesh (`plan`, the tokens the rank's `rows` (b, l) of the
-    batch) the capacity counts the global tokens, and the queue order is
-    the global one: the expert ids are gathered over the row axes (one
-    int per token), ranked, and the rank's slice taken back."""
+    batch) the capacity counts the global real tokens, and the queue
+    order is the global one: the expert ids are gathered over the row
+    axes (one int per token), ranked, and the rank's slice taken back.
+    A pad row's tokens (`plan.real_rows`) hold no queue place: their
+    rank is -1."""
     e = config.n_experts
     probs = torch.softmax(x.float() @ router.float(), dim=-1)
     # amax splits the gradient evenly among tied maxima, as jnp.max does.
     gate = probs.amax(-1)
     expert = probs.argmax(-1)
     ids = plan.global_rows(expert.view(rows or (1, -1)))
-    cap = int(math.ceil(ids.numel() / e * config.capacity_factor))
+    cap = int(math.ceil(plan.real_tokens(ids) / e * config.capacity_factor))
     # The queue positions, scanned along tokens as the inner dim.
-    onehot = F.one_hot(ids.reshape(-1), e).T.contiguous()   # [E, T]
+    onehot = F.one_hot(ids, e)                                # [B, L, E]
+    real = plan.real_rows(ids)
+    if real is not None:
+        onehot = onehot * real[..., None]
+    onehot = onehot.view(-1, e).T.contiguous()                # [E, T]
     rank = ((onehot.cumsum(1) * onehot).sum(0) - 1).view(ids.shape)
     return probs, gate, expert, plan.local_rows(rank).reshape(-1), cap
 
@@ -296,7 +305,7 @@ def _moe_mlp(x, router, w_up, w_down, config: GPTConfig,
     outputs are summed over the group (Megatron's f and g around the
     experts; the router and the gate, computed alike on every rank of
     the group, stay outside them).  The aux takes its means over the
-    global tokens."""
+    global real tokens."""
     b, l, d = x.shape
     t, e = b * l, config.n_experts
     xt = x.reshape(t, d)
@@ -305,8 +314,9 @@ def _moe_mlp(x, router, w_up, w_down, config: GPTConfig,
     n_local = w_up.shape[0]
     local = expert - plan.first_expert(n_local)
     arange = torch.arange(t, device=x.device)
-    slot = torch.where((rank < cap) & (local >= 0) & (local < n_local),
-                       local * cap + rank, n_local * cap + arange)
+    slot = torch.where((rank >= 0) & (rank < cap) & (local >= 0)
+                       & (local < n_local), local * cap + rank,
+                       n_local * cap + arange)
     x_in = collectives.all_reduce_grad(xt, plan.moe)
     ex_in = x_in.new_zeros(n_local * cap + t, d).index_copy(0, slot, x_in)
     hidden = F.gelu(torch.bmm(ex_in[:n_local * cap].view(n_local, cap, d),
@@ -323,9 +333,10 @@ def _moe_mlp(x, router, w_up, w_down, config: GPTConfig,
     return out.view(b, l, d), aux
 
 
-def _plan(config: GPTConfig, mesh):
-    """The forward's plan (`_functional.plan_for`)."""
-    return _functional.plan_for(mesh, param_specs(config))
+def _plan(config: GPTConfig, mesh, shape):
+    """The forward's plan for a global batch of `shape`
+    (`_functional.batch_plan`)."""
+    return _functional.batch_plan(mesh, param_specs(config), shape)
 
 
 def _block(x, p, config: GPTConfig, plan=_functional.ONE_DEVICE):
@@ -404,7 +415,7 @@ def forward_trunk(params: dict, tokens: torch.Tensor, config: GPTConfig,
     absolute position p reads pos_embed[p:p+l].  With `config.remat` each
     block is recomputed in the backward (non-reentrant checkpoint), so
     its flash forward runs twice per step."""
-    plan = _plan(config, mesh)
+    plan = _plan(config, mesh, tokens.shape)
     return _trunk(plan.local(params), plan.rows(tokens), config, plan,
                   position_offset)
 
@@ -420,8 +431,9 @@ def _head(p, config: GPTConfig, plan):
 def forward(params: dict, tokens: torch.Tensor, config: GPTConfig,
             mesh=None, position_offset: int = 0):
     """tokens [B, L] -> (logits [B, L, V], moe_aux_loss scalar); under a
-    mesh, this rank's rows and vocab slice of the logits."""
-    plan = _plan(config, mesh)
+    mesh, this rank's rows (padded, `MeshPlan.rows`) and vocab slice of
+    the logits."""
+    plan = _plan(config, mesh, tokens.shape)
     p = plan.local(params)
     x, aux = _trunk(p, plan.rows(tokens), config, plan, position_offset)
     return x @ _head(p, config, plan), aux
@@ -440,14 +452,15 @@ def loss_fn(params: dict, batch: dict, config: GPTConfig, mesh=None):
     [B, L, V], plus the reference's `0.01 * aux` (the MoE
     load-balancing loss summed over layers; 0 for a dense MLP).  Under a
     mesh it is the vocab-parallel `fused_cross_entropy_spmd` on this
-    rank's rows and vocab slice, equal on every rank.  The reference
-    falls back to materialised logits where the mesh does not divide the
-    batch, the length or the vocab (`spmd_ce_applicable`); the port's
-    shards are even, so such a batch raises here
-    (`_functional.check_mesh_loss`)."""
+    rank's rows and vocab slice, equal on every rank.  Rows that the
+    row ranks do not divide are padded and their pads masked
+    (`MeshPlan.rows`, `MeshPlan.targets`): the loss is the global mean
+    over the real tokens, the function of the reference's fallback to
+    materialised logits (`spmd_ce_applicable` false).  Under seq above
+    1 an uneven batch raises ValueError, as the reference's ring does
+    (`_functional.check_mesh_rows`)."""
     c = config
-    _functional.check_mesh_loss(mesh, c.vocab_size, batch["tokens"].shape)
-    plan = _plan(c, mesh)
+    plan = _plan(c, mesh, batch["tokens"].shape)
     tokens = plan.rows(batch["tokens"])
     targets, valid = plan.targets(tokens)
     mask = batch.get("loss_mask")

@@ -306,8 +306,8 @@ def _trunk(p, tokens, config: LlamaConfig, plan, position_offset=0):
                     c.norm_eps)
 
 
-def _plan(config: LlamaConfig, mesh):
-    return _functional.plan_for(mesh, param_specs(config))
+def _plan(config: LlamaConfig, mesh, shape):
+    return _functional.batch_plan(mesh, param_specs(config), shape)
 
 
 def forward_trunk(params: dict, tokens: torch.Tensor, config: LlamaConfig,
@@ -320,7 +320,7 @@ def forward_trunk(params: dict, tokens: torch.Tensor, config: LlamaConfig,
     `config.remat` each block is recomputed in the backward
     (non-reentrant checkpoint), so its flash forward runs twice per
     step."""
-    plan = _plan(config, mesh)
+    plan = _plan(config, mesh, tokens.shape)
     return _trunk(plan.local(params), plan.rows(tokens), config, plan,
                   position_offset)
 
@@ -335,8 +335,8 @@ def lm_head(params: dict, x: torch.Tensor,
 def forward(params: dict, tokens: torch.Tensor, config: LlamaConfig,
             mesh=None, position_offset=0) -> torch.Tensor:
     """tokens [B, L] -> logits [B, L, V]; under a mesh, this rank's rows
-    and vocab slice."""
-    plan = _plan(config, mesh)
+    (padded, `MeshPlan.rows`) and vocab slice."""
+    plan = _plan(config, mesh, tokens.shape)
     p = plan.local(params)
     x = _trunk(p, plan.rows(tokens), config, plan, position_offset)
     return x @ plan.leaf(p["lm_head"], "lm_head").to(config.dtype)
@@ -349,10 +349,10 @@ def loss_fn(params: dict, batch: dict, config: LlamaConfig, mesh=None):
     position is masked, as in gpt.loss_fn (`plan.targets`); the loss is
     the fused chunked cross-entropy on the head, which never
     materialises [B, L, V] (under a mesh the vocab-parallel one, equal
-    on every rank)."""
+    on every rank, over the global real tokens of rows that the row
+    ranks need not divide, as gpt.loss_fn)."""
     c = config
-    _functional.check_mesh_loss(mesh, c.vocab_size, batch["tokens"].shape)
-    plan = _plan(c, mesh)
+    plan = _plan(c, mesh, batch["tokens"].shape)
     tokens = plan.rows(batch["tokens"])
     targets, valid = plan.targets(tokens)
     mask = batch.get("loss_mask")

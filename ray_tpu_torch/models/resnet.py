@@ -29,12 +29,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ray_tpu_torch._device import MULTI_DEVICE, DeviceLike, resolve_device
+from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models._functional import multi_device
 from ray_tpu_torch.parallel import collectives
-from ray_tpu_torch.parallel.mesh import axis_sizes
-from ray_tpu_torch.parallel.sharding import (BATCH_AXES, local_shard,
-                                             mesh_device)
+from ray_tpu_torch.parallel.sharding import (BATCH_AXES, mesh_device,
+                                             pad_rows, row_split)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,22 +232,30 @@ def num_params(config: ResNetConfig) -> int:
 class _Rows:
     """A train step's data-parallel plan on this rank of `mesh`: its
     rows of a batch (`sharding`'s "batch" rule), and the group of row
-    ranks over which each gradient (and the loss and the accuracy) is
-    averaged."""
+    ranks over which the gradients of the summed loss, the loss, the
+    correct count and the real count are summed (`totals`)."""
 
     def __init__(self, mesh):
         self.mesh = mesh
-        self.n = math.prod(axis_sizes(mesh).get(a, 1) for a in BATCH_AXES)
         self.group = collectives.axis_group(mesh, BATCH_AXES)
         self.device = mesh_device(mesh)
 
-    def local(self, x):
-        if x.shape[0] % self.n:
-            raise NotImplementedError(
-                f"a batch of {x.shape[0]} rows does not split evenly over "
-                f"the {self.n} ranks of {BATCH_AXES}: uneven shards wait "
-                f"for {MULTI_DEVICE}")
-        return local_shard(x, self.mesh, (BATCH_AXES,)).to(self.device)
+    def local(self, x) -> tuple:
+        """(this rank's rows of a batch leaf, how many are real): a
+        DTensor's local tensor (placed evenly), or GSPMD's split of a
+        plain (global) tensor (`sharding.row_split`: the rank's real
+        rows, then zero rows up to the chunk every row rank holds)."""
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(x, DTensor):
+            x = x.to_local()
+            return x.to(self.device), x.shape[0]
+        x = torch.as_tensor(x)
+        own, chunk = row_split(x.shape[0], self.mesh)
+        return pad_rows(x[own], chunk).to(self.device), own.stop - own.start
+
+    def totals(self, tensors: list) -> list:
+        return collectives.all_reduce_sum(tensors, self.group)
 
 
 def make_train_step(config: ResNetConfig, optimizer, mesh=None, *,
@@ -264,11 +271,15 @@ def make_train_step(config: ResNetConfig, optimizer, mesh=None, *,
     Under a mesh (on every rank of its process group; the model on the
     rank's device), as in the reference: the params are replicated, the
     batch (global tensors, or DTensors split over (data, fsdp)) splits
-    its rows over (data, fsdp) and every other axis is a replica; each
-    gradient, the loss and the accuracy are averaged over the row ranks
-    before the optimizer's step.  GroupNorm takes no statistic across
-    the batch, so the split is exact.  A batch whose rows do not split
-    evenly raises, before any collective."""
+    its rows over (data, fsdp) and every other axis is a replica.  Rows
+    of any count split as GSPMD pads them (`_Rows.local`): a rank's pad
+    images pass through the model and weigh nothing.  Each rank sums
+    the NLL of its real images and counts them and its correct ones;
+    the gradients of those sums, the sums and the counts are summed
+    over the row ranks, and each is divided by the global count before
+    the optimizer's step: the global batch's mean, each image weighted
+    alike however the rows split.  GroupNorm takes no statistic across
+    the batch, so the split is exact."""
     rows = _Rows(mesh) if multi_device(mesh) else None
     device = rows.device if rows is not None else resolve_device(device)
 
@@ -285,23 +296,31 @@ def make_train_step(config: ResNetConfig, optimizer, mesh=None, *,
     def train_step(state: dict, batch: dict):
         model, opt = state["params"], state["opt_state"]
         images, labels = batch["images"], batch["labels"]
-        if rows is not None:
-            images, labels = rows.local(images), rows.local(labels)
         opt.zero_grad(set_to_none=True)
-        logits = model(images.to(device, non_blocking=True))
-        labels = labels.to(device, non_blocking=True).long()
-        loss = F.cross_entropy(logits.float(), labels)
-        loss.backward()
-        acc = (logits.argmax(-1) == labels).float().mean()
-        loss = loss.detach()
-        if rows is not None:
+        if rows is None:
+            logits = model(images.to(device, non_blocking=True))
+            labels = labels.to(device, non_blocking=True).long()
+            loss = F.cross_entropy(logits.float(), labels)
+            loss.backward()
+            acc = (logits.argmax(-1) == labels).float().mean()
+            loss = loss.detach()
+        else:
+            (images, real), (labels, _) = rows.local(images), \
+                rows.local(labels)
+            logits = model(images)[:real]
+            labels = labels[:real].long()
+            total = F.cross_entropy(logits.float(), labels,
+                                    reduction="sum")
+            total.backward()
             params = [p for p in model.parameters() if p.grad is not None]
-            grads = collectives.all_reduce_mean(
-                [p.grad for p in params] + [loss, acc], rows.group)
+            sums = rows.totals([p.grad for p in params] + [
+                total.detach(), (logits.argmax(-1) == labels).float().sum(),
+                torch.tensor(float(real), device=device)])
+            count = sums[-1].clamp_min(1.0)
             with torch.no_grad():
-                for p, g in zip(params, grads):
-                    p.grad.copy_(g)
-            loss, acc = grads[-2:]
+                for p, g in zip(params, sums):
+                    p.grad.copy_(g / count)
+            loss, acc = sums[-3] / count, sums[-2] / count
         opt.step()
         return ({"params": model, "opt_state": opt,
                  "step": state["step"] + 1},

@@ -25,7 +25,7 @@
 //      (and per group of QH <= 8 of the kv head's query heads, when
 //      q_per_kv > 8 or is odd).  The split count is fixed by the table
 //      width (max_blocks * block_size), not by ctx_lens, so the host
-//      never waits for the device; a split that starts at or past its
+//      never blocks on the device; a split that starts at or past its
 //      lane's context writes an empty partial (m = -inf, l = 0) and stops.
 //      Inside a split a group of up to 32 neighbouring threads owns one
 //      position's row at a time and reads it in 16-byte loads (bf16 at

@@ -108,17 +108,28 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     return t
 
 
-def all_reduce_mean(tensors: list, group) -> list:
-    """Each tensor's mean over `group` (data-parallel replicas' gradients
-    and metrics), in one all-reduce of the tensors laid end to end; as
-    they are when `group` is None."""
+def _all_reduce_flat(tensors: list, group, mean: bool) -> list:
     if group is None:
         return list(tensors)
     flat = all_reduce(torch.cat([t.detach().reshape(-1).float()
                                  for t in tensors]), group)
-    flat /= dist.get_world_size(group)
+    if mean:
+        flat /= dist.get_world_size(group)
     return [part.view(t.shape).to(t.dtype) for t, part in
             zip(tensors, flat.split([t.numel() for t in tensors]))]
+
+
+def all_reduce_mean(tensors: list, group) -> list:
+    """Each tensor's mean over `group` (data-parallel replicas' gradients
+    and metrics), in one all-reduce of the tensors laid end to end; as
+    they are when `group` is None."""
+    return _all_reduce_flat(tensors, group, mean=True)
+
+
+def all_reduce_sum(tensors: list, group) -> list:
+    """Each tensor's sum over `group`, as `all_reduce_mean` (one
+    all-reduce in f32; as they are when `group` is None)."""
+    return _all_reduce_flat(tensors, group, mean=False)
 
 
 def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:

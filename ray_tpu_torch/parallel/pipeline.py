@@ -18,6 +18,7 @@ of size `n_micro` and are fed one per step.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable
 
 import torch
@@ -66,6 +67,24 @@ def _sequential(stage_fn: Callable, stage_params, microbatches):
     return torch.stack(outs)
 
 
+def _own_rows(x):
+    """This rank's rows of microbatches [n_micro, B, ...]: a plain
+    tensor is already the rank's rows; a DTensor holds the global ones,
+    whose B rows split over (data, fsdp) as the reference's `io_spec`
+    splits them, evenly, as its `shard_map` requires: ValueError
+    otherwise, before any collective."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    parts = math.prod(mesh_axis_size(x.device_mesh, a) for a in BATCH_AXES)
+    if x.shape[1] % parts:
+        raise ValueError(
+            f"dim 1 of the microbatches {tuple(x.shape)} is not evenly "
+            f"divisible by {parts}, the size of {BATCH_AXES}")
+    return x.to_local()
+
+
 def _own_stage(stage_params, stage: int, n_stages: int):
     lead = _leaves(stage_params)[0].shape[0]
     if lead not in (n_stages, 1):
@@ -89,8 +108,9 @@ def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
         whole stack lands in this rank's slice only.
       microbatches: [n_micro, micro_batch, ...]; the micro batch is this
         rank's rows over (data, fsdp), as the reference's `io_spec`
-        gives them.  Only stage 0 reads it, so its gradient lands on
-        stage 0 alone.
+        gives them (or a DTensor of the global microbatches, whose rows
+        must split evenly: `_own_rows`).  Only stage 0 reads it, so its
+        gradient lands on stage 0 alone.
 
     The schedule runs n_micro + n_stages - 1 steps: stage 0 takes
     microbatch min(t, n_micro - 1), every stage applies `stage_fn`, the
@@ -119,6 +139,7 @@ def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
     With `mesh` None, or a stage axis of 1, it is the plain sequential
     loop: each microbatch through every stage of the stack in turn.
     """
+    microbatches = _own_rows(microbatches)
     n_stages = 1 if mesh is None else mesh_axis_size(mesh, axis)
     if n_stages == 1:
         return _sequential(stage_fn, stage_params, microbatches)
@@ -161,7 +182,9 @@ def pipeline_loss_dryrun(stage_fn: Callable, loss_fn: Callable, mesh,
     ranks split the rows, the outputs and targets are gathered over
     them first, so every rank computes the loss of the global
     microbatches, as the reference's GSPMD program does; the gather's
-    backward keeps this rank's rows of the gradient."""
+    backward keeps this rank's rows of the gradient.  `microbatches` and
+    `targets` are the rank's rows or DTensors, as in `pipeline_apply`."""
+    microbatches, targets = _own_rows(microbatches), _own_rows(targets)
     outputs = pipeline_apply(stage_fn, mesh, stage_params, microbatches,
                              axis=axis)
     rows = None if mesh is None else collectives.axis_group(mesh,

@@ -17,11 +17,18 @@ dict of axis sizes, and returns plain data:
   its gradients;
 - `plans`: the plan each family's train step builds on the mesh;
 - `train`: the family's `make_train_step` under the mesh for a few
-  AdamW steps: the losses, the launches of K1-K3 on this rank, step
-  times, the share of a step spent in collectives, peak memory, the
-  final params' shards or their updates against a single-device run's,
-  and whether AdamW's moments are placed like their params; with a
-  `control`, the same run with a fault injected;
+  AdamW steps on global batches of any row count: the losses, the
+  launches of K1-K3 on this rank, step times, the share of a step spent
+  in collectives, peak memory, the final params' shards or their
+  updates (and first gradients) against a single-device run's, this
+  rank's real rows, and whether AdamW's moments are placed like their
+  params; with a `control`, the same run with a fault injected;
+- `loss_grads`: the family's loss and its summed gradients' shards on
+  placed params;
+- `routing`: gpt's Switch MoE trunk once: this rank's real rows, and
+  each layer's capacity and dropped tokens;
+- `refusals`: what the reference refuses, each case's error and the
+  collectives run before it;
 - `save` / `restore`: a sharded checkpoint written from the mesh, or
   restored onto it;
 - `batches`: a global batch through `shard_batch`, `global_batch`,
@@ -47,6 +54,7 @@ where `save` says.
 from __future__ import annotations
 
 import hashlib
+import math
 import statistics
 import time
 from typing import Optional
@@ -292,7 +300,7 @@ def moe(rank: int, world_size: int, config, sizes: dict, x, router, w_up,
 
     mesh = _mesh(sizes, device)
     dev = _device(device)
-    plan = plan_for(mesh, gpt.param_specs(config))
+    plan = plan_for(mesh, gpt.param_specs(config)).for_batch(x.shape[0])
     specs = {"x": ("batch", "length", None), "router": (None, "experts"),
              "w_up": ("experts", None, "expert_mlp"),
              "w_down": ("experts", "expert_mlp", None)}
@@ -362,6 +370,42 @@ def _sync(dev: torch.device) -> None:
 
 
 CONTROLS = ("no_grad_sync", "no_update")
+GRAD_CONTROLS = ("rank_means",)
+
+
+def _rank_means_ce(x, head, targets, valid, mesh, n_chunks: int = 4):
+    """A fault for `train`'s grad control "rank_means": each row rank's loss
+    normalised by its own count of valid tokens, then averaged over the
+    row ranks (`fused_cross_entropy_spmd` normalises by the global
+    count)."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.ops import cross_entropy as CE
+    from ray_tpu_torch.parallel import collectives
+
+    vocab = collectives.axis_group(mesh, (CE.VOCAB_AXIS,))
+    rows = collectives.axis_group(mesh, CE.ROW_AXES)
+    offset = _coordinate(mesh)[CE.VOCAB_AXIS] * head.shape[1]
+    own = CE._FusedCrossEntropySpmd.apply(x, head, targets, valid.float(),
+                                          (vocab, None), offset, n_chunks)
+    n = 1 if rows is None else dist.get_world_size(rows)
+    return collectives.all_reduce_value(own, rows) / n
+
+
+def _feed(mesh, batch) -> dict:
+    """A global batch (a tokens array, or a dict of arrays) as the train
+    step takes it: placed by `shard_batch` where its rows split evenly
+    over the row ranks, else the global tensors, whose rows the step
+    splits as GSPMD pads them."""
+    from ray_tpu_torch.parallel.mesh import axis_sizes
+    from ray_tpu_torch.parallel.sharding import BATCH_AXES, shard_batch
+
+    batch = {k: torch.from_numpy(v) for k, v in (
+        batch if isinstance(batch, dict) else {"tokens": batch}).items()}
+    parts = math.prod(axis_sizes(mesh)[a] for a in BATCH_AXES)
+    if batch["tokens"].shape[0] % parts:
+        return batch
+    return shard_batch(mesh, batch)
 
 
 def _flat(tree: dict, prefix: str = "") -> dict:
@@ -374,12 +418,35 @@ def _flat(tree: dict, prefix: str = "") -> dict:
     return out
 
 
+def _grad_errors(params: dict, specs: dict, mesh,
+                 path: Optional[str]) -> dict:
+    """Against the first step's gradients saved at `path` (its "grad",
+    a flat tree of the single device's global gradients, before the
+    optimizer's step), per leaf, this rank's shard of its summed
+    gradient's `_rel_err`; {} without them."""
+    from ray_tpu_torch.parallel.sharding import local_index
+
+    if path is None:
+        return {}
+    ref = torch.load(path, mmap=True, weights_only=True).get("grad")
+    if ref is None:
+        return {}
+    spec = _flat(specs)
+    out = {}
+    for k, p in _flat(params).items():
+        got = p.grad.to_local().detach()
+        out[k] = _rel_err(got, ref[k][local_index(p.shape, spec[k], mesh)]
+                          .to(got.device, got.dtype))
+    return out
+
+
 def _update_errors(params: dict, specs: dict, mesh, path: str) -> dict:
     """Against a single-device run saved at `path` (torch.save of
     {"start": , "final": } flat trees of the global params, the final
     one after the same steps): per leaf, this rank's shard's
-    ||(got - start) - (want - start)||_2 / ||want - start||_2, `start`
-    the saved one (so a start that differs shows here too)."""
+    ||(got - start) - (want - start)||_2 / ||want - start||_2 (in f64,
+    on the shard's device), `start` the saved one (so a start that
+    differs shows here too)."""
     from ray_tpu_torch.parallel.sharding import local_index
 
     ref = torch.load(path, mmap=True, weights_only=True)
@@ -387,10 +454,9 @@ def _update_errors(params: dict, specs: dict, mesh, path: str) -> dict:
     out = {}
     for k, t in got.items():
         index = local_index(t.shape, spec[k], mesh)
-        start = ref["start"][k][index].double()
-        want = ref["final"][k][index].double() - start
-        have = t.to_local().detach().cpu().double() - start
-        out[k] = float((have - want).norm() / want.norm().clamp_min(1e-30))
+        have = t.to_local().detach()
+        out[k] = _rel_update(*(x.to(have.device, torch.float64) for x in (
+            ref["start"][k][index], have, ref["final"][k][index])))
     return out
 
 
@@ -398,17 +464,32 @@ def train(rank: int, world_size: int, family: str, config, sizes: dict,
           np_params: Optional[dict], batches: list, lr: float,
           device: str = "cpu", return_params: bool = True,
           rules: Optional[dict] = None, reference: Optional[str] = None,
-          control: Optional[str] = None, digest: bool = False) -> dict:
+          control: Optional[str] = None, digest: bool = False,
+          grad_controls: tuple = ()) -> dict:
     """One AdamW step per batch, each timed (host clock around a
     synchronize; the median leaves out the first, which warms up), the
     K1-K3 counts set to 0 just before the steps and read just after;
     the params' shards after these steps (`shards`, with
     `return_params`; with `digest`, a sha256 of their bytes, which
     replicas share), and each leaf's update against a single-device
-    run's (`update_rel_err`, with `reference`, see `_update_errors`);
-    then one more step on the last batch under `collectives.measure()`
-    for the share of a step spent in collectives, whose loss
-    (`final_loss`) is the first that sees the last update.
+    run's (`update_rel_err`, with `reference`, see `_update_errors`;
+    where the reference also holds the first step's gradients, each
+    leaf's first summed gradient against them, `grad_rel_err`); then
+    one more step on the last batch under `collectives.measure()` for
+    the share of a step spent in collectives, whose loss (`final_loss`)
+    is the first that sees the last update.
+
+    A batch is a global tokens array or a dict of arrays ("tokens",
+    optional "loss_mask"), of any row count (`_feed`); `real_rows` and
+    `chunk` are this rank's real rows of the first batch and the rows
+    it holds (`sharding.row_split`).  Before the steps, each of
+    `grad_controls` ("rank_means": each row rank's loss normalised by
+    its own count and the ranks' averaged, the weighting an uneven
+    split must not take) computes the first batch's summed gradients
+    with its fault, read as `grad_rel_err` is (`grad_controls`).
+    `peak_memory_gib` is the largest of the timed steps' peaks, and
+    `host_seconds` this rank's host time by part (setup, grad controls,
+    steps, checks, the measured step, the round trip).
 
     The params come from `np_params` (the reference's numpy tree;
     placed by `shard_params` under `rules` when given, which the train
@@ -416,7 +497,8 @@ def train(rank: int, world_size: int, family: str, config, sizes: dict,
     family's init on seed 0 (drawn on the CPU, as the single-device
     `init_state(0)` draws them).  `control` injects a fault the checks
     must catch: "no_grad_sync" skips the gradients' sums over the row
-    axes, "no_update" the optimizer's step.  Also `constraint_round_trip`:
+    axes, "no_update" the optimizer's step.  Also
+    `constraint_round_trip`:
     the token table replicated by `with_logical_constraint` and sliced
     back equals its shard."""
     import torch.distributed as dist
@@ -424,12 +506,22 @@ def train(rank: int, world_size: int, family: str, config, sizes: dict,
     from ray_tpu_torch.models._functional import adamw, plan_for
     from ray_tpu_torch.models.convert import params_from_numpy
     from ray_tpu_torch.parallel import collectives
-    from ray_tpu_torch.parallel.sharding import (local_index, shard_batch,
+    from ray_tpu_torch.parallel.sharding import (local_index, row_split,
                                                  spec_of,
                                                  with_logical_constraint)
 
     if control is not None and control not in CONTROLS:
         raise ValueError(f"control {control!r} is not one of {CONTROLS}")
+    if set(grad_controls) - set(GRAD_CONTROLS):
+        raise ValueError(f"grad controls {grad_controls} are not in "
+                         f"{GRAD_CONTROLS}")
+    seconds, lap = {}, [time.perf_counter()]
+
+    def clock(name):            # this rank's host seconds, by part
+        now = time.perf_counter()
+        seconds[name] = seconds.get(name, 0.0) + now - lap[0]
+        lap[0] = now
+
     fam = _family(family)
     dev = _device(device)
     mesh = _mesh(sizes, device)
@@ -446,21 +538,45 @@ def train(rank: int, world_size: int, family: str, config, sizes: dict,
         plan.sync_grads = lambda params: None
     if control == "no_update":
         state["opt_state"].step = lambda: None
-    feed = [shard_batch(mesh, {"tokens": torch.from_numpy(b)})
-            for b in batches]
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
+    feed = [_feed(mesh, b) for b in batches]
+    own, chunk = row_split(feed[0]["tokens"].shape[0], mesh)
+    specs = _specs(fam, config, mesh)
+    clock("setup")
+    read_controls = {}
+    for name in grad_controls:
+        loss_ce = fam.fused_cross_entropy_spmd
+        fam.fused_cross_entropy_spmd = _rank_means_ce
+        try:
+            fam.loss_fn(state["params"], feed[0], config, mesh).backward()
+        finally:
+            fam.fused_cross_entropy_spmd = loss_ce
+        plan.sync_grads(state["params"])
+        read_controls[name] = _grad_errors(state["params"], specs, mesh,
+                                           reference)
+        state["opt_state"].zero_grad(set_to_none=True)
+    clock("grad_controls")
     _zero_flash_launches()
-    losses, step_ms = [], []
+    losses, step_ms, first_grad, peaks = [], [], None, []
     for batch in feed:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         _sync(dev)
         t0 = time.perf_counter()
         state, metrics = train_step(state, batch)
         losses.append(float(metrics["loss"]))
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(_peak_gib(dev))
+        clock("steps")
+        if first_grad is None:
+            first_grad = _grad_errors(state["params"], specs, mesh,
+                                      reference)
+            clock("checks")
     launches = _flash_launches()
-    specs = _specs(fam, config, mesh)
-    out = {}
+    out = {"real_rows": own.stop - own.start, "chunk": chunk}
+    if first_grad:
+        out["grad_rel_err"] = first_grad
+    if read_controls:
+        out["grad_controls"] = read_controls
     if return_params:
         out["shards"] = local_shards(state["params"], specs, mesh)
     if reference is not None:
@@ -470,11 +586,13 @@ def train(rank: int, world_size: int, family: str, config, sizes: dict,
         out["params_digest"] = _digest(
             p.to_local() for p in _flat(state["params"]).values())
     _sync(dev)
+    clock("checks")
     t0 = time.perf_counter()
     with collectives.measure() as stats:
         state, metrics = train_step(state, feed[-1])
         final_loss = float(metrics["loss"])
     measured_ms = (time.perf_counter() - t0) * 1e3
+    clock("measured_step")
     if control == "no_grad_sync":
         del plan.sync_grads         # the cached plan's own method again
     table = state["params"]["tok_embed"].detach()
@@ -503,9 +621,12 @@ def train(rank: int, world_size: int, family: str, config, sizes: dict,
                                        "ms": o["seconds"] * 1e3,
                                        "bytes": o["bytes"]}
                                   for op, o in stats["by_op"].items()}},
-        "peak_memory_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
-                            if dev.type == "cuda" else None),
+        # The steps' peak alone: the checks' temporaries are not the
+        # step's.
+        "peak_memory_gib": None if dev.type != "cuda" else max(peaks),
     })
+    clock("round_trip")
+    out["host_seconds"] = seconds
     return out
 
 
@@ -821,32 +942,55 @@ def pipeline_gpt(rank: int, world_size: int, sizes: Optional[dict], config,
 
 def _split_resnet_step(k: int, device: torch.device):
     """A one-device ResNet train step that does the data = k mesh step's
-    arithmetic in one place: each of the batch's k row chunks' loss,
-    accuracy and f32 gradients computed alone, as a row rank computes
-    its own, then summed in rank order and divided by k, as
-    `collectives.all_reduce_mean` does, before the optimizer's step."""
+    arithmetic in one place: the batch cut into k row chunks as
+    `sharding.row_split` cuts it (each padded with zero images to the
+    chunk a rank holds), each chunk's NLL summed over its real images,
+    its f32 gradients, correct count and count computed alone, as a row
+    rank computes its own, then summed in rank order and divided by the
+    count, as `resnet.make_train_step` does, before the optimizer's
+    step."""
     import torch.nn.functional as F
+
+    from ray_tpu_torch.parallel.sharding import pad_rows
 
     def train_step(state: dict, batch: dict):
         model, opt = state["params"], state["opt_state"]
         opt.zero_grad(set_to_none=True)
-        loss = acc = 0.0
-        for images, labels in zip(batch["images"].chunk(k),
-                                  batch["labels"].chunk(k)):
-            logits = model(images.to(device))
-            labels = labels.to(device).long()
-            part = F.cross_entropy(logits.float(), labels)
+        n = batch["labels"].shape[0]
+        chunk = -(-n // k)
+        loss = correct = 0.0
+        for i in range(k):
+            rows = slice(min(n, i * chunk), min(n, (i + 1) * chunk))
+            real = rows.stop - rows.start
+            logits = model(pad_rows(batch["images"][rows], chunk).to(
+                device))[:real]
+            labels = batch["labels"][rows].to(device).long()
+            part = F.cross_entropy(logits.float(), labels, reduction="sum")
             part.backward()                     # adds into each .grad
             loss = loss + part.detach()
-            acc = acc + (logits.argmax(-1) == labels).float().mean()
+            correct = correct + (logits.argmax(-1) == labels).float().sum()
+        count = torch.tensor(float(n), device=device)
         with torch.no_grad():
             for p in model.parameters():
-                p.grad /= k
+                p.grad /= count
         opt.step()
         return (dict(state, step=state["step"] + 1),
-                {"loss": loss / k, "accuracy": acc / k})
+                {"loss": loss / count, "accuracy": correct / count})
 
     return train_step
+
+
+def _rank_means_totals(rows, tensors: list) -> list:
+    """A fault for `resnet`'s control "rank_means": in place of
+    `_Rows.totals` (the gradients of the summed NLL, the NLL sum, the
+    correct count, then the count), each rank's sums divided by its own
+    count and averaged over the row ranks, the count taken as 1."""
+    from ray_tpu_torch.parallel import collectives
+
+    count = tensors[-1].clamp_min(1.0)
+    means = collectives.all_reduce_mean([t / count for t in tensors[:-1]],
+                                        rows.group)
+    return means + [torch.ones_like(count)]
 
 
 def resnet(rank: int, world_size: int, sizes: Optional[dict], config,
@@ -865,14 +1009,15 @@ def resnet(rank: int, world_size: int, sizes: Optional[dict], config,
     ({name: path of a torch.save of {"start", "final"} state dicts})
     each leaf's update against each (`update_rel_err[name]`); with
     `save`, its own start and final saved there.  `control`
-    "no_grad_sync" leaves every rank's gradients (and loss) its own: a
-    fault the checks must catch.  `split` k > 1 (one device only) takes
-    each step as `_split_resnet_step` does."""
+    "no_grad_sync" leaves every rank's gradients (and loss) its own, and
+    "rank_means" averages the ranks' own means (`_rank_means_totals`):
+    faults the checks must catch.  `split` k > 1 (one device only)
+    takes each step as `_split_resnet_step` does.  A batch's rows need
+    not split evenly over the row ranks (`resnet._Rows.local`)."""
     from ray_tpu_torch.models import resnet as R
     from ray_tpu_torch.models._functional import adamw
-    from ray_tpu_torch.parallel import collectives
 
-    if control not in (None, "no_grad_sync"):
+    if control not in (None, "no_grad_sync", "rank_means"):
         raise ValueError(f"control {control!r}")
 
     dev = _device(device)
@@ -904,13 +1049,15 @@ def resnet(rank: int, world_size: int, sizes: Optional[dict], config,
         state, metrics = train_step(state, batches[i])
         return float(metrics["loss"]), float(metrics["accuracy"])
 
-    original = collectives.all_reduce_mean
+    totals = R._Rows.totals
     if control == "no_grad_sync":
-        collectives.all_reduce_mean = lambda tensors, group: list(tensors)
+        R._Rows.totals = lambda rows, tensors: list(tensors)
+    if control == "rank_means":
+        R._Rows.totals = _rank_means_totals
     try:
         results, step_ms, _ = _timed_steps(dev, len(batches), step)
     finally:
-        collectives.all_reduce_mean = original
+        R._Rows.totals = totals
     final = {k: v.detach().cpu().clone()
              for k, v in model.state_dict().items()}
     out = {"losses": [r[0] for r in results],
@@ -933,6 +1080,154 @@ def resnet(rank: int, world_size: int, sizes: Optional[dict], config,
                                                         ref["start"][k])}
         out["start_differs"] = sorted(out["start_differs"])
         out["digest"] = _digest(final.values())
+    return out
+
+
+def loss_grads(rank: int, world_size: int, family: str, config,
+               sizes: dict, np_params: dict, tokens: np.ndarray,
+               device: str = "cpu") -> dict:
+    """The family's `loss_fn` under the mesh on the reference's numpy
+    params (placed as the train step places them) and the global
+    `tokens`, and each leaf's gradient summed as the train step sums it
+    (`sync_grads`): {"loss", "grads": {leaf path: (index, local array)}}."""
+    from ray_tpu_torch.models._functional import _map, plan_for
+    from ray_tpu_torch.models.convert import params_from_numpy
+
+    fam = _family(family)
+    mesh = _mesh(sizes, device)
+    plan = plan_for(mesh, fam.param_specs(config))
+    params = plan.place(params_from_numpy(np_params, config, device="cpu"),
+                        _device(device))
+    loss = fam.loss_fn(params, {"tokens": torch.from_numpy(tokens)}, config,
+                       mesh)
+    loss.backward()
+    plan.sync_grads(params)
+    return {"loss": float(loss), "grads": local_shards(
+        _map(params, lambda p: p.grad), _specs(fam, config, mesh), mesh)}
+
+
+ROUTING_CONTROLS = ("capacity_from_padded",)
+
+
+def routing(rank: int, world_size: int, sizes: Optional[dict], config,
+            tokens: np.ndarray, device: str = "cpu",
+            np_params: Optional[dict] = None,
+            control: Optional[str] = None) -> dict:
+    """gpt's Switch MoE trunk once (no step) under the mesh `sizes`
+    (None: one device) on the global `tokens`, the params the
+    reference's numpy `np_params` or the init from a generator seeded 0
+    on `device` (every rank draws the whole tree, then keeps its
+    shards), with `gpt._route` wrapped to keep each layer's capacity and
+    how many real tokens it dropped (over the global batch: each rank's
+    count summed over the row ranks).  Returns those lists, the aux
+    summed over the layers, this rank's real rows and the chunk it
+    holds.  `control` "capacity_from_padded" counts the pad rows' tokens
+    in the capacity: a fault the capacity check must catch."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models._functional import ONE_DEVICE, MeshPlan
+    from ray_tpu_torch.models.convert import params_from_numpy
+    from ray_tpu_torch.parallel import collectives
+    from ray_tpu_torch.parallel.sharding import row_split
+
+    if control not in (None,) + ROUTING_CONTROLS:
+        raise ValueError(f"control {control!r}")
+    dev = _device(device)
+    mesh = _mesh_or_none(sizes, device)
+    params = gpt.init_params(config, torch.Generator(dev).manual_seed(0),
+                             device=dev) if np_params is None \
+        else params_from_numpy(np_params, config, device="cpu")
+    params = gpt._map(params, lambda t: t.to(dev)) if mesh is None \
+        else gpt.shard_params(params, mesh, config, device=dev)
+    capacity, dropped = [], []
+    route, real_tokens = gpt._route, MeshPlan.real_tokens
+
+    def record(x, router, config, plan=ONE_DEVICE, rows=None):
+        out = route(x, router, config, plan, rows)
+        rank_in_queue, cap = out[3], out[4]
+        n = (rank_in_queue >= cap).sum().reshape(1).float()
+        if plan is not ONE_DEVICE:
+            n = collectives.all_reduce(n, plan.row_group)
+        capacity.append(cap)
+        dropped.append(int(n))
+        return out
+
+    gpt._route = record
+    if control == "capacity_from_padded":
+        MeshPlan.real_tokens = lambda plan, x: x.numel()
+    try:
+        with torch.no_grad():
+            _, aux = gpt.forward_trunk(params, torch.from_numpy(tokens),
+                                       config, mesh)
+    finally:
+        gpt._route, MeshPlan.real_tokens = route, real_tokens
+    n = tokens.shape[0]
+    own, chunk = (slice(0, n), n) if mesh is None else row_split(n, mesh)
+    return {"real_rows": own.stop - own.start, "chunk": chunk,
+            "capacity": capacity, "dropped": dropped, "aux": float(aux)}
+
+
+def refusals(rank: int, world_size: int, cases: list,
+             device: str = "cpu") -> dict:
+    """What the reference refuses, each case on its own mesh of this
+    group's ranks (gpt nano, its init on seed 0): {case: (the error's
+    type name and message, the port's collectives called before it)}.
+    Cases: "seq_length" (a train step on data2/seq2 with rows of length
+    7), "seq_rows" (data2/seq2 with 3 rows), "shard_batch" (3 rows over
+    data2/tensor2), "pipeline" (`pipeline_loss_dryrun` on data2/stage2
+    with global microbatches of 3 rows, a DTensor), "placement"
+    (`init_state` on tensor = world_size, which nano's dims do not
+    divide when it is 3)."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models._functional import adamw
+    from ray_tpu_torch.parallel import collectives
+    from ray_tpu_torch.parallel import pipeline as P
+    from ray_tpu_torch.parallel.sharding import (BATCH_AXES, NamedSharding,
+                                                 shard_batch)
+
+    config = gpt.CONFIGS["nano"]
+    dev = _device(device)
+
+    def train_step(sizes, shape):
+        init_state, step = gpt.make_train_step(config, adamw(1e-3),
+                                               _mesh(sizes, device),
+                                               device=dev)
+        state = init_state(0)
+        return lambda: step(state, {"tokens": torch.zeros(shape,
+                                                          dtype=torch.long)})
+
+    def pipeline():
+        mesh = _mesh(dict(data=2, stage=2), device)
+        mb = NamedSharding(mesh, (None, BATCH_AXES)).wrap(
+            torch.zeros(2, 2, 4), (2, 3, 4), dev)
+        params = {"w": torch.zeros(2, 4, 4, device=dev)}
+        return lambda: P.pipeline_loss_dryrun(_tanh_stage, _mean_square,
+                                              mesh, params, mb, mb)
+
+    def placement():
+        init_state, _ = gpt.make_train_step(
+            config, adamw(1e-3), _mesh(dict(tensor=world_size), device),
+            device=dev)
+        return lambda: init_state(0)
+
+    build = {
+        "seq_length": lambda: train_step(dict(data=2, seq=2), (2, 7)),
+        "seq_rows": lambda: train_step(dict(data=2, seq=2), (3, 8)),
+        "shard_batch": lambda: (lambda mesh: lambda: shard_batch(
+            mesh, {"tokens": torch.zeros(3, 8)}))(
+                _mesh(dict(data=2, tensor=2), device)),
+        "pipeline": pipeline,
+        "placement": placement,
+    }
+    out = {}
+    for case in cases:
+        call = build[case]()
+        with collectives.measure() as stats:
+            try:
+                call()
+                error = None
+            except Exception as e:              # the refusal under test
+                error = (type(e).__name__, str(e))
+        out[case] = (error, stats["calls"])
     return out
 
 

@@ -132,28 +132,60 @@ def placements(mesh, spec: tuple) -> list:
     return out
 
 
+def _position(entry, mesh, coordinate=None) -> Tuple[int, int]:
+    """(index, parts): the coordinates of the axes of a spec entry at
+    `coordinate` (default this rank's) read as one number, the first
+    axis major, and the product of their sizes."""
+    sizes = axis_sizes(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()
+                     if coordinate is None else coordinate))
+    idx, parts = 0, 1
+    for a in _entry_axes(entry):
+        idx = idx * sizes.get(a, 1) + coord.get(a, 0)
+        parts *= sizes.get(a, 1)
+    return idx, parts
+
+
 def local_index(shape, spec: tuple, mesh, coordinate=None) -> tuple:
     """The slices of a tensor of global `shape` held at `coordinate` (a
     mesh coordinate; default this rank's) under `spec`: for each dim,
     its axes' coordinates read as one number, the first axis major, pick
-    an even chunk.  An uneven split raises."""
-    sizes = axis_sizes(mesh)
-    names = list(mesh.mesh_dim_names)
-    coord = dict(zip(names, mesh.get_coordinate() if coordinate is None
-                     else coordinate))
+    an even chunk.  An uneven split raises ValueError: this is the
+    placement of parameters, optimizer moments and `shard_batch`, where
+    the reference's `device_put` refuses an uneven split too.  The train
+    steps take the rows of an unplaced global batch by `row_split`,
+    which pads them as GSPMD does."""
     out = []
     for d, n in enumerate(shape):
         entry = spec[d] if d < len(spec) else None
-        idx, parts = 0, 1
-        for a in _entry_axes(entry):
-            idx = idx * sizes.get(a, 1) + coord.get(a, 0)
-            parts *= sizes.get(a, 1)
+        idx, parts = _position(entry, mesh, coordinate)
         if n % parts:
             raise ValueError(f"dim {d} of {tuple(shape)} does not split "
                              f"evenly into {parts} ({entry})")
         chunk = n // parts
         out.append(slice(idx * chunk, (idx + 1) * chunk))
     return tuple(out)
+
+
+def row_split(n: int, mesh, coordinate=None) -> Tuple[slice, int]:
+    """GSPMD's split of a global batch of `n` rows over the row ranks
+    (BATCH_AXES, read data-major as in `local_index`): each of the
+    `parts` ranks holds chunk = ceil(n / parts) rows, rank i the real
+    rows [i * chunk, min(n, (i + 1) * chunk)) and pad rows after them,
+    so a rank may hold none.  Returns (the slice of its real rows,
+    chunk); an even split is `local_index`'s."""
+    idx, parts = _position(BATCH_AXES, mesh, coordinate)
+    chunk = -(-n // parts)
+    lo = min(n, idx * chunk)
+    return slice(lo, min(n, lo + chunk)), chunk
+
+
+def pad_rows(x: torch.Tensor, chunk: int) -> torch.Tensor:
+    """`x` with zero rows appended along dim 0 up to `chunk` rows."""
+    if x.shape[0] == chunk:
+        return x
+    return torch.cat([x, x.new_zeros((chunk - x.shape[0],)
+                                     + tuple(x.shape[1:]))])
 
 
 @dataclasses.dataclass(frozen=True)

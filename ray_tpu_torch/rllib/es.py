@@ -36,7 +36,7 @@ from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.env import make_vector_env, shippable_env
 
-# Seconds `_fan_out` waits for one round of evaluations.
+# Seconds `_fan_out` allows one round of evaluations.
 EVAL_TIMEOUT_S = 600
 
 

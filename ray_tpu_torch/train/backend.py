@@ -88,7 +88,7 @@ class CudaBackend:
         host = "127.0.0.1" if all(size == n for _, size in local) \
             else worker_group.execute_single(0, _host)
         # One execute for every rank at once: the group's rendezvous
-        # waits for all of them, so no call may wait on one rank alone.
+        # blocks until all of them join, so no call may wait on one rank alone.
         ranks = {w.pid: (rank, local[rank][0])
                  for rank, w in enumerate(worker_group.workers)}
         infos = worker_group.execute(_init_worker, ranks, n,

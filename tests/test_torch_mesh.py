@@ -20,15 +20,22 @@ where JAX's device r stands.  Held equal to the reference:
 - a global batch's rows on every rank by `shard_batch`,
   `global_batch` and the device feed with `sharding=mesh`, against the
   reference's `shard_batch`; `shard_opt_state`'s placements;
-- seq and expert above 1 build the train step's `MeshPlan` (both
-  families; a MoE config too), and stage above 1 still raises, naming
-  ROADMAP A8.
+- seq, expert and stage above 1 build the train step's `MeshPlan`
+  (both families; a MoE config too);
+- both families' loss on a batch whose rows the row ranks do not
+  divide (3 rows over data2/tensor2, 6 over data2/fsdp2): the loss
+  within 1e-5 relative of the reference's fallback to materialised
+  logits (its jitted `loss_fn` on placed params), every summed
+  gradient within 1e-5 of the leaf's largest of the reference's
+  one-device gradient (its mesh gradient leaks the pad row into token
+  0's embedding row on data2/tensor2: tests/test_torch_mesh_uneven.py);
+  a vocab that tensor = 3 does not divide is refused by placement in
+  both packages.
 """
 
 import functools
 import json
 import os
-import re
 import types
 
 import jax
@@ -46,7 +53,6 @@ from ray_tpu.parallel import (MeshConfig as JMeshConfig,
                               create_two_level_mesh as jtwo_level,
                               logical_to_spec as jlogical_to_spec,
                               slice_index_of as jslice_index_of)
-from ray_tpu_torch._device import MULTI_DEVICE
 from ray_tpu_torch.models import gpt, llama
 from ray_tpu_torch.parallel import (MeshConfig, logical_to_spec,
                                     mesh_layout, slice_index_of,
@@ -157,13 +163,33 @@ def ranks8(tmp_path_factory):
                "stage": [r[9] for r in out]})
 
 
+# The uneven batches of test_uneven_mesh_loss_matches_the_reference_
+# fallback: (mesh sizes, tokens shape) by id.
+UNEVEN = {"batch-over-data": (SIZES4, (3, 8)),
+          "batch-over-data-fsdp": (dict(data=2, fsdp=2), (6, 8))}
+
+
+def _uneven_tokens(shape):
+    return np.random.default_rng(17).integers(0, 512, shape).astype(
+        np.int32)
+
+
 @pytest.fixture(scope="module")
 def ranks4(tmp_path_factory):
     d = tmp_path_factory.mktemp("mesh4")
     calls = [("cross_entropy", (SIZES4,) + _ce_inputs())]
+    for sizes, shape in UNEVEN.values():
+        for family, cfg in (("gpt", NANO_T), ("llama", TINY_T)):
+            calls.append(("loss_grads", (family, cfg, sizes,
+                                         _np_params(family),
+                                         _uneven_tokens(shape))))
     out = run_ranks(rank_bodies.sequence, 4, args=(calls,), device="cpu",
                     init_dir=str(d), timeout_s=RANK_TIMEOUT_S)
-    return types.SimpleNamespace(ce=[r[0] for r in out])
+    uneven = {}
+    for i, (name, family) in enumerate((n, f) for n in UNEVEN
+                                       for f in ("gpt", "llama")):
+        uneven[name, family] = [r[1 + i] for r in out]
+    return types.SimpleNamespace(ce=[r[0] for r in out], uneven=uneven)
 
 
 # --------------------------------------------------------------------------
@@ -280,17 +306,52 @@ def test_spmd_ce_applicable_matches_the_reference(sizes, shape):
     (dict(data=2, fsdp=2), (6, 8)),
     (dict(data=1, tensor=3), (2, 8)),
 ], ids=["batch-over-data", "batch-over-data-fsdp", "vocab-over-tensor"])
-def test_uneven_mesh_loss_raises_before_any_collective(sizes, shape):
+def test_uneven_mesh_loss_matches_the_reference_fallback(request, sizes,
+                                                         shape):
     """Where `spmd_ce_applicable` is false the reference falls back to
-    materialised logits; the port's shards are even, so both families'
-    losses refuse, naming A8, before they build a process group."""
-    mesh = types.SimpleNamespace(shape=sizes)
-    tokens = {"tokens": torch.zeros(shape, dtype=torch.long)}
-    for mod, cfg in ((gpt, NANO_T), (llama, TINY_T)):
-        with pytest.raises(NotImplementedError,
-                           match=re.escape(MULTI_DEVICE)):
-            mod.loss_fn(mod.init_params(cfg, device="cpu"), tokens, cfg,
-                        mesh)
+    materialised logits.  Rows the row ranks do not divide: both
+    families' losses on the port's 4 ranks (placed params, the global
+    batch) are the fallback's, and their summed gradients the
+    reference's one device's.  A vocab that tensor = 3 does not divide
+    (nor does nano's d_model or llama-tiny's heads): the reference's
+    train step refuses it at placement, and so does the port's, on a
+    mesh of no process group (before any collective)."""
+    name = request.node.callspec.id
+    families = (("gpt", jgpt, NANO_J), ("llama", jllama, TINY_J))
+    if name == "vocab-over-tensor":
+        fake = types.SimpleNamespace(
+            shape=sizes, mesh=np.zeros((1, 1, 1, 1, 3, 1)),
+            mesh_dim_names=("data", "fsdp", "expert", "seq", "tensor",
+                            "stage"),
+            get_coordinate=lambda: [0, 0, 0, 0, 1, 0])
+        for family, jmod, jcfg in families:
+            mod, cfg = (gpt, NANO_T) if family == "gpt" else (llama, TINY_T)
+            with pytest.raises(ValueError, match="does not split evenly"):
+                mod.shard_params(mod.init_params(cfg, device="cpu"), fake,
+                                 cfg, device="cpu")
+            with pytest.raises(ValueError, match="divisible"):
+                jmod.shard_params(_np_params(family), _jmesh(sizes), jcfg)
+        return
+    ranks4 = request.getfixturevalue("ranks4")
+    jmesh = _jmesh(sizes)
+    batch = {"tokens": _uneven_tokens(shape)}
+    for family, jmod, jcfg in families:
+        params = _np_params(family)
+        loss = jax.jit(lambda p: jmod.loss_fn(p, batch, jcfg, jmesh))(
+            jmod.shard_params(params, jmesh, jcfg))
+        want = _flat(jax.grad(lambda p: jmod.loss_fn(p, batch, jcfg, None))(
+            params))
+        got = {k: np.full(v.shape, np.nan, np.float32)
+               for k, v in want.items()}
+        for out in ranks4.uneven[name, family]:
+            np.testing.assert_allclose(out["loss"], float(loss), rtol=1e-5)
+            for path, (index, data) in out["grads"].items():
+                got[path][_slices(index)] = data
+        for path, w in want.items():
+            w = np.asarray(w)
+            np.testing.assert_allclose(got[path], w, rtol=0,
+                                       atol=1e-5 * np.abs(w).max(),
+                                       err_msg=f"{family} {path}")
 
 
 def test_moe_under_a_mesh_builds_its_expert_groups(ranks8):

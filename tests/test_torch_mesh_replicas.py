@@ -21,8 +21,9 @@ reference's side computed while the ranks run.  Held:
   every leaf's update within 0.05 * lr of both (as that file holds one
   device to optax), and every leaf within 1e-6 relative of one device
   averaging the two half batches' gradients (`split=2`, what chip_smoke
-  holds the card's run against); a batch of rows that does not split
-  over data raises;
+  holds the card's run against); on batches of 5 rows (3 and 2 a data
+  rank, GSPMD's split of an uneven batch), the same against the
+  reference's mesh step on the unplaced batches and against `split=2`;
 - `TorchLearner` on data = 4 at tests/test_rllib_dp.py:41's shapes (512
   rows, obs 6, 3 actions, 4 epochs of 128): fed the reference's own
   permutations, its weights within 2e-5 + 1e-4 relative of the
@@ -189,6 +190,33 @@ def _reference_resnet():
 
 
 @functools.cache
+def _resnet_uneven_batches():
+    rng = np.random.default_rng(16)
+    return [{"images": rng.standard_normal((5,) + RESNET_SHAPE).astype(
+        np.float32), "labels": rng.integers(0, 10, (5,)).astype(np.int32)}
+        for _ in range(STEPS)]
+
+
+@functools.cache
+def _reference_resnet_uneven():
+    """The reference's final flax variables, losses and accuracies on
+    the data2/stage2 mesh from `_reference_resnet`'s start, each batch of
+    5 rows passed unplaced (its jit pads the rows over data)."""
+    cj, _ = _resnet_configs()
+    init, step = jresnet.make_train_step(cj, optax.adamw(LR),
+                                         _jmesh(STAGE),
+                                         input_shape=RESNET_SHAPE)
+    state = init(jax.random.key(0))
+    step = jax.jit(step)
+    losses, accs = [], []
+    for b in _resnet_uneven_batches():
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        accs.append(float(m["accuracy"]))
+    return jax.tree.map(np.asarray, state["params"]), losses, accs
+
+
+@functools.cache
 def _resnet_start_dict():
     _, ct = _resnet_configs()
     return {k: v.numpy() for k, v in resnet_state_dict(
@@ -292,6 +320,8 @@ def ranks(tmp_path_factory):
     _, ct = _resnet_configs()
     calls["resnet"] = ("resnet", (STAGE, ct, _resnet_batches(), LR, "cpu",
                                   _resnet_start_dict()))
+    calls["resnet_uneven"] = ("resnet", (STAGE, ct, _resnet_uneven_batches(),
+                                         LR, "cpu", _resnet_start_dict()))
     _, ref_state, perms = _reference_ppo_start()
     state = _plain(ref_state)
     ppo_args = ((6, 3), dict(loss_fn=ppo_loss, config=PPO_CFG, seed=7))
@@ -312,7 +342,7 @@ def ranks(tmp_path_factory):
         # XLA compiles outside the GIL: threads overlap the compiles.
         with concurrent.futures.ThreadPoolExecutor(3) as jax_pool:
             for done in [jax_pool.submit(fn) for fn in (
-                    _reference_resnet,
+                    _reference_resnet, _reference_resnet_uneven,
                     functools.partial(_reference_train, "gpt"),
                     functools.partial(_reference_train, "llama"),
                     _reference_ppo, _reference_vtrace)]:
@@ -391,14 +421,26 @@ def test_resnet_on_data2_stage2_matches_the_reference_and_one_device(ranks):
                                        atol=1e-7, err_msg=k)
 
 
-def test_resnet_batch_that_does_not_split_raises_before_any_collective():
-    from ray_tpu_torch._device import MULTI_DEVICE
-    from ray_tpu_torch.models.resnet import _Rows
-
-    rows = _Rows.__new__(_Rows)
-    rows.n = 2
-    with pytest.raises(NotImplementedError, match=MULTI_DEVICE.split(" (")[0]):
-        rows.local(torch.zeros(3, 4))
+def test_resnet_on_uneven_rows_matches_the_reference_and_split(ranks):
+    """5 rows over data 2: 3 and 2 real a rank (a pad image on the
+    second), every image weighted alike, as the reference's jitted step
+    pads and weighs them."""
+    start = _reference_resnet()[0]
+    final, losses, accs = _reference_resnet_uneven()
+    _, ct = _resnet_configs()
+    split = rank_bodies.resnet(0, 1, None, ct, _resnet_uneven_batches(), LR,
+                               "cpu", _resnet_start_dict(), split=2)
+    want, begin = _flat(final), _flat(start)
+    for out in ranks.resnet_uneven:
+        np.testing.assert_allclose(out["losses"], losses, rtol=1e-5)
+        assert out["accuracies"] == accs
+        model = resnet.ResNet(ct)
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in out["final"].items()})
+        _resnet_updates_close(_flat(resnet_variables(model)), want, begin)
+        for k, v in out["final"].items():
+            np.testing.assert_allclose(v, split["final"][k], rtol=1e-6,
+                                       atol=1e-7, err_msg=k)
 
 
 def _assert_weights_close(got, want, rtol, atol):
