@@ -17,7 +17,8 @@ run with a nonzero exit code and no result line:
            to 1024, bf16 and f32; llama-1b decode: 32 lanes, 4 kv heads x
            q_per_kv 8 of 64, ragged contexts up to 2048, bf16), at 4
            lanes of the gpt2 shape, and at GQA shapes (q_per_kv 2, 4, 7,
-           8 and 12), then timed with CUDA
+           8 and 12) and at llama2-7b's decode shape (32 lanes, 32 kv
+           heads of 128, contexts up to 4096), then timed with CUDA
            events (median over launches, L2 flushed and the device held
            busy by a spin before each, so the host's launch is not timed)
            beside its bound, its plain version and one PyTorch library
@@ -31,8 +32,9 @@ run with a nonzero exit code and no result line:
            bf16), at D 128 and 256, non-causal with q_len != kv_len, at
            a length that is no multiple of a tile, at one rank's
            shard of each mesh phase (B 2, L 1024, 6 heads; B 2, L 2048,
-           16 heads) and at a block of the seq phases' ring (B 4, L 256,
-           12 heads; B 4, L 1024, 16 heads; causal and full); then timed
+           16 heads), at a block of the seq phases' ring (B 4, L 256,
+           12 heads; B 4, L 1024, 16 heads; causal and full) and at a
+           rank's row at 7B (L 4096 and 8192, 32 heads of 128); then timed
            the same way, beside
            scaled_dot_product_attention's forward (K1) and backward (K2
            and K3 together).  Each case names the design K1-K3 ran (bf16
@@ -175,7 +177,7 @@ run with a nonzero exit code and no result line:
            target net must equal the params at its last sync after every
            round.
   rl_recurrent  the LSTM half of the reference's memory gate on
-           RepeatPrev-v0 (32 envs x 24 steps, hidden (32,), lstm 32, 120
+           RepeatPrev-v0 (32 envs x 24 steps, hidden (32,), lstm 32, 60
            iterations of TorchLearner(model="lstm") on the card): it must
            score > 40 of 48 (the feed-forward half, < 26, is a CPU test);
            launches per LSTM minibatch.  Then the recurrent V-trace
@@ -292,9 +294,9 @@ run with a nonzero exit code and no result line:
   train_mesh_uneven  global batches that the row ranks do not divide
            (GSPMD's split: ceil(B / ranks) rows a rank, the pads
            masked), on the 4-rank gang, 3 AdamW steps each against one
-           device: gpt2-small (12 layers) at 3 x 1024 on
+           device: gpt2-small (4 of 12 layers) at 3 x 1024 on
            MeshConfig(data=2, tensor=2) and MeshConfig(data=4) (the last
-           rank holds a pad row only and must still run K1-K3 12 times
+           rank holds a pad row only and must still run K1-K3 4 times
            a step, its losses and params the others'), with each rank's
            first summed gradients within UNEVEN_GRAD_TOL of one device's
            and a rank_means control (each row rank normalised by its own
@@ -305,11 +307,45 @@ run with a nonzero exit code and no result line:
            224 x 3 on MeshConfig(data=2) against one device taking the
            same 32 / 31 halves (equal to the bit) and the whole batch,
            with a rank_means control that must fail against the halves.
+  train_7b  llama2-7b at full width, 2 of its 32 layers, with remat
+           (each block gathers its layer over fsdp inside the recomputed
+           function), on MeshConfig(fsdp=4): the four ranks on card 0
+           over gloo, 4 x 4096, params drawn on the card from seed 0, 3
+           AdamW steps against one device: the mesh checks, K1 twice per
+           layer a step (forward and recompute), K2 and K3 once; each
+           rank's measured step gathers every block leaf over fsdp twice
+           a layer and reduce-scatters it once; each rank's peak within
+           the arithmetic printed beside it (shards, one layer gathered,
+           the head, activations).  A control without remat (one step)
+           must equal the remat run's first loss and gradients to the
+           bit (the recompute gives the same values) and fail the
+           gathers count.
   train_resnet_mesh  resnet50 at train_resnet's batch (64 x 224 x 224 x
            3, bf16) on MeshConfig(data=2), 3 AdamW steps, against one
            device: losses within 0.05, each leaf's update within 0.85,
            the two ranks' params equal to the bit; the same run with
            each rank's gradients left its own must fail those checks.
+
+Named on the command line only (not in the default run):
+
+  train_7b_cards  on four cards, one rank each over NCCL: llama2-7b (8 x
+           4096), llama3-8b (4 x 8192) and gpt 7b (8 x 4096) at full
+           depth and width with remat on MeshConfig(fsdp=4), 3 AdamW
+           steps on one repeated batch: the first loss against the
+           port's single-device loss on card 0 on the same weights and
+           rows (for llama2-7b the first summed gradients too, per leaf),
+           finite falling losses, the launches and gathers counts of
+           train_7b, each rank's peak within 40, 45 and 34 GiB and its
+           printed bound; step ms, tokens/s per card, MFU, the
+           collective share, the init's seconds and host memory.  Raises
+           with fewer than four cards.
+
+    python3 chip_smoke.py train_7b_cards train_mesh_llama train_mesh_seq \
+        train_mesh_seq_llama train_mesh_moe pipeline_spmd \
+        train_mesh_stage train_mesh_uneven rl_learner_dp train_resnet_mesh
+
+runs it with the 2- and 4-rank mesh phases, whose gangs then take NCCL
+(train_mesh's 8 ranks stay on gloo).
 
 The mesh phases keep one RankGang up across phases of as many ranks.
 Each phase's wall seconds follow it on a line of their own.  Then, on
@@ -332,6 +368,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import torch
 
@@ -481,6 +518,10 @@ def phase_kernels(report: dict) -> None:
         # block of eight query heads per kv head.
         "llama-1b-bf16": dict(b=32, kh=4, q_per_kv=8, d=64, bs=16,
                               max_ctx=2048, dtype=torch.bfloat16),
+        # The llama2-7b decode step: 32 kv heads of 128, one query head
+        # each, ragged contexts up to its 4096.
+        "llama2-7b-bf16": dict(b=32, kh=32, q_per_kv=1, d=128, bs=16,
+                               max_ctx=4096, dtype=torch.bfloat16),
     }
     results = {}
     for name, spec in cases.items():
@@ -518,7 +559,8 @@ def phase_kernels(report: dict) -> None:
         source="ray_tpu_torch/ops/csrc/paged_decode.cu",
         replaces="ray_tpu/ops/attention.py:291",
         **{k: results["gpt2-small-bf16"][k] for k in keys},
-        llama_1b={k: results["llama-1b-bf16"][k] for k in keys})
+        llama_1b={k: results["llama-1b-bf16"][k] for k in keys},
+        llama2_7b={k: results["llama2-7b-bf16"][k] for k in keys})
 
 
 # ------------------------------------------------------------------ flash
@@ -583,6 +625,13 @@ FLASH_CASES = {
                             dtype=torch.bfloat16),
     "ring-llama-full-bf16": dict(b=4, lq=1024, lk=1024, h=16, d=64,
                                  causal=False, dtype=torch.bfloat16),
+    # One rank's rows at 7B under fsdp = 4 (32 heads of 128): a row of
+    # 4096 (train_7b's 4 x 4096; llama2-7b and gpt 7b), and llama3-8b's
+    # row of 8192, its 8 kv heads repeated to 32.
+    "7b-bf16": dict(b=1, lq=4096, lk=4096, h=32, d=128, causal=True,
+                    dtype=torch.bfloat16),
+    "8b-bf16": dict(b=1, lq=8192, lk=8192, h=32, d=128, causal=True,
+                    dtype=torch.bfloat16),
 }
 # Every length the draft forward can give K1 (window 64), checked at
 # the draft path's shape beside the two timed cases above.
@@ -798,7 +847,9 @@ def phase_flash(report: dict) -> None:
             train_mesh_seq_llama=dict(
                 causal=results["ring-llama-bf16"][kern],
                 full=results["ring-llama-full-bf16"][kern]),
-            train_mesh_moe=dict(results["pipeline-bf16"][kern]))
+            train_mesh_moe=dict(results["pipeline-bf16"][kern]),
+            train_7b=dict(results["7b-bf16"][kern]),
+            llama3_8b=dict(results["8b-bf16"][kern]))
         if kern != "K1":
             report[fn]["library_note"] = (
                 "scaled_dot_product_attention backward: dq, dk and dv "
@@ -3027,13 +3078,15 @@ def phase_rl_offpolicy() -> None:
                 f"rl_offpolicy: DQN target syncs {[u for u, _ in syncs]}")
 
 
-MEMORY_ITERS = 120
+MEMORY_ITERS = 60
 
 
 def _memory_task() -> dict:
     """The LSTM half of the reference's gate (tests/test_rllib.py
     test_recurrent_ppo_solves_memory_task_feedforward_cannot) on the
-    card: mean return of 4 fragments after 120 iterations."""
+    card: mean return of 4 fragments after MEMORY_ITERS iterations
+    (the reference's test takes 120, where the LSTM read 47.98 of 48 on
+    the card; cut for the run's time)."""
     from ray_tpu_torch.rllib import (RolloutWorker, TorchLearner,
                                      ppo_loss_recurrent)
     from ray_tpu_torch.rllib.learner import batch_tensors
@@ -4645,14 +4698,20 @@ MESH_LOSS_TOL = 3e-3
 MESH_UPDATE_TOL = 0.35
 
 
+def _seed0(generator: str) -> torch.Generator:
+    """The init's generator seeded 0: on the CPU (the tests' stream) or
+    on the current card ("cuda"), which the ranks of a mesh use alike."""
+    return torch.Generator(generator).manual_seed(0)
+
+
 def _single_reference(family: str, config, batches: list, path: str,
-                      grads: bool = False) -> tuple:
+                      grads: bool = False, generator: str = "cpu") -> tuple:
     """The port's single-device train step on the card from the family's
-    init on seed 0, one AdamW(MESH_LR) step per batch and one more on
-    the last: (its losses, the host seconds of its parts); its start and
-    final params (after the batches) saved to `path`, with `grads` its
-    first step's gradients too ("grad"), as `rank_bodies.train` reads
-    them."""
+    init on seed 0 (a generator on `generator`), one AdamW(MESH_LR) step
+    per batch and one more on the last: (its losses, the host seconds of
+    its parts); its start and final params (after the batches) saved to
+    `path`, with `grads` its first step's gradients too ("grad"), as
+    `rank_bodies.train` reads them."""
     from ray_tpu_torch.models import gpt, llama
     from ray_tpu_torch.models._functional import adamw
     from ray_tpu_torch.parallel import rank_bodies
@@ -4676,7 +4735,7 @@ def _single_reference(family: str, config, batches: list, path: str,
     clock("collect")
     init_state, train_step = model.make_train_step(config, adamw(MESH_LR),
                                                    device="cuda")
-    state = init_state(0)
+    state = init_state(_seed0(generator))
     clock("init")
     saved = {"start": host(state["params"])}
     single = []
@@ -4701,7 +4760,8 @@ def _single_reference(family: str, config, batches: list, path: str,
 
 def _mesh_run(family: str, config, sizes: dict, batches: list,
               control=None, ring=None, digest: bool = False,
-              grad_controls: tuple = (), reference=None) -> dict:
+              grad_controls: tuple = (), reference=None,
+              generator: str = "cpu") -> dict:
     """`rank_bodies.train` on every rank of a `sizes` mesh (with
     `control`, a fault injected there), against the port's single-device
     train step on the card from the same weights on the same global
@@ -4715,8 +4775,8 @@ def _mesh_run(family: str, config, sizes: dict, batches: list,
     rank reads its first summed gradients against one device's
     (`max_grad_rel_err`), and those of each control named
     (`grad_controls_read`).  `reference` is `_single_reference`'s
-    result and its path.  Returns the readings; `_mesh_faults` judges
-    them."""
+    result and its path.  `generator` is where both sides draw the
+    seed-0 init.  Returns the readings; `_mesh_faults` judges them."""
     from ray_tpu_torch.parallel import rank_bodies
     from ray_tpu_torch.parallel.mesh import AXES
 
@@ -4725,11 +4785,12 @@ def _mesh_run(family: str, config, sizes: dict, batches: list,
         if reference is None:
             path = os.path.join(tmp, "single.pt")
             reference = _single_reference(family, config, batches, path,
-                                          bool(grad_controls)) + (path,)
+                                          bool(grad_controls),
+                                          generator) + (path,)
         single, single_s, path = reference
         calls = [("train", (family, config, sizes, None, batches, MESH_LR,
                             "cuda", False, None, path, control, digest,
-                            grad_controls))]
+                            grad_controls, generator))]
         if ring is not None:
             calls.insert(0, ("ring", (sizes,) + _ring_inputs(ring)
                              + (True, "cuda", "bfloat16")))
@@ -4765,6 +4826,10 @@ def _mesh_run(family: str, config, sizes: dict, batches: list,
         collectives_rank0=ranks[0]["collectives"],
         peak_memory_gib_by_rank=[r["peak_memory_gib"] for r in ranks],
         launches_by_rank=[r["launches"] for r in ranks],
+        layer_gathers_by_rank=[_layer_ops(r["collectives"]) for r in ranks],
+        init_seconds_by_rank=[r["init_seconds"] for r in ranks],
+        host_rss_gib_by_rank=[r["host_rss_gib"] for r in ranks],
+        grad_digest_by_rank=[r.get("grad_digest") for r in ranks],
         seq_rank_by_rank=[r["coordinate"][AXES.index("seq")]
                           for r in ranks],
         coordinate_by_rank=[dict(zip(AXES, r["coordinate"]))
@@ -4783,6 +4848,14 @@ def _mesh_run(family: str, config, sizes: dict, batches: list,
              "one extra step with a synchronize around each collective")
 
 
+def _layer_ops(collectives: dict) -> dict:
+    """The measured step's fsdp gathers of block leaves and their
+    backward's reduce-scatters (calls, bytes and ms of each)."""
+    return {op: collectives["by_op"].get(f"layer_{op}",
+                                         {"calls": 0, "bytes": 0, "ms": 0.0})
+            for op in ("all_gather", "reduce_scatter")}
+
+
 def _max_grad_err(ranks: list, control=None) -> list:
     """[the largest first-step gradient error over the ranks' leaves
     (of the sound run, or of `control`'s), where]."""
@@ -4793,8 +4866,9 @@ def _max_grad_err(ranks: list, control=None) -> list:
     return [err, at]
 
 
-def _mesh_faults(out: dict, n_layers: int) -> list:
-    """What `_mesh_run`'s readings fail of the mesh phases' checks."""
+def _mesh_faults(out: dict, n_layers: int, remat: bool = False) -> list:
+    """What `_mesh_run`'s readings fail of the mesh phases' checks (under
+    `remat` K1 runs twice per layer, once more in the recompute)."""
     faults = []
     if not out["max_loss_diff"] <= MESH_LOSS_TOL:
         faults.append(f"losses {out['losses']} vs one device "
@@ -4809,8 +4883,9 @@ def _mesh_faults(out: dict, n_layers: int) -> list:
     # layer: K1, K2 and K3 once each per block (r = 0 off a seq axis).
     for rank, (launches, r) in enumerate(zip(out["launches_by_rank"],
                                              out["seq_rank_by_rank"])):
-        want = out["steps"] * n_layers * (r + 1)
         for name, n in launches.items():
+            want = out["steps"] * n_layers * (r + 1) * (
+                2 if remat and name == "flash_forward" else 1)
             if n != want:
                 faults.append(f"rank {rank} (seq rank {r}): {name} "
                               f"launched {n} times, want {want}")
@@ -5075,6 +5150,7 @@ def phase_pipeline_spmd(report: dict) -> None:
     backward too, which the gradient check must catch."""
     from ray_tpu_torch.models import gpt
     from ray_tpu_torch.parallel import rank_bodies
+    from ray_tpu_torch.parallel.launch import choose_backend
 
     config = gpt.CONFIGS["gpt2-small"]
     batches = _pp_spmd_batches(config.vocab_size)
@@ -5141,8 +5217,10 @@ def phase_pipeline_spmd(report: dict) -> None:
         launches_by_rank=[r["launches"] for r in ranks],
         single_device_launches=single["launches"],
         launches_want_per_rank=launches_want, ranks_wall_s=wall_s,
-        note="ranks share card 0 over gloo; collectives from one extra "
-             "step with a synchronize around each")
+        note=("ranks share card 0 over gloo" if choose_backend(
+            PP_SPMD_STAGES) == "gloo" else "one card per rank over NCCL")
+        + "; collectives from one extra step with a synchronize around "
+          "each")
     for name in out["launches_by_rank"][0]:
         report.setdefault(name, {})["pipeline_spmd"] = dict(
             launches_by_rank=[r[name] for r in out["launches_by_rank"]],
@@ -5242,7 +5320,8 @@ def _uneven_lm(report: dict, name: str, config, sizes: dict,
     _mesh_report(report, f"train_mesh_uneven_{name}", out)
     out["want_real_rows"] = _uneven_rows(out, batches[0].shape[0])
     out["grad_tolerance"] = UNEVEN_GRAD_TOL
-    emit("train_mesh_uneven", run=name, config="gpt2-small", **out)
+    emit("train_mesh_uneven", run=name,
+         config=f"gpt2-small, {config.n_layers} layers", **out)
     faults = _mesh_faults(out, config.n_layers)
     err, at = out["max_grad_rel_err"]
     if not err <= UNEVEN_GRAD_TOL:
@@ -5266,8 +5345,9 @@ def _uneven_lm(report: dict, name: str, config, sizes: dict,
 
 def phase_train_mesh_uneven(report: dict) -> None:
     """Global batches that the row ranks do not divide, at full width:
-    - gpt2-small (12 layers, bf16, fp32 params) on MeshConfig(data=2,
-      tensor=2), 3 x 1024 tokens a step: real rows [2, 1] by data rank;
+    - gpt2-small (MESH_GPT_LAYERS of its 12 layers, bf16, fp32 params)
+      on MeshConfig(data=2, tensor=2), 3 x 1024 tokens a step: real rows
+      [2, 1] by data rank;
     - the same on MeshConfig(data=4): the last rank holds a pad row
       only, yet runs K1-K3 and joins every collective, its losses and
       params those of the others;
@@ -5279,15 +5359,21 @@ def phase_train_mesh_uneven(report: dict) -> None:
       640;
     - resnet50 on MeshConfig(data=2), 63 images of 224 x 224: 32 and 31
       a rank, against one device taking the same halves (each image
-      weighted alike) and the whole batch, with the rank_means control.
+      weighted alike) and the whole batch, with the rank_means control
+      (run first, on the two ranks the phases before leave up).
     Each LM run takes 3 AdamW steps against the port's single-device
     step on the same seed-0 weights and rows (`_mesh_run`)."""
     from ray_tpu_torch.models import gpt
     from ray_tpu_torch.parallel import rank_bodies
 
-    config = gpt.CONFIGS["gpt2-small"]
+    # ResNet's two ranks first: the gang of the phases before is of two.
+    res = _resnet_mesh(dict(seed=1, steps=3, batch=63, image=[224, 224, 3]),
+                       "rank_means")
+    emit("train_mesh_uneven", run="resnet", **res)
+    faults = [f"resnet: {f}" for f in _resnet_faults(res, "rank_means",
+                                                     ("split",))]
+    config = _gpt_mesh_config()
     batches = _mesh_batches(config.vocab_size, UNEVEN_BATCH, 1024, 3)
-    faults = []
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "single.pt")
         reference = _single_reference("gpt", config, batches, path,
@@ -5296,7 +5382,8 @@ def phase_train_mesh_uneven(report: dict) -> None:
                             ("empty_rank", dict(data=4))):
             faults += _uneven_lm(report, name, config, sizes, batches,
                                  reference)
-    moe = dataclasses.replace(config, n_experts=MOE_EXPERTS)
+    moe = dataclasses.replace(gpt.CONFIGS["gpt2-small"],
+                              n_experts=MOE_EXPERTS)
     sizes = dict(data=2, expert=2)
     out = _mesh_run("gpt", moe, sizes, batches)
     _mesh_report(report, "train_mesh_uneven_moe", out)
@@ -5328,13 +5415,350 @@ def phase_train_mesh_uneven(report: dict) -> None:
          aux_by_rank=[r["aux"] for r in sound],
          single_device_aux=single["aux"],
          routing_real_rows_by_rank=[r["real_rows"] for r in sound])
-    res = _resnet_mesh(dict(seed=1, steps=3, batch=63, image=[224, 224, 3]),
-                       "rank_means")
-    emit("train_mesh_uneven", run="resnet", **res)
-    faults += [f"resnet: {f}" for f in _resnet_faults(res, "rank_means",
-                                                      ("split",))]
     for fault in faults:
         check(False, f"train_mesh_uneven: {fault}")
+
+
+# The 7B configs under fsdp with remat: each block gathers its layer's
+# leaves over fsdp inside the recomputed function (the module docstring
+# of models/_functional.py), so a rank holds its shards and one layer
+# gathered at a time.  The params are drawn on the card (a CUDA
+# generator seeded 0, leaf by leaf, each rank keeping its shard), as the
+# single-device runs they are held against draw them.
+SEVEN_B_SIZES = {"fsdp": 4}
+# train_7b's depth of llama2-7b's 32 layers (the widths whole).
+SEVEN_B_LAYERS = 2
+# train_7b_cards: (run, family, config, global rows, row length, the
+# peak GiB a rank may reach), each at full depth and width.
+SEVEN_B_CARDS = (("llama2-7b", "llama", "llama2-7b", 8, 4096, 40.0),
+                 ("llama3-8b", "llama", "llama3-8b", 4, 8192, 45.0),
+                 ("gpt-7b", "gpt", "7b", 8, 4096, 34.0))
+SEVEN_B_CARDS_STEPS = 3
+
+
+def _shard_numel(model, config, sizes: dict) -> dict:
+    """{leaf path: its elements on one rank} under `sizes` (fsdp is the
+    only axis above 1 in these runs, so a leaf is split by it or
+    whole)."""
+    from ray_tpu_torch.parallel import rank_bodies
+    from ray_tpu_torch.parallel.sharding import logical_to_spec, spec_axes
+
+    mesh = types.SimpleNamespace(shape=sizes)
+    specs = rank_bodies._flat(model.param_specs(config))
+    return {path: math.prod(shape) // (
+        sizes.get("fsdp", 1) if "fsdp" in spec_axes(
+            logical_to_spec(specs[path], mesh=mesh)) else 1)
+        for path, shape in rank_bodies._flat(
+            model.param_shapes(config)).items()}
+
+
+def _gathered_leaves(model, config, sizes: dict) -> int:
+    """The block leaves a layer gathers over fsdp under `sizes`."""
+    own = _shard_numel(model, config, sizes)
+    whole = _shard_numel(model, config, {})
+    return sum(own[p] != whole[p] for p in own if p.startswith("blocks/"))
+
+
+def _peak_bound(model, config, sizes: dict, tokens: int) -> dict:
+    """What a rank may hold at its peak under fsdp with remat, in GiB by
+    part, `tokens` its rows x length:
+    - shards: its params, gradients and AdamW's two moments (4 x 4 bytes
+      an element of its shards);
+    - stacked: its block gradients once more (unbind's backward holds
+      every layer's gradient and then stacks them);
+    - layer: one layer gathered, 2.5 x its f32 bytes (the weights, their
+      bf16 copies and their whole f32 gradient before the
+      reduce-scatter);
+    - head: the gathered head, f32, bf16 and its f32 gradient (10
+      bytes an element of vocab x d_model);
+    - activations: each block's saved input (bf16), one block's
+      recompute and backward (tokens x (32 d + 12 f) bytes), the
+      embedding lookup's rows of the fsdp group (bf16, and its
+      gradient) and three f32 copies of a cross-entropy chunk
+      (tokens / 4 rows of the vocab).
+    `held_layers` is what the order that gathers outside the recomputed
+    block would add: every other layer gathered (f32) from the forward
+    to the backward."""
+    own = _shard_numel(model, config, sizes)
+    whole = _shard_numel(model, config, {})
+    blocks = [p for p in own if p.startswith("blocks/")]
+    layer = 4 * sum(whole[p] for p in blocks) / config.n_layers
+    d, f, v = config.d_model, config.d_ff, config.vocab_size
+    fsdp = sizes.get("fsdp", 1)
+    act = (config.n_layers * tokens * d * 2 + tokens * (32 * d + 12 * f)
+           + 2 * fsdp * tokens * d * 2 + 3 * (tokens // 4) * v * 4)
+    parts = {"shards": 16 * sum(own.values()),
+             "stacked": 4 * sum(own[p] for p in blocks),
+             "layer": 2.5 * layer, "head": 10 * v * d,
+             "activations": act}
+    out = {k: b / 2 ** 30 for k, b in parts.items()}
+    out["total"] = sum(out.values())
+    out["held_layers"] = (config.n_layers - 1) * layer / 2 ** 30
+    return out
+
+
+def _gather_faults(out: dict, n_layers: int, leaves: int,
+                   per_layer: int) -> list:
+    """Each rank's measured step must have gathered each of the `leaves`
+    block leaves over fsdp `per_layer` times a layer (2 under remat: the
+    forward's and the recompute's) and reduce-scattered it once."""
+    faults = []
+    for rank, ops in enumerate(out["layer_gathers_by_rank"]):
+        for op, want in (("all_gather", per_layer * n_layers * leaves),
+                         ("reduce_scatter", n_layers * leaves)):
+            if ops[op]["calls"] != want:
+                faults.append(f"rank {rank}: {ops[op]['calls']} fsdp "
+                              f"{op}s of block leaves, want {want}")
+    return faults
+
+
+def _peak_faults(out: dict, bound: dict, limit=None) -> list:
+    faults = []
+    for rank, peak in enumerate(out["peak_memory_gib_by_rank"]):
+        for what, most in (("the bound", bound["total"]), ("the limit",
+                                                           limit)):
+            if most is not None and not peak <= most:
+                faults.append(f"rank {rank}: peak {peak} GiB over {what} "
+                              f"{most}")
+    return faults
+
+
+def phase_train_7b(report: dict) -> None:
+    """llama2-7b at full width (d 4096, 32 heads of 128, d_ff 11008,
+    vocab 32000), SEVEN_B_LAYERS of its 32 layers with remat, on
+    MeshConfig(fsdp=4): the shared four ranks on card 0 over gloo, a
+    global batch of 4 x 4096, bf16, f32 params drawn on the card from
+    seed 0, 3 AdamW(MESH_LR) steps against the port's single-device step
+    on the same weights and rows (`_mesh_run`'s checks, K1 twice per
+    layer a step and K2, K3 once); each rank's measured step gathers
+    every block leaf over fsdp twice a layer and reduce-scatters it
+    once; each rank's peak within `_peak_bound`.  Then, on the same
+    ranks, one step of the same run without remat, a control: its first
+    loss and first gradients on every rank must equal the remat run's to
+    the bit (so it passes the value checks that run passes; the
+    recompute gives the same values), K1-K3 must run once per layer, and
+    it must fail the gathers count (it gathers once a layer)."""
+    from ray_tpu_torch.parallel import rank_bodies
+
+    llama = rank_bodies._family("llama")
+    config = dataclasses.replace(llama.CONFIGS["llama2-7b"],
+                                 n_layers=SEVEN_B_LAYERS)
+    sizes = dict(SEVEN_B_SIZES)
+    batches = _mesh_batches(config.vocab_size, 4, 4096, 3)
+    leaves = _gathered_leaves(llama, config, sizes)
+    bound = _peak_bound(llama, config, sizes, 4096)
+    out = _mesh_run("llama", config, sizes, batches, digest=True,
+                    generator="cuda")
+    t0 = time.perf_counter()
+    control = [r[0] for r in _ranks(len(out["losses_by_rank"])).run(
+        rank_bodies.sequence, [("train", (
+            "llama", dataclasses.replace(config, remat=False), sizes, None,
+            batches[:1], MESH_LR, "cuda", False, None, None, None, True,
+            (), "cuda"))])]
+    control_s = time.perf_counter() - t0
+    control = dict(
+        steps=1, ranks_wall_s=control_s, ring_check=None,
+        losses_by_rank=[r["losses"] for r in control],
+        grad_digest_by_rank=[r["grad_digest"] for r in control],
+        launches_by_rank=[r["launches"] for r in control],
+        layer_gathers_by_rank=[_layer_ops(r["collectives"])
+                               for r in control],
+        median_step_ms=statistics.median(r["median_step_ms"]
+                                         for r in control),
+        collectives_rank0=control[0]["collectives"],
+        peak_memory_gib_by_rank=[r["peak_memory_gib"] for r in control],
+        seq_rank_by_rank=[0] * len(control))
+    _mesh_report(report, "train_7b", out)
+    faults = _mesh_faults(out, config.n_layers, remat=True)
+    faults += _gather_faults(out, config.n_layers, leaves, 2)
+    faults += _peak_faults(out, bound)
+    for rank, (got, want) in enumerate(zip(control["losses_by_rank"],
+                                           out["losses_by_rank"])):
+        if got[0] != want[0]:
+            faults.append(f"control: rank {rank} first loss {got[0]}, the "
+                          f"remat run's {want[0]}")
+    if control["grad_digest_by_rank"] != out["grad_digest_by_rank"]:
+        faults.append("control: first gradients differ from the remat "
+                      "run's")
+    faults += [f"control: {f}" for f in _mesh_faults(dict(
+        control, max_loss_diff=0.0, max_update_rel_err=0.0,
+        constraint_round_trip=True), config.n_layers)]
+    control_count = _gather_faults(control, config.n_layers, leaves, 2)
+    if not control_count:
+        faults.append("the no-remat control passed the gathers count")
+    emit("train_7b", config=f"llama2-7b, {config.n_layers} of 32 layers, "
+         "remat", gathered_leaves=leaves, gathers_per_layer_wanted=2,
+         peak_bound_gib=bound, **out)
+    emit("train_7b", run="control without remat, one step",
+         gathers_count_fails=control_count, **control)
+    for fault in faults:
+        check(False, f"train_7b: {fault}")
+
+
+def _one_card_loss(model, config, tokens, path=None) -> dict:
+    """The port's single-device loss on card 0 for the global batch
+    `tokens`, the params drawn leaf by leaf from a CUDA generator seeded
+    0 (as the ranks draw them): forward only; with `path`, its
+    gradients too, saved there as {"grad": flat tree in bf16}, which
+    `rank_bodies.train` reads slice by slice.  For the gradients the
+    leaves are held as the bf16 values of the f32 draws: the forward
+    then takes the same operands to the bit (each leaf is a weight or
+    table it casts to bf16 where used, or a norm scale or bias of ones
+    or zeros), and llama2-7b's f32 params and gradients (54 GB), its
+    stacked block gradients twice at the end of the backward, would not
+    fit one card."""
+    from ray_tpu_torch.parallel import rank_bodies
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    grads = path is not None
+    dtype = torch.bfloat16 if grads else torch.float32
+    t0 = time.perf_counter()
+    params = model.init_params(config, _seed0("cuda"), keep=lambda _, t:
+                               t.to("cuda", dtype).requires_grad_(grads))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    with torch.set_grad_enabled(grads):
+        loss = model.loss_fn(params, {"tokens": torch.from_numpy(
+            tokens).to("cuda")}, config)
+        if grads:
+            loss.backward()
+    loss = float(loss)
+    out = dict(loss=loss, init_seconds=init_s,
+               seconds=time.perf_counter() - t0,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               grad_dtype=None if not grads else "bfloat16")
+    if grads:
+        torch.save({"grad": {k: v.grad.cpu() for k, v in
+                             rank_bodies._flat(params).items()}}, path)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["with_save_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _cards_run(report: dict, run: str, family: str, name: str, rows: int,
+               length: int, limit: float, tmp: str) -> list:
+    """One run of train_7b_cards: the one-card reference, then the four
+    ranks (NCCL, a card each) for SEVEN_B_CARDS_STEPS AdamW steps on one
+    repeated batch; its readings emitted, its faults returned."""
+    from ray_tpu_torch.parallel import rank_bodies
+
+    model = rank_bodies._family(family)
+    config = model.CONFIGS[name]
+    sizes = dict(SEVEN_B_SIZES)
+    world = math.prod(sizes.values())
+    tokens = _mesh_batches(config.vocab_size, rows, length, 1)[0]
+    grads = run == "llama2-7b"
+    path = os.path.join(tmp, f"{run}.pt") if grads else None
+    single = _one_card_loss(model, config, tokens, path)
+    t0 = time.perf_counter()
+    ranks = [r[0] for r in _ranks(world).run(rank_bodies.sequence, [(
+        "train", (family, config, sizes, None,
+                  [tokens] * SEVEN_B_CARDS_STEPS, MESH_LR, "cuda", False,
+                  None, path, None, True, (), "cuda"))])]
+    wall_s = time.perf_counter() - t0
+    if path is not None:
+        os.remove(path)
+    out = dict(
+        backend_by_rank=[r["backend"] for r in ranks],
+        losses_by_rank=[r["losses"] + [r["final_loss"]] for r in ranks],
+        launches_by_rank=[r["launches"] for r in ranks],
+        layer_gathers_by_rank=[_layer_ops(r["collectives"]) for r in ranks],
+        peak_memory_gib_by_rank=[r["peak_memory_gib"] for r in ranks],
+        peak_memory_gib_by_step_rank0=ranks[0]["peak_memory_gib_by_step"],
+        step_ms_by_rank=[r["step_ms"] for r in ranks],
+        init_seconds_by_rank=[r["init_seconds"] for r in ranks],
+        host_rss_gib_by_rank=[r["host_rss_gib"] for r in ranks],
+        collectives_rank0=ranks[0]["collectives"],
+        collective_share_by_rank=[r["collectives"]["share"] for r in ranks],
+        digest_by_rank=[r["params_digest"] for r in ranks],
+        grad_digest_by_rank=[r["grad_digest"] for r in ranks],
+        rank0_host_seconds=ranks[0]["host_seconds"], ranks_wall_s=wall_s,
+        steps=SEVEN_B_CARDS_STEPS)
+    step_ms = statistics.median(r["median_step_ms"] for r in ranks)
+    tokens_s_card = rows * length / world / (step_ms / 1e3)
+    n_params = model.num_params(config)
+    bound = _peak_bound(model, config, sizes, rows * length // world)
+    losses = out["losses_by_rank"][0]
+    first_diff = max(abs(r[0] - single["loss"])
+                     for r in out["losses_by_rank"])
+    grad_err = None if not grads else max(
+        (err, f"rank {i} {leaf}") for i, r in enumerate(ranks)
+        for leaf, err in r["grad_rel_err"].items())
+    leaves = _gathered_leaves(model, config, sizes)
+    emit("train_7b_cards", run=run, config=f"{name}, {config.n_layers} "
+         f"layers, remat, fsdp4", global_batch=[rows, length],
+         num_params=n_params, median_step_ms=step_ms,
+         tokens_per_s_per_card=tokens_s_card,
+         mfu=6 * n_params * tokens_s_card / PEAK_FLOPS[torch.bfloat16],
+         collective_share_median=statistics.median(
+             out["collective_share_by_rank"]),
+         one_card=single, first_loss_diff=first_diff,
+         loss_tolerance=MESH_LOSS_TOL, max_grad_rel_err=grad_err,
+         grad_tolerance=UNEVEN_GRAD_TOL if grads else None,
+         peak_limit_gib=limit, peak_bound_gib=bound,
+         gathered_leaves=leaves, **out)
+    for name_k, by_rank in zip(("flash_forward", "flash_dq", "flash_dkv"),
+                               zip(*[[r[k] for k in ("flash_forward",
+                                                     "flash_dq",
+                                                     "flash_dkv")]
+                                     for r in out["launches_by_rank"]])):
+        report.setdefault(name_k, {}).setdefault("train_7b_cards", {})[
+            run] = dict(launches_by_rank=list(by_rank),
+                        steps=SEVEN_B_CARDS_STEPS)
+    faults = []
+    if set(out["backend_by_rank"]) != {"nccl"}:
+        faults.append(f"backends {out['backend_by_rank']}, want nccl")
+    if not first_diff <= MESH_LOSS_TOL:
+        faults.append(f"first loss {first_diff} from one card's "
+                      f"{single['loss']}")
+    if grads and not grad_err[0] <= UNEVEN_GRAD_TOL:
+        faults.append(f"first gradient of {grad_err[1]} {grad_err[0]} of "
+                      f"one card's")
+    if any(l != losses for l in out["losses_by_rank"]):
+        faults.append(f"the ranks' losses differ: {out['losses_by_rank']}")
+    if not (all(math.isfinite(l) for l in losses)
+            and losses[-1] < losses[0]):
+        faults.append(f"losses {losses} not finite and falling")
+    faults += _mesh_faults(dict(out, steps=SEVEN_B_CARDS_STEPS,
+                                max_loss_diff=0.0, max_update_rel_err=0.0,
+                                constraint_round_trip=True, ring_check=None,
+                                seq_rank_by_rank=[0] * world),
+                           config.n_layers, remat=True)
+    faults += _gather_faults(out, config.n_layers, leaves, 2)
+    faults += _peak_faults(out, bound, limit)
+    return [f"{run}: {f}" for f in faults]
+
+
+def phase_train_7b_cards(report: dict) -> None:
+    """Opt-in (named on the command line; not in the default run), on
+    four cards: each of SEVEN_B_CARDS at full depth and width with remat
+    on MeshConfig(fsdp=4), four ranks over NCCL with a card each, 3
+    AdamW(MESH_LR) steps on one repeated batch: the first loss within
+    MESH_LOSS_TOL of the port's single-device loss on card 0 on the same
+    weights (drawn alike on the card) and rows, and for llama2-7b each
+    rank's first summed gradients within UNEVEN_GRAD_TOL of one card's
+    per leaf; finite, falling losses, equal on every rank; K1 twice per
+    layer a step and K2, K3 once on every rank; every block leaf
+    gathered over fsdp twice a layer; each rank's peak within its limit
+    and `_peak_bound`.  Prints step ms, tokens/s per card, MFU (6 x
+    params x tokens/s over 989 TFLOP/s), the collective share, the init's
+    seconds and host memory, and peak GiB by rank.  Raises with fewer
+    than four cards."""
+    world = math.prod(SEVEN_B_SIZES.values())
+    check(torch.cuda.device_count() >= world,
+          f"train_7b_cards: needs {world} cards, found "
+          f"{torch.cuda.device_count()}")
+    _ranks.close()              # a fresh gang: each rank's host peak its own
+    faults = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for run in SEVEN_B_CARDS:
+            faults += _cards_run(report, *run, tmp=tmp)
+    for fault in faults:
+        check(False, f"train_7b_cards: {fault}")
 
 
 # The RL learners' learner group and ResNet under a mesh: data = 2
@@ -5680,17 +6104,25 @@ def main() -> int:
               ("rl_es_parity", lambda _: phase_rl_es_parity()),
               ("pipeline", phase_pipeline),
               ("pipeline_parity", lambda _: phase_pipeline_parity()),
+              # The mesh phases by rank count, 8, then 2, then 4: a gang
+              # stays up across phases of its size, and a fresh one takes
+              # ~30 s (spawn, imports, CUDA contexts, lazy kernel loads).
               ("train_mesh", phase_train_mesh),
+              ("rl_learner_dp", lambda _: phase_rl_learner_dp()),
+              ("train_resnet_mesh", lambda _: phase_train_resnet_mesh()),
+              ("train_mesh_uneven", phase_train_mesh_uneven),
               ("train_mesh_llama", phase_train_mesh_llama),
               ("train_mesh_seq", phase_train_mesh_seq),
               ("train_mesh_seq_llama", phase_train_mesh_seq_llama),
               ("train_mesh_moe", phase_train_mesh_moe),
               ("pipeline_spmd", phase_pipeline_spmd),
               ("train_mesh_stage", phase_train_mesh_stage),
-              ("train_mesh_uneven", phase_train_mesh_uneven),
-              ("rl_learner_dp", lambda _: phase_rl_learner_dp()),
-              ("train_resnet_mesh", lambda _: phase_train_resnet_mesh()))
+              ("train_7b", phase_train_7b))
+    # Run only when named: they need four cards.
+    opt_in = (("train_7b_cards", phase_train_7b_cards),)
     wanted = sys.argv[1:]
+    if wanted:
+        phases += opt_in
     unknown = set(wanted) - {name for name, _ in phases}
     if unknown:
         print(f"chip_smoke: no phase {sorted(unknown)}", file=sys.stderr)

@@ -37,6 +37,32 @@ then replicated over it): stage ranks are replicas that hold the same
 rows and params, and no gradient is summed over them.
 `OneDevice` is the same interface with no collective, so the families'
 forward is one code path.
+
+Under remat (`config.remat`) the families' trunks hand each
+checkpointed block the rank's own slices of its layer's leaves, and the
+block gathers them over fsdp itself (`MeshPlan.layer`): the gathered
+weights live only while the block runs, in the forward and again in
+the recompute of the backward, whose graph alone carries the gather's
+backward (the reduce-scatter, once a step).  A rank so holds its
+shards and one layer gathered at a time, the program that the
+reference's `jax.checkpoint` inside its `lax.scan` gives under GSPMD
+(ZeRO-3).  The tensor all-reduces and the ring inside a block are
+recomputed with it.  The collectives of a recompute pair up across
+ranks only because every rank recomputes the same layers in the same
+order: the backward walks the layers last to first on every rank,
+whose graphs are alike (the same blocks, the same collectives).
+Without remat the gathers stay outside the block, as before.
+
+`init_state` under a mesh draws the params shard-wise: the family's
+`init_params` draws each leaf whole, in the order and from the
+generator stream of the single-device init, and hands it to
+`MeshPlan.init_leaf`, which keeps the rank's slice (a copy) before the
+next leaf is drawn, so a rank holds its shards and at most one whole
+leaf.  The shards are bit-equal to slices of the single-device init.
+The generator is the caller's (`init_state(key)`): an int seeds a CPU
+generator, the stream the tests hold; a CUDA generator draws on the
+card, much faster at 7B, and gives the same values to a single-device
+init that draws from a CUDA generator of the same seed.
 """
 
 from __future__ import annotations
@@ -55,8 +81,9 @@ from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.parallel.mesh import axis_sizes
 from ray_tpu_torch.parallel.sharding import (
-    BATCH_AXES, _entry_axes, _is_spec, logical_to_spec, mesh_device,
-    pad_rows, redistribute, row_split, spec_axes, tree_map, tree_shardings)
+    BATCH_AXES, _entry_axes, _is_spec, local_index, logical_to_spec,
+    mesh_device, pad_rows, redistribute, row_split, spec_axes, tree_map,
+    tree_shardings)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,6 +297,12 @@ class OneDevice:
         return _map(params, lambda t: t.detach().to(
             device=device, dtype=torch.float32, copy=True).requires_grad_())
 
+    def init_leaf(self, path: str, t, device):
+        """The leaf at `path` ("blocks/wq") of a fresh init, `t` the
+        whole leaf as drawn: an f32 leaf on `device`."""
+        return t.detach().to(device=device,
+                             dtype=torch.float32).requires_grad_()
+
     def sync_grads(self, params: dict) -> None:
         pass
 
@@ -433,7 +466,7 @@ class MeshPlan(OneDevice):
             x[:self.n_real * per_row].sum(0), self.row_group)
         return total / (self.n_rows * per_row * self.sizes["seq"])
 
-    def _gather(self, t, spec: tuple):
+    def _gather(self, t, spec: tuple, label=None):
         """`t` gathered over fsdp on the dim that fsdp shards (fsdp must
         be that dim's minor axis, so the pieces join contiguously)."""
         for d, entry in enumerate(spec):
@@ -442,15 +475,18 @@ class MeshPlan(OneDevice):
                 if axes[-1] != "fsdp":
                     raise ValueError(f"fsdp must be the minor axis of "
                                      f"{entry}")
-                return collectives.all_gather_value(t, self.fsdp, d)
+                return collectives.all_gather_value(t, self.fsdp, d, label)
         return t
 
     def leaf(self, t, name: str):
         return self._gather(t, self.specs[name])
 
     def layer(self, t, name: str):
-        """A stacked block leaf's layer (the "layers" dim dropped)."""
-        return self._gather(t, self.specs["blocks"][name][1:])
+        """A stacked block leaf's layer (the "layers" dim dropped),
+        gathered over fsdp where it is sharded so; `collectives.measure`
+        files these gathers under "layer_all_gather" (and their
+        backward under "layer_reduce_scatter")."""
+        return self._gather(t, self.specs["blocks"][name][1:], "layer")
 
     def embed(self, table, tokens, dtype):
         """The vocab-parallel lookup: the rank's slice of the table
@@ -494,6 +530,19 @@ class MeshPlan(OneDevice):
             return t.requires_grad_()
         return tree_map(put, params, self.shardings)
 
+    def init_leaf(self, path: str, t, device):
+        """The rank's shard of the leaf at `path` ("blocks/wq") of a
+        fresh init, `t` the whole leaf as drawn: a DTensor of f32 on
+        `device` laid out by the plan's spec, its local tensor a copy
+        (never a view that would keep the whole leaf alive)."""
+        sharding = self.shardings
+        for key in path.split("/"):
+            sharding = sharding[key]
+        local = t.detach()[local_index(t.shape, sharding.spec, self.mesh)]
+        local = local.to(device=device, dtype=torch.float32, copy=True)
+        return sharding.wrap(local.contiguous(), tuple(t.shape),
+                             device).requires_grad_()
+
     def grad_sum_axes(self, spec: tuple) -> tuple:
         """The row axes (data, fsdp, seq) that the gradient of a
         parameter laid out by `spec` is summed over after the backward:
@@ -522,6 +571,12 @@ class MeshPlan(OneDevice):
                     t.copy_(part.view_as(t))
 
 
+def gather_layer(own: dict, plan) -> dict:
+    """A layer's leaves {name: the rank's slice} gathered for use
+    (`plan.layer`; on one device, as they are)."""
+    return {k: plan.layer(v, k) for k, v in own.items()}
+
+
 _plans: dict = {}
 
 
@@ -540,16 +595,18 @@ def plan_for(mesh, logical_specs: Optional[dict]) -> OneDevice:
 def make_train_step(config, optimizer: AdamW, *, init_params, loss_fn,
                     device: DeviceLike = None, mesh=None,
                     param_specs=None):
-    """`init_params(config, generator, device)`,
+    """`init_params(config, generator, device, keep)`,
     `loss_fn(params, batch, config, mesh)` and `param_specs(config)`
     define the family.
 
     `init_state(key=0, params=None)`: params from `init_params` with a
-    generator seeded by `key` (an int or a torch.Generator), or a copy of
-    `params` when given (e.g. weights carried across from the reference
-    with convert.params_from_numpy).  Under a mesh the params are drawn
-    on the CPU (the same on every rank) and each rank keeps its shards:
-    DTensor leaves on `device`.  `train_step(state, batch)` runs the
+    generator seeded by `key` (an int seeds a CPU generator; or a
+    torch.Generator, on the CPU or a card), or a copy of `params` when
+    given (e.g. weights carried across from the reference with
+    convert.params_from_numpy).  Each leaf goes to `plan.init_leaf` as
+    soon as it is drawn: under a mesh every rank draws every leaf (the
+    same values) and keeps only its shard, a DTensor leaf on `device`
+    (see the module docstring).  `train_step(state, batch)` runs the
     loss, its backward, the gradient sums over the row axes and one
     optimizer step; the loss it returns is a device scalar (reading it
     blocks until the step is done).  Under a mesh a batch leaf is a
@@ -563,9 +620,11 @@ def make_train_step(config, optimizer: AdamW, *, init_params, loss_fn,
         if params is None:
             gen = key if isinstance(key, torch.Generator) \
                 else torch.Generator().manual_seed(int(key))
-            params = init_params(config, gen, device=device
-                                 if plan is ONE_DEVICE else "cpu")
-        params = plan.place(params, device)
+            params = init_params(config, gen, device=gen.device,
+                                 keep=lambda path, t: plan.init_leaf(
+                                     path, t, device))
+        else:
+            params = plan.place(params, device)
         return {"params": params, "opt_state": optimizer.init(params),
                 "step": 0}
 

@@ -160,52 +160,67 @@ def param_shapes(config: GPTConfig) -> dict:
 
 
 def init_params(config: GPTConfig, generator: Optional[torch.Generator] = None,
-                device: DeviceLike = None) -> dict:
+                device: DeviceLike = None, keep=None) -> dict:
     """Random fp32 params with the reference's shapes and scales
     (ray_tpu/models/gpt.py init_params).  The draws come from `generator`
     (default: a CPU generator seeded 0) and differ from `jax.random`'s;
-    to run both packages on the same weights use convert.params_from_numpy."""
-    device = resolve_device(device)
+    to run both packages on the same weights use convert.params_from_numpy.
+
+    With `keep`, each leaf goes to `keep(path, leaf)` as soon as it is
+    drawn (the blocks' first, then the tables, the final norm and an
+    untied head), and the tree holds what it returns (`device` unused):
+    a mesh rank keeps its shard and drops the whole leaf before the next
+    draw (`_functional.MeshPlan.init_leaf`)."""
     c = config
     n, d, h, dh, f = c.n_layers, c.d_model, c.n_heads, c.head_dim, c.d_ff
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    if keep is None:
+        device = resolve_device(device)
+        put = lambda path, t: t.to(device)  # noqa: E731
+    else:
+        put = keep
 
     def normal(shape):
         return torch.randn(shape, generator=gen, device=gen.device,
                            dtype=torch.float32)
 
     def dense(shape, fan_in):
-        return normal(shape) / math.sqrt(fan_in)
+        return normal(shape).div_(math.sqrt(fan_in))
+
+    def residual(shape, fan_in):
+        # Residual-branch outputs scaled per GPT-2 (1/sqrt(2*n_layers)).
+        return dense(shape, fan_in).div_(math.sqrt(2 * n))
 
     blocks = {
-        "ln1_scale": torch.ones(n, d),
-        "ln1_bias": torch.zeros(n, d),
-        "wq": dense((n, d, h, dh), d),
-        "wk": dense((n, d, h, dh), d),
-        "wv": dense((n, d, h, dh), d),
-        # Residual-branch outputs scaled per GPT-2 (1/sqrt(2*n_layers)).
-        "wo": dense((n, h, dh, d), h * dh) / math.sqrt(2 * n),
-        "ln2_scale": torch.ones(n, d),
-        "ln2_bias": torch.zeros(n, d),
+        "ln1_scale": put("blocks/ln1_scale", torch.ones(n, d)),
+        "ln1_bias": put("blocks/ln1_bias", torch.zeros(n, d)),
+        "wq": put("blocks/wq", dense((n, d, h, dh), d)),
+        "wk": put("blocks/wk", dense((n, d, h, dh), d)),
+        "wv": put("blocks/wv", dense((n, d, h, dh), d)),
+        "wo": put("blocks/wo", residual((n, h, dh, d), h * dh)),
+        "ln2_scale": put("blocks/ln2_scale", torch.ones(n, d)),
+        "ln2_bias": put("blocks/ln2_bias", torch.zeros(n, d)),
     }
     if c.n_experts:
         e = c.n_experts
-        blocks["router"] = dense((n, d, e), d)
-        blocks["w_up"] = dense((n, e, d, f), d)
-        blocks["w_down"] = dense((n, e, f, d), f) / math.sqrt(2 * n)
+        blocks["router"] = put("blocks/router", dense((n, d, e), d))
+        blocks["w_up"] = put("blocks/w_up", dense((n, e, d, f), d))
+        blocks["w_down"] = put("blocks/w_down", residual((n, e, f, d), f))
     else:
-        blocks["w_up"] = dense((n, d, f), d)
-        blocks["w_down"] = dense((n, f, d), f) / math.sqrt(2 * n)
+        blocks["w_up"] = put("blocks/w_up", dense((n, d, f), d))
+        blocks["w_down"] = put("blocks/w_down", residual((n, f, d), f))
     params = {
-        "tok_embed": normal((c.vocab_size, d)) * 0.02,
-        "pos_embed": normal((c.max_seq_len, d)) * 0.01,
+        "tok_embed": put("tok_embed",
+                         normal((c.vocab_size, d)).mul_(0.02)),
+        "pos_embed": put("pos_embed",
+                         normal((c.max_seq_len, d)).mul_(0.01)),
         "blocks": blocks,
-        "final_ln_scale": torch.ones(d),
-        "final_ln_bias": torch.zeros(d),
+        "final_ln_scale": put("final_ln_scale", torch.ones(d)),
+        "final_ln_bias": put("final_ln_bias", torch.zeros(d)),
     }
     if not c.tie_embeddings:
-        params["lm_head"] = dense((d, c.vocab_size), d)
-    return _map(params, lambda t: t.to(device))
+        params["lm_head"] = put("lm_head", dense((d, c.vocab_size), d))
+    return params
 
 
 def shard_params(params: dict, mesh, config: GPTConfig, rules=None,
@@ -389,12 +404,15 @@ def _trunk(p, tokens, config: GPTConfig, plan, position_offset: int = 0):
     layers = {k: v.unbind(0) for k, v in p["blocks"].items()}
     auxes = []
     for layer in range(c.n_layers):
-        lp = {k: plan.layer(v[layer], k) for k, v in layers.items()}
+        own = {k: v[layer] for k, v in layers.items()}
         if c.remat:
+            # The gathers inside the recomputed block (the module
+            # docstring of models/_functional.py).
             x, aux = torch.utils.checkpoint.checkpoint(
-                _block, x, lp, c, plan, use_reentrant=False)
+                _gathered_block, x, own, c, plan, use_reentrant=False)
         else:
-            x, aux = _block(x, lp, c, plan)
+            x, aux = _block(x, _functional.gather_layer(own, plan), c,
+                            plan)
         if aux is not None:
             auxes.append(aux)
     x = _layernorm(x, plan.leaf(p["final_ln_scale"], "final_ln_scale"),
@@ -402,6 +420,12 @@ def _trunk(p, tokens, config: GPTConfig, plan, position_offset: int = 0):
     aux = torch.stack(auxes).sum() if auxes else torch.zeros(
         (), dtype=torch.float32, device=x.device)
     return x, aux
+
+
+def _gathered_block(x, own, config: GPTConfig, plan):
+    """`_block` on the rank's own slices `own` of a layer's leaves,
+    gathered over fsdp inside (`plan.layer`)."""
+    return _block(x, _functional.gather_layer(own, plan), config, plan)
 
 
 def forward_trunk(params: dict, tokens: torch.Tensor, config: GPTConfig,

@@ -134,43 +134,55 @@ def param_shapes(config: LlamaConfig) -> dict:
 
 def init_params(config: LlamaConfig,
                 generator: Optional[torch.Generator] = None,
-                device: DeviceLike = None) -> dict:
+                device: DeviceLike = None, keep=None) -> dict:
     """Random fp32 params with the reference's shapes and scales
     (ray_tpu/models/llama.py init_params).  The draws come from
     `generator` (default: a CPU generator seeded 0), on the generator's
     own device, and differ from `jax.random`'s; to run both packages on
-    the same weights use convert.params_from_numpy."""
-    device = resolve_device(device)
+    the same weights use convert.params_from_numpy.
+
+    With `keep`, each leaf goes to `keep(path, leaf)` as soon as it is
+    drawn (the blocks' first, then the embedding, the final norm and the
+    head), and the tree holds what it returns (`device` unused): a mesh
+    rank keeps its shard and drops the whole leaf before the next draw
+    (`_functional.MeshPlan.init_leaf`)."""
     c = config
     n, d, h, kh, dh, f = (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads,
                           c.head_dim, c.d_ff)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    if keep is None:
+        device = resolve_device(device)
+        put = lambda path, t: t.to(device)  # noqa: E731
+    else:
+        put = keep
 
     def normal(shape):
         return torch.randn(shape, generator=gen, device=gen.device,
                            dtype=torch.float32)
 
     def dense(shape, fan_in):
-        return normal(shape) / math.sqrt(fan_in)
+        return normal(shape).div_(math.sqrt(fan_in))
 
     blocks = {
-        "attn_norm": torch.ones(n, d),
-        "wq": dense((n, d, h, dh), d),
-        "wk": dense((n, d, kh, dh), d),
-        "wv": dense((n, d, kh, dh), d),
-        "wo": dense((n, h, dh, d), h * dh) / math.sqrt(2 * n),
-        "mlp_norm": torch.ones(n, d),
-        "w_gate": dense((n, d, f), d),
-        "w_up": dense((n, d, f), d),
-        "w_down": dense((n, f, d), f) / math.sqrt(2 * n),
+        "attn_norm": put("blocks/attn_norm", torch.ones(n, d)),
+        "wq": put("blocks/wq", dense((n, d, h, dh), d)),
+        "wk": put("blocks/wk", dense((n, d, kh, dh), d)),
+        "wv": put("blocks/wv", dense((n, d, kh, dh), d)),
+        "wo": put("blocks/wo", dense((n, h, dh, d), h * dh).div_(
+            math.sqrt(2 * n))),
+        "mlp_norm": put("blocks/mlp_norm", torch.ones(n, d)),
+        "w_gate": put("blocks/w_gate", dense((n, d, f), d)),
+        "w_up": put("blocks/w_up", dense((n, d, f), d)),
+        "w_down": put("blocks/w_down", dense((n, f, d), f).div_(
+            math.sqrt(2 * n))),
     }
-    params = {
-        "tok_embed": normal((c.vocab_size, d)) * 0.02,
+    return {
+        "tok_embed": put("tok_embed",
+                         normal((c.vocab_size, d)).mul_(0.02)),
         "blocks": blocks,
-        "final_norm": torch.ones(d),
-        "lm_head": dense((d, c.vocab_size), d),
+        "final_norm": put("final_norm", torch.ones(d)),
+        "lm_head": put("lm_head", dense((d, c.vocab_size), d)),
     }
-    return _map(params, lambda t: t.to(device))
 
 
 def shard_params(params: dict, mesh, config: LlamaConfig, rules=None,
@@ -295,15 +307,25 @@ def _trunk(p, tokens, config: LlamaConfig, plan, position_offset=0):
     # stack per layer (a third of llama-1b's train step on the card).
     layers = {k: v.unbind(0) for k, v in p["blocks"].items()}
     for layer in range(c.n_layers):
-        lp = {k: plan.layer(v[layer], k) for k, v in layers.items()}
+        own = {k: v[layer] for k, v in layers.items()}
         if c.remat:
+            # The gathers inside the recomputed block (the module
+            # docstring of models/_functional.py).
             x = torch.utils.checkpoint.checkpoint(
-                _block, x, lp, c, position_offset, plan,
+                _gathered_block, x, own, c, position_offset, plan,
                 use_reentrant=False)
         else:
-            x = _block(x, lp, c, position_offset, plan)
+            x = _block(x, _functional.gather_layer(own, plan), c,
+                       position_offset, plan)
     return _rmsnorm(x, plan.leaf(p["final_norm"], "final_norm"),
                     c.norm_eps)
+
+
+def _gathered_block(x, own, config: LlamaConfig, position_offset, plan):
+    """`_block` on the rank's own slices `own` of a layer's leaves,
+    gathered over fsdp inside (`plan.layer`)."""
+    return _block(x, _functional.gather_layer(own, plan), config,
+                  position_offset, plan)
 
 
 def _plan(config: LlamaConfig, mesh, shape):

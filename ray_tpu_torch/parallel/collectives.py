@@ -36,13 +36,18 @@ collective: parameters are DTensors, but each rank computes on their
 local shards and every collective is a call here, a change of layout
 (`sharding.redistribute`) included.  With a card per
 rank the group is NCCL (`launch.choose_backend`), which takes every op
-on CUDA tensors.  Nothing is chosen by catching an error: a collective
-that fails fails the step.
+on CUDA tensors; each rank sets its card before it joins the group
+(`launch._child`), and every rank of a group makes each rotation, its
+first included, as NCCL's point-to-point calls require.  Nothing is
+chosen by catching an error: a collective that fails fails the step.
 
 `measure()` times every collective on the host clock, a device
 synchronize on either side, so that a step's share of time in
 collectives can be read; it is off unless asked for, since the
-synchronizes cost time of their own.
+synchronizes cost time of their own.  A gather made with a `label`
+(`all_gather_value(..., label="layer")`, the fsdp gathers of a block's
+weights) is filed under its own ops, "layer_all_gather" and, for its
+backward, "layer_reduce_scatter", so that they can be counted apart.
 """
 
 from __future__ import annotations
@@ -68,7 +73,7 @@ def measure():
     synchronize before and after each); yields the STATS dict, reset on
     entry: calls, seconds, bytes (of the input tensors), and the same
     three per op in "by_op" ("all_reduce", "all_gather",
-    "reduce_scatter", "rotate")."""
+    "reduce_scatter", "rotate", and the labelled gathers' ops)."""
     STATS.update(enabled=True, calls=0, seconds=0.0, bytes=0, by_op={})
     try:
         yield STATS
@@ -132,21 +137,24 @@ def all_reduce_sum(tensors: list, group) -> list:
     return _all_reduce_flat(tensors, group, mean=False)
 
 
-def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
-    """The group's tensors concatenated along `dim`, in group-rank order."""
+def all_gather(t: torch.Tensor, group, dim: int = 0,
+               op: str = "all_gather") -> torch.Tensor:
+    """The group's tensors concatenated along `dim`, in group-rank order
+    (filed under `op` by `measure()`)."""
     if group is None:
         return t
     n = dist.get_world_size(group)
     x = t.movedim(dim, 0).contiguous()
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-    with _timed(x, "all_gather"):
+    with _timed(x, op):
         dist.all_gather_into_tensor(out, x, group=group)
     return out.movedim(0, dim)
 
 
-def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+def reduce_scatter(t: torch.Tensor, group, dim: int = 0,
+                   op: str = "reduce_scatter") -> torch.Tensor:
     """The sum over the group of `t`, this rank's chunk of it along
-    `dim` (group-rank order)."""
+    `dim` (group-rank order; filed under `op` by `measure()`)."""
     if group is None:
         return t
     n = dist.get_world_size(group)
@@ -155,7 +163,7 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
         raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} "
                          f"does not split into {n}")
     out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
-    with _timed(x, "reduce_scatter"):
+    with _timed(x, op):
         dist.reduce_scatter_tensor(out, x, group=group)
     return out.movedim(0, dim)
 
@@ -163,13 +171,19 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
 class _AllGather(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return all_gather(x, group, dim)
+    def forward(ctx, x, group, dim, label):
+        ctx.group, ctx.dim, ctx.label = group, dim, label
+        return all_gather(x, group, dim, _op(label, "all_gather"))
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+        return (reduce_scatter(g, ctx.group, ctx.dim,
+                               _op(ctx.label, "reduce_scatter")),
+                None, None, None)
+
+
+def _op(label: Optional[str], op: str) -> str:
+    return op if label is None else f"{label}_{op}"
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -304,10 +318,13 @@ def gather_replicated(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return x if group is None else _GatherReplicated.apply(x, group, dim)
 
 
-def all_gather_value(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+def all_gather_value(x: torch.Tensor, group, dim: int = 0,
+                     label: Optional[str] = None) -> torch.Tensor:
     """All-gather along `dim`; the backward reduce-scatters the gradient
-    (a sharded parameter gathered for use: ZeRO-3's pair)."""
-    return x if group is None else _AllGather.apply(x, group, dim)
+    (a sharded parameter gathered for use: ZeRO-3's pair).  With a
+    `label`, `measure()` files the pair under "<label>_all_gather" and
+    "<label>_reduce_scatter"."""
+    return x if group is None else _AllGather.apply(x, group, dim, label)
 
 
 def reduce_scatter_value(x: torch.Tensor, group,

@@ -19,10 +19,14 @@ dict of axis sizes, and returns plain data:
 - `train`: the family's `make_train_step` under the mesh for a few
   AdamW steps on global batches of any row count: the losses, the
   launches of K1-K3 on this rank, step times, the share of a step spent
-  in collectives, peak memory, the final params' shards or their
+  in collectives (by op, the blocks' fsdp gathers apart), peak memory,
+  the init's seconds and host memory, the final params' shards or their
   updates (and first gradients) against a single-device run's, this
   rank's real rows, and whether AdamW's moments are placed like their
-  params; with a `control`, the same run with a fault injected;
+  params; with a `control`, the same run with a fault injected (the 7B
+  configs run through it too, their params drawn on the card);
+- `init_shards`: the family's init under the mesh, each leaf's shard,
+  and how many whole leaves the rank held at once while drawing;
 - `loss_grads`: the family's loss and its summed gradients' shards on
   placed params;
 - `routing`: gpt's Switch MoE trunk once: this rank's real rows, and
@@ -443,13 +447,16 @@ def _grad_errors(params: dict, specs: dict, mesh,
 def _update_errors(params: dict, specs: dict, mesh, path: str) -> dict:
     """Against a single-device run saved at `path` (torch.save of
     {"start": , "final": } flat trees of the global params, the final
-    one after the same steps): per leaf, this rank's shard's
+    one after the same steps; {} without them): per leaf, this rank's
+    shard's
     ||(got - start) - (want - start)||_2 / ||want - start||_2 (in f64,
     on the shard's device), `start` the saved one (so a start that
     differs shows here too)."""
     from ray_tpu_torch.parallel.sharding import local_index
 
     ref = torch.load(path, mmap=True, weights_only=True)
+    if "final" not in ref:
+        return {}
     got, spec = _flat(params), _flat(specs)
     out = {}
     for k, t in got.items():
@@ -465,13 +472,14 @@ def train(rank: int, world_size: int, family: str, config, sizes: dict,
           device: str = "cpu", return_params: bool = True,
           rules: Optional[dict] = None, reference: Optional[str] = None,
           control: Optional[str] = None, digest: bool = False,
-          grad_controls: tuple = ()) -> dict:
+          grad_controls: tuple = (), generator: str = "cpu") -> dict:
     """One AdamW step per batch, each timed (host clock around a
     synchronize; the median leaves out the first, which warms up), the
     K1-K3 counts set to 0 just before the steps and read just after;
     the params' shards after these steps (`shards`, with
     `return_params`; with `digest`, a sha256 of their bytes, which
-    replicas share), and each leaf's update against a single-device
+    replicas share, and one of the first step's gradients' shards,
+    `grad_digest`), and each leaf's update against a single-device
     run's (`update_rel_err`, with `reference`, see `_update_errors`;
     where the reference also holds the first step's gradients, each
     leaf's first summed gradient against them, `grad_rel_err`); then
@@ -487,15 +495,20 @@ def train(rank: int, world_size: int, family: str, config, sizes: dict,
     its own count and the ranks' averaged, the weighting an uneven
     split must not take) computes the first batch's summed gradients
     with its fault, read as `grad_rel_err` is (`grad_controls`).
-    `peak_memory_gib` is the largest of the timed steps' peaks, and
-    `host_seconds` this rank's host time by part (setup, grad controls,
-    steps, checks, the measured step, the round trip).
+    `peak_memory_gib` is the largest of the timed steps' peaks (each
+    step's alone, `peak_memory_gib_by_step`), `host_seconds` this
+    rank's host time by part (setup, grad controls, steps, checks, the
+    measured step, the round trip), `init_seconds` the init's (to its
+    last shard on the device), and `host_rss_gib` the rank's resident
+    host memory before and after it (`_host_rss_gib`).
 
     The params come from `np_params` (the reference's numpy tree;
     placed by `shard_params` under `rules` when given, which the train
     step then moves into its own layout) or, when None, from the
-    family's init on seed 0 (drawn on the CPU, as the single-device
-    `init_state(0)` draws them).  `control` injects a fault the checks
+    family's init on seed 0 from a generator on `generator` ("cpu", as
+    the single-device `init_state(0)` draws them; "cuda", this rank's
+    card, as a single-device init from a CUDA generator seeded 0 draws
+    them).  `control` injects a fault the checks
     must catch: "no_grad_sync" skips the gradients' sums over the row
     axes, "no_update" the optimizer's step.  Also
     `constraint_round_trip`:
@@ -527,12 +540,18 @@ def train(rank: int, world_size: int, family: str, config, sizes: dict,
     mesh = _mesh(sizes, device)
     init_state, train_step = fam.make_train_step(config, adamw(lr), mesh,
                                                  device=dev)
+    host_before_init = _host_rss_gib()
+    t_init = time.perf_counter()
     if np_params is None:
-        state = init_state(0)
+        state = init_state(torch.Generator(
+            dev if generator == "cuda" else "cpu").manual_seed(0))
+        _sync(dev)
     else:
         full = params_from_numpy(np_params, config, device="cpu")
         state = init_state(params=full if rules is None else
                            fam.shard_params(full, mesh, config, rules))
+    init_seconds = time.perf_counter() - t_init
+    host_after_init = _host_rss_gib()
     plan = plan_for(mesh, fam.param_specs(config))
     if control == "no_grad_sync":
         plan.sync_grads = lambda params: None
@@ -557,6 +576,7 @@ def train(rank: int, world_size: int, family: str, config, sizes: dict,
     clock("grad_controls")
     _zero_flash_launches()
     losses, step_ms, first_grad, peaks = [], [], None, []
+    grad_digest = None
     for batch in feed:
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
@@ -570,6 +590,9 @@ def train(rank: int, world_size: int, family: str, config, sizes: dict,
         if first_grad is None:
             first_grad = _grad_errors(state["params"], specs, mesh,
                                       reference)
+            if digest:
+                grad_digest = _digest(p.grad.to_local() for p in
+                                      _flat(state["params"]).values())
             clock("checks")
     launches = _flash_launches()
     out = {"real_rows": own.stop - own.start, "chunk": chunk}
@@ -585,6 +608,7 @@ def train(rank: int, world_size: int, family: str, config, sizes: dict,
     if digest:
         out["params_digest"] = _digest(
             p.to_local() for p in _flat(state["params"]).values())
+        out["grad_digest"] = grad_digest
     _sync(dev)
     clock("checks")
     t0 = time.perf_counter()
@@ -624,10 +648,51 @@ def train(rank: int, world_size: int, family: str, config, sizes: dict,
         # The steps' peak alone: the checks' temporaries are not the
         # step's.
         "peak_memory_gib": None if dev.type != "cuda" else max(peaks),
+        "peak_memory_gib_by_step": peaks,
+        "init_seconds": init_seconds,
+        "host_rss_gib": [host_before_init, host_after_init],
     })
     clock("round_trip")
     out["host_seconds"] = seconds
     return out
+
+
+def init_shards(rank: int, world_size: int, family: str, config,
+                sizes: dict, device: str = "cpu") -> dict:
+    """The family's init on seed 0 under the mesh (`init_state(0)` of
+    its `make_train_step`): each leaf's shard (`local_shards`); the most
+    whole leaves the rank held at once while drawing, counted at each
+    `MeshPlan.init_leaf` call (the leaf handed in, and those handed in
+    before whose tensors are still alive); and the leaves whose shard
+    shares the whole leaf's storage (and so would keep it alive)."""
+    import weakref
+
+    from ray_tpu_torch.models._functional import MeshPlan, adamw
+
+    fam = _family(family)
+    mesh = _mesh(sizes, device)
+    init_state, _ = fam.make_train_step(config, adamw(1e-3), mesh,
+                                        device=_device(device))
+    handed, most, shared = [], [0], []
+    init_leaf = MeshPlan.init_leaf
+
+    def counted(plan, path, t, device):
+        handed[:] = [r for r in handed if r() is not None]
+        most[0] = max(most[0], len(handed) + 1)
+        shard = init_leaf(plan, path, t, device)
+        if (shard.to_local().untyped_storage().data_ptr()
+                == t.untyped_storage().data_ptr()):
+            shared.append(path)
+        handed.append(weakref.ref(t))
+        return shard
+
+    MeshPlan.init_leaf = counted
+    try:
+        params = init_state(0)["params"]
+    finally:
+        MeshPlan.init_leaf = init_leaf
+    return {"shards": local_shards(params, _specs(fam, config, mesh), mesh),
+            "most_whole_leaves_alive": most[0], "shares_storage": shared}
 
 
 def save(rank: int, world_size: int, family: str, config, sizes: dict,
@@ -668,6 +733,18 @@ def restore(rank: int, world_size: int, sizes: dict, path: str,
                        _numpy(node.to_local()))
     walk(tree, "")
     return out
+
+
+def _host_rss_gib() -> Optional[float]:
+    """This process's resident host memory now (VmRSS), in GiB; None
+    where /proc does not report it.  (The peak is not read: `getrusage`'s
+    maxrss of a spawned rank starts at its parent's size at the fork,
+    and VmHWM is missing from some kernels' /proc.)"""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2 ** 20
+    return None
 
 
 def _digest(tensors) -> str:

@@ -10,9 +10,10 @@ weights, on the same batches, 3 AdamW steps (optax.adamw and the port's
 adamw, lr 1e-3), f32:
 
 - gpt nano at data2/fsdp2/tensor2 (tests/test_model_parallel.py:106's
-  shape; also with remat, each block recomputed in the backward) and
-  llama-tiny at data2/tensor2 and data2/fsdp2/tensor2
-  (:269's): every rank's losses within 1e-5 relative of the reference's,
+  shape) and llama-tiny at data2/tensor2 and data2/fsdp2/tensor2
+  (:269's), both families at data2/fsdp2/tensor2 also with remat (each
+  block recomputed in the backward, its fsdp gathers inside it): every
+  rank's losses within 1e-5 relative of the reference's,
   and so the loss of one more step on the last batch, the first loss
   that sees the third update; the final params, put together from
   every rank's shards, within 2 * lr per step of the reference's
@@ -26,12 +27,19 @@ adamw, lr 1e-3), f32:
 - params placed by other rules (llama-tiny at data2/tensor2 with heads,
   kv heads and the MLP replicated and the vocab over data) are moved
   into the step's layout and train bit for bit as the default layout;
-- AdamW's moments are DTensors placed like their params.
+- AdamW's moments are DTensors placed like their params;
+- each rank's fsdp gathers of block leaves in a step: 2 x layers x the
+  leaves sharded over fsdp under remat (the forward's and the
+  recompute's), 1 x without; their reduce-scatters 1 x in either;
+- the mesh init (`init_state(0)`, drawn shard-wise) gives every rank
+  slices of the single-device init, bit for bit, holding one whole leaf
+  at a time while it draws.
 """
 
 import concurrent.futures
 import dataclasses
 import functools
+import types
 
 import jax
 import numpy as np
@@ -49,7 +57,8 @@ from ray_tpu_torch.models._functional import adamw
 from ray_tpu_torch.models.convert import params_from_numpy
 from ray_tpu_torch.parallel import rank_bodies
 from ray_tpu_torch.parallel.launch import run_ranks
-from ray_tpu_torch.parallel.sharding import DEFAULT_RULES
+from ray_tpu_torch.parallel.sharding import (DEFAULT_RULES, logical_to_spec,
+                                             spec_axes)
 
 torch.set_num_threads(1)
 
@@ -69,9 +78,9 @@ FAMILIES = {"gpt": (jgpt, gpt, "nano"), "llama": (jllama, llama,
 
 
 def _configs(family):
-    """gpt-remat is gpt nano with each block recomputed in the port's
-    backward (its collectives run again there); the reference's numbers
-    are nano's."""
+    """gpt-remat (llama-remat) is gpt nano (llama-tiny) with each block
+    recomputed in the port's backward (its collectives run again there);
+    the reference's numbers are nano's (llama-tiny's)."""
     jmod, tmod, name = FAMILIES[family.removesuffix("-remat")]
     tcfg = tmod.CONFIGS[name]
     if family.endswith("-remat"):
@@ -147,16 +156,32 @@ def _run_beside_the_reference(calls, world, init_dir, cases):
         return running.result()
 
 
+RUNS8 = ("gpt", "llama", "gpt-remat", "llama-remat")
+INITS8 = ("gpt", "llama")
+
+
 @pytest.fixture(scope="module")
-def ranks8(tmp_path_factory):
-    calls = [_train_call("gpt", SIZES8), _train_call("llama", SIZES8),
-             _train_call("gpt-remat", SIZES8)]
-    out = _run_beside_the_reference(
+def gang8(tmp_path_factory):
+    """The group of 8's results by rank: the train runs of RUNS8, then
+    the mesh init of INITS8."""
+    calls = [_train_call(family, SIZES8) for family in RUNS8] + [
+        ("init_shards", (family, _configs(family)[3], SIZES8))
+        for family in INITS8]
+    return _run_beside_the_reference(
         calls, 8, str(tmp_path_factory.mktemp("train8")),
         [("gpt", SIZES8), ("llama", SIZES8)])
-    return {("gpt", "dp2_fsdp2_tp2"): [r[0] for r in out],
-            ("llama", "dp2_fsdp2_tp2"): [r[1] for r in out],
-            ("gpt-remat", "dp2_fsdp2_tp2"): [r[2] for r in out]}
+
+
+@pytest.fixture(scope="module")
+def ranks8(gang8):
+    return {(family, "dp2_fsdp2_tp2"): [r[i] for r in gang8]
+            for i, family in enumerate(RUNS8)}
+
+
+@pytest.fixture(scope="module")
+def init8(gang8):
+    return {family: [r[len(RUNS8) + i] for r in gang8]
+            for i, family in enumerate(INITS8)}
 
 
 @pytest.fixture(scope="module")
@@ -171,7 +196,8 @@ def ranks4(tmp_path_factory):
 
 
 CASES = [("gpt", "dp2_fsdp2_tp2", SIZES8), ("llama", "dp2_fsdp2_tp2", SIZES8),
-         ("llama", "dp2_tp2", SIZES4), ("gpt-remat", "dp2_fsdp2_tp2", SIZES8)]
+         ("llama", "dp2_tp2", SIZES4), ("gpt-remat", "dp2_fsdp2_tp2", SIZES8),
+         ("llama-remat", "dp2_fsdp2_tp2", SIZES8)]
 
 
 def _ranks_of(request, family, name, sizes):
@@ -236,6 +262,48 @@ def test_adamw_moments_are_dtensors_placed_like_params(request, family,
                                                        name, sizes):
     for out in _ranks_of(request, family, name, sizes):
         assert out["moments_placed_like_params"]
+
+
+@pytest.mark.parametrize("family", RUNS8)
+def test_fsdp_gathers_of_the_blocks_per_step(ranks8, family):
+    """The measured step's gathers of block leaves over fsdp
+    (`MeshPlan.layer`, filed as "layer_all_gather"): under remat each
+    block gathers in the forward and again in its recompute, so 2 x
+    layers x the leaves fsdp shards; without remat once.  Their
+    gradients are reduce-scattered once either way, from the
+    recomputed graph under remat."""
+    _, tmod, _, tcfg = _configs(family)
+    mesh = types.SimpleNamespace(shape=SIZES8)
+    leaves = sum("fsdp" in spec_axes(logical_to_spec(spec, mesh=mesh))
+                 for spec in tmod.param_specs(tcfg)["blocks"].values())
+    assert leaves == len(tmod.param_specs(tcfg)["blocks"])
+    per_layer = 2 if tcfg.remat else 1
+    for out in ranks8[(family, "dp2_fsdp2_tp2")]:
+        ops = out["collectives"]["by_op"]
+        assert ops["layer_all_gather"]["calls"] == \
+            per_layer * tcfg.n_layers * leaves
+        assert ops["layer_reduce_scatter"]["calls"] == \
+            tcfg.n_layers * leaves
+
+
+@pytest.mark.parametrize("family", INITS8)
+def test_mesh_init_shards_are_slices_of_the_single_device_init(init8,
+                                                               family):
+    """`init_state(0)` under the mesh draws each leaf whole from the
+    single device's stream and keeps the rank's slice (a copy) before
+    the next draw: every shard equals the single-device init's slice to
+    the bit, and no rank held two whole leaves at once."""
+    _, tmod, _, tcfg = _configs(family)
+    whole = _flat(tmod.init_params(tcfg, torch.Generator().manual_seed(0),
+                                   device="cpu"))
+    for out in init8[family]:
+        assert out["most_whole_leaves_alive"] == 1
+        assert out["shares_storage"] == []
+        assert out["shards"].keys() == whole.keys()
+        for path, (index, data) in out["shards"].items():
+            np.testing.assert_array_equal(
+                data, whole[path][tuple(slice(a, b) for a, b in index)]
+                .numpy(), err_msg=path)
 
 
 def test_params_placed_by_other_rules_train_as_the_default_layout(ranks4):
