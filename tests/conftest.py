@@ -4,8 +4,16 @@ Tests run on a virtual 8-device CPU mesh (the reference's analogue is the
 in-process multi-node Cluster fixture, python/ray/cluster_utils.py:99): JAX on
 CPU with xla_force_host_platform_device_count=8 stands in for an 8-chip TPU
 slice, so every sharding/collective path is exercised without TPU hardware.
+
+Every test runs under a time limit, TIME_LIMIT_S, that covers its setup,
+call and teardown, module fixtures included. When it runs out, faulthandler
+writes the stacks of all threads to the real stderr and ends the process:
+under xdist the worker is reported down with the test's id, the test
+failed, and the rest of its tests run on a new worker; without xdist the
+run ends there.
 """
 
+import faulthandler
 import os
 import sys
 
@@ -29,6 +37,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import pytest  # noqa: E402
 
+TIME_LIMIT_S = 300  # ~4x the longest test, above RankGang's 240 s
+_stderr = None  # a copy of fd 2, which pytest redirects while a test runs
+
 
 def pytest_configure(config):
     # Learning-regression gates (minutes each on a small host) carry
@@ -45,6 +56,17 @@ def pytest_configure(config):
         "markers", "chaos: seeded fault-injection scenarios "
         "(tests/test_fault_tolerance.py); fast cases run in tier-1, "
         "long soaks also carry `slow`")
+    global _stderr
+    _stderr = os.dup(2)
+
+
+@pytest.hookimpl(wrapper=True)
+def pytest_runtest_protocol(item, nextitem):
+    faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True, file=_stderr)
+    try:
+        return (yield)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
 
 
 @pytest.fixture

@@ -13,31 +13,32 @@ from ray_tpu.cluster_utils import Cluster
 
 
 @pytest.fixture(scope="module")
-def client_cluster():
+def client_cluster(tmp_path_factory):
     cluster = Cluster(initialize_head=True,
                       head_node_args={"num_cpus": 4})
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "ray_tpu.scripts.cli", "client-server",
-         "--address", cluster.address, "--host", "127.0.0.1",
-         "--port", "0"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    import os
-    os.set_blocking(proc.stdout.fileno(), False)
+    # The server logs to a file: a pipe nobody reads fills at 64 KiB and
+    # blocks the server in write(2) (grpc aio logs BlockingIOError under load).
+    log = tmp_path_factory.mktemp("client_server") / "server.log"
+    with open(log, "wb") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu.scripts.cli", "client-server",
+             "--address", cluster.address, "--host", "127.0.0.1",
+             "--port", "0"],
+            stdout=out, stderr=subprocess.STDOUT)
     port = None
     buf = ""
     deadline = time.time() + 60
     while time.time() < deadline:
-        chunk = proc.stdout.read()
-        if chunk:
-            buf += chunk.decode("utf-8", "replace")
+        buf = log.read_text("utf-8", "replace")
         if "listening on" in buf:
             port = int(buf.split("listening on ")[1].split()[0]
                        .rsplit(":", 1)[1])
             break
         if proc.poll() is not None:
-            raise RuntimeError(f"client server died during startup: {buf}")
+            raise RuntimeError(
+                f"client server died during startup ({log}): {buf}")
         time.sleep(0.2)
-    assert port, "client server never reported its port"
+    assert port, f"client server never reported its port ({log}): {buf}"
     ray_tpu.init(address=f"ray_tpu://127.0.0.1:{port}")
     yield cluster
     ray_tpu.shutdown()

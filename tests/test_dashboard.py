@@ -3,7 +3,6 @@ dashboard/modules/job/tests/test_job_manager.py and the job REST surface
 in dashboard/modules/job/job_head.py)."""
 
 import json
-import os
 import subprocess
 import sys
 import time
@@ -18,25 +17,27 @@ from ray_tpu.dashboard.sdk import JobSubmissionClient, JobSubmissionError
 @pytest.fixture(scope="module")
 def dash(tmp_path_factory):
     cluster = Cluster(initialize_head=True, head_node_args={"num_cpus": 4})
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "ray_tpu.scripts.cli", "dashboard",
-         "--address", cluster.address, "--host", "127.0.0.1", "--port", "0"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    os.set_blocking(proc.stdout.fileno(), False)
+    # The dashboard logs to a file: a pipe nobody reads fills at 64 KiB
+    # and blocks the dashboard in write(2).
+    log = tmp_path_factory.mktemp("dashboard") / "dashboard.log"
+    with open(log, "wb") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu.scripts.cli", "dashboard",
+             "--address", cluster.address, "--host", "127.0.0.1",
+             "--port", "0"],
+            stdout=out, stderr=subprocess.STDOUT)
     port, buf = None, ""
     deadline = time.time() + 90
     while time.time() < deadline:
-        chunk = proc.stdout.read()
-        if chunk:
-            buf += chunk.decode("utf-8", "replace")
+        buf = log.read_text("utf-8", "replace")
         if "dashboard listening on" in buf:
             port = int(buf.split("dashboard listening on ")[1]
                        .split()[0].rsplit(":", 1)[1])
             break
         if proc.poll() is not None:
-            raise RuntimeError(f"dashboard died during startup: {buf}")
+            raise RuntimeError(f"dashboard died during startup ({log}): {buf}")
         time.sleep(0.2)
-    assert port, f"dashboard never reported its port: {buf}"
+    assert port, f"dashboard never reported its port ({log}): {buf}"
     client = JobSubmissionClient(f"http://127.0.0.1:{port}")
     try:
         yield cluster, client, port
