@@ -17,14 +17,26 @@ run with a nonzero exit code and no result line:
            to 1024, bf16 and f32; llama-1b decode: 32 lanes, 4 kv heads x
            q_per_kv 8 of 64, ragged contexts up to 2048, bf16), at 4
            lanes of the gpt2 shape, and at GQA shapes (q_per_kv 2, 4, 7,
-           8 and 12) and at llama2-7b's decode shape (32 lanes, 32 kv
-           heads of 128, contexts up to 4096), then timed with CUDA
+           8 and 12), at llama2-7b's decode shape (32 lanes, 32 kv
+           heads of 128, contexts up to 4096) and at the serve cell's
+           decode dispatch (32 lanes, 32 heads of 128) with 32, 9 and 4
+           lanes decoding after prompts of its mix and the rest riding
+           at ctx_len 1, then timed with CUDA
            events (median over launches, L2 flushed and the device held
            busy by a spin before each, so the host's launch is not timed)
            beside its bound, its plain version and one PyTorch library
            call; and once more without the spin, the host's enqueue
            included (ms_with_launch).  Each case names its split count
-           and split length.
+           and split length.  Then the paged-prefill kernel (K5, bf16)
+           against the same plain version (paged_attention_reference),
+           timed the same way beside its bound, the plain version and SDPA
+           over the gathered context: the serve cell's prefill dispatch
+           (32 lanes, T 32, 32 heads of 128, block 16, a 128-block table;
+           contexts drawn from the serve-longprompt mix's prompt lengths,
+           one lane at the full 2048 and 23 riders at ctx_len 1), llama-1b's
+           (q_per_kv 8 of 64, 256 query rows a kv head, a lane with no
+           context, whose rows must be zeros), a speculative verify step at
+           T 5, q_per_kv 4 at head dim 128 and head dim 256.
   flash    the flash-attention kernels K1 (forward), K2 (dq) and K3
            (dk, dv) against their plain versions at the train shape
            (B 24, L 1024, 12 heads of 64, causal; bf16 and f32), at the
@@ -49,7 +61,8 @@ run with a nonzero exit code and no result line:
            streamed requests (greedy and seeded, a shared prefix).  The
            kernel launch counts are set to 0 just before and read just
            after; the decode kernel must have run once per layer per
-           decode step.
+           decode step, the prefill kernel (K5) once per layer per
+           prefill dispatch (and per verify step, in serve_spec).
   train    the training path: gpt.make_train_step(gpt2-small, adamw(1e-4))
            at full width (bf16 activations, fp32 params, random weights
            from a seed) on one repeated batch of 24 x 1024 random tokens,
@@ -85,24 +98,30 @@ run with a nonzero exit code and no result line:
            lanes, block 16: serve's 24 requests plus 8 greedy ones whose
            prompts repeat a 16-token pattern four times.  Every stream
            must finish with its count, the proposer must have drafted and
-           verify steps run, and K4 must have run 22 times per T=1 decode
-           step (verify steps, T > 1, take the masked-dense path).
+           verify steps run, K4 must have run 22 times per T=1 decode
+           step and K5 22 times per prefill dispatch and per verify step
+           (T > 1).
   spec_parity  gpt2-small in float32: greedy and seeded requests through
            the plain engine and the spec engine on the card and the spec
            engine on the CPU must give the same tokens.  llama-1b in bf16:
            one greedy request through the plain engine, then through a
            spec engine whose oracle proposer drafts that output (full
            k + 1 bursts); where the two streams first differ, the plain
-           logits must be a near-tie (top-2 margin <= 2e-2 x max|logit|).
+           logits must be a near-tie (top-2 margin <= 2e-2 x max|logit|);
+           K5 must have run 22 times per prefill dispatch and verify
+           step of each llama engine.
   spec_model_draft  gpt2-small in bf16 drafting for itself
            (ModelDraftProposer on the target's weights, window 64,
            spec_k 3, 4 lanes): K1 must have run 12 times per draft
-           forward, acceptance must be >= 0.9, the output the plain
-           engine's but at near-ties; ms per propose is reported.
+           forward and K5 12 times per prefill dispatch and verify step
+           of the target engine (and of the plain engine), acceptance
+           must be >= 0.9, the output the plain engine's but at
+           near-ties; ms per propose is reported.
   logp     capture_logp=True with greedy, seeded and verify steps, each
            log-prob against log_softmax of a plain forward over the same
            tokens at the same temperature: gpt2-small in float32 within
-           1e-4, llama-1b in bf16 within 2 x 2e-2 x max|logit| / temp.
+           1e-4, llama-1b in bf16 within 2 x 2e-2 x max|logit| / temp,
+           with K5 22 times per T > 1 dispatch of each llama engine.
   serve_disagg  disaggregated serving at llama-1b (bf16, full width, the
            weights of serve_llama): a PrefillLLMDeployment and a
            DecodeLLMDeployment, 32 lanes each, serve's 24 requests from
@@ -111,7 +130,8 @@ run with a nonzero exit code and no result line:
            K/V per block; the decode side must import each distinct chain
            link once and hit >= 16 tokens per imported block; K4 must have
            run 22 times per decode step of the decode replica and never
-           for the prefill replica; each stream must equal serve_llama's
+           for the prefill replica, K5 22 times per prefill dispatch of
+           either replica; each stream must equal serve_llama's
            for the request or part from it at a near-tie (for a sampled
            stream, of logits / temp + its Gumbel noise).  Prints frame
            bytes, export + encode and decode + import ms, TTFT (end to end
@@ -127,8 +147,9 @@ run with a nonzero exit code and no result line:
            again.  Blocks must spill and restore, the restored chains
            must hold the bits exported before eviction, the repeat's
            streams must equal a tier-less engine's (or part at a
-           near-tie), K4 must have run 22 times per decode step; ms per
-           spilled and per restored block are printed.
+           near-tie), K4 must have run 22 times per decode step and K5
+           22 times per prefill dispatch; ms per spilled and per
+           restored block are printed.
   rl_rollout  EngineRolloutActor("llama", "llama-1b") at full width and
            depth (bf16, weights drawn on the card, 32 lanes, block 16,
            temperature 1.0): two rollouts of 64 prompts of 48-96 tokens
@@ -137,7 +158,8 @@ run with a nonzero exit code and no result line:
            mid-flight after 5 steps of 32 live lanes.  Each batch must be
            [32, 64] time-major, its valid log-probs finite, <= 0 and the
            handles' own, tagged version 0 then 1; no lane may drop; K4
-           must have run 22 times per decode step.  Prints rollout
+           must have run 22 times per decode step and K5 22 times per
+           prefill dispatch.  Prints rollout
            tokens/s, decode step ms, prefix hit tokens, and two adopt
            times: adopt(1) from the host numpy tree that a publish
            delivers (copy to the card and bf16 cast), and the mid-flight
@@ -400,12 +422,16 @@ def check(cond: bool, what: str) -> None:
 
 # ---------------------------------------------------------------- kernels
 
-def _decode_case(gen, *, b, kh, q_per_kv, d, bs, max_ctx, dtype):
+def _decode_case(gen, *, b, kh, q_per_kv, d, bs, max_ctx, dtype,
+                 ctx=None):
     h = kh * q_per_kv
     mb = max_ctx // bs
     nb = b * mb + 8
-    ctx = torch.randint(1, max_ctx + 1, (b,), generator=gen)
-    ctx[:4] = torch.tensor([1, max_ctx, bs, bs + 1])  # edges of the tiling
+    if ctx is None:
+        ctx = torch.randint(1, max_ctx + 1, (b,), generator=gen)
+        ctx[:4] = torch.tensor([1, max_ctx, bs, bs + 1])  # tiling's edges
+    else:
+        ctx = torch.tensor(ctx)
     tables = torch.randperm(nb, generator=gen)[:b * mb].view(b, mb)
 
     def rand(*shape):
@@ -467,29 +493,44 @@ def _decode_bound(c) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _gathered(c, pool):
+    """[B, H, MB * BS, D]: each lane's whole table of `pool`, contiguous,
+    its kv heads repeated over their query heads."""
+    b, h, d = c["q"].shape[0], c["q"].shape[-2], c["q"].shape[-1]
+    _, bs, kh, _ = pool.shape
+    tables = c["block_tables"].long()
+    x = pool[tables].reshape(b, tables.shape[1] * bs, kh, d).transpose(1, 2)
+    return x.repeat_interleave(h // kh, dim=1).contiguous()
+
+
 def _sdpa_inputs(c):
     """The contiguous, pre-gathered context for the library yardstick."""
-    q, k_pool, v_pool = c["q"], c["k_pool"], c["v_pool"]
-    b, h, d = q.shape
-    _, bs, kh, _ = k_pool.shape
-    tables = c["block_tables"].long()
-    max_ctx = tables.shape[1] * bs
-
-    def ctx(pool):
-        x = pool[tables].reshape(b, max_ctx, kh, d).transpose(1, 2)
-        return x.repeat_interleave(h // kh, dim=1).contiguous()
-
-    mask = (torch.arange(max_ctx, device=q.device)[None]
+    max_ctx = c["block_tables"].shape[1] * c["k_pool"].shape[1]
+    mask = (torch.arange(max_ctx, device=c["q"].device)[None]
             < c["ctx_lens"][:, None])[:, None, None, :]
-    return q[:, :, None], ctx(k_pool), ctx(v_pool), mask
+    return (c["q"][:, :, None], _gathered(c, c["k_pool"]),
+            _gathered(c, c["v_pool"]), mask)
+
+
+def _serve_decode_case(rng, live):
+    """K4's operands at the serve cell's decode dispatch
+    (cerebras-gpt-6.7b: 32 lanes, 32 heads of 128, block 16, a 128-block
+    table): `live` lanes decoding after a prompt of the serve-longprompt
+    mix (a context of prompt + 1-64 tokens), the rest riding along at
+    ctx_len 1, as the engine's fixed-shape batch carries them."""
+    ctx = [p + int(rng.integers(1, 65)) for p in _mix_prompts(rng, live)]
+    return dict(b=32, kh=32, q_per_kv=1, d=128, bs=16, max_ctx=2048,
+                dtype=torch.bfloat16, ctx=ctx + [1] * (32 - live))
 
 
 def phase_kernels(report: dict) -> None:
+    import numpy as np
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import attention as A
 
     gen = torch.Generator().manual_seed(0)
+    serve_rng = np.random.default_rng(20)
     cases = {
         "gpt2-small-bf16": dict(b=32, kh=12, q_per_kv=1, d=64, bs=16,
                                 max_ctx=1024, dtype=torch.bfloat16),
@@ -522,6 +563,11 @@ def phase_kernels(report: dict) -> None:
         # each, ragged contexts up to its 4096.
         "llama2-7b-bf16": dict(b=32, kh=32, q_per_kv=1, d=128, bs=16,
                                max_ctx=4096, dtype=torch.bfloat16),
+        # The serve cell's decode dispatch with every lane decoding, and
+        # with the 9 and the 4 live lanes its traced window held with K5
+        # in the prefill path: the share of K4's bound at few live lanes.
+        **{f"serve-6.7b-{n}live": _serve_decode_case(serve_rng, n)
+           for n in (32, 9, 4)},
     }
     results = {}
     for name, spec in cases.items():
@@ -560,7 +606,159 @@ def phase_kernels(report: dict) -> None:
         replaces="ray_tpu/ops/attention.py:291",
         **{k: results["gpt2-small-bf16"][k] for k in keys},
         llama_1b={k: results["llama-1b-bf16"][k] for k in keys},
-        llama2_7b={k: results["llama2-7b-bf16"][k] for k in keys})
+        llama2_7b={k: results["llama2-7b-bf16"][k] for k in keys},
+        serve_6_7b={n: {k: results[f"serve-6.7b-{n}live"][k] for k in keys}
+                    for n in (32, 9, 4)})
+    prefill = _prefill_kernel_cases(F, A)
+    emit("kernels", prefill_cases=prefill)
+    report["paged_prefill_attention"] = dict(
+        name="paged_prefill_attention", route="cuda",
+        source="ray_tpu_torch/ops/csrc/paged_prefill.cu", replaces=None,
+        **{k: prefill["serve-6.7b"][k] for k in keys},
+        llama_1b={k: prefill["llama-1b"][k] for k in keys},
+        verify_t5={k: prefill["verify-t5-llama-1b"][k] for k in keys})
+
+
+def _mix_prompts(rng, n):
+    """n prompt lengths of the serve-longprompt mix (benchmark/traffic):
+    lognormal, median 1024, sigma 0.5, in [256, 1792]."""
+    return [int(x) for x in rng.lognormal(math.log(1024), 0.5, n)
+            .round().clip(256, 1792)]
+
+
+PREFILL_CASES = {
+    # The serve cell's prefill dispatch (cerebras-gpt-6.7b): one lane at
+    # the full table, 8 lanes in their last chunk of a prompt from the
+    # mix, 23 riders.
+    "serve-6.7b": dict(kh=32, q_per_kv=1, d=128, bs=16, mb=128, t=32,
+                       ctx=lambda rng: [2048] + _mix_prompts(rng, 8)
+                       + [1] * 23, chunked=True),
+    # llama-1b's prefill: 256 query rows a kv head (4 row blocks); the
+    # last lane has no context and must come out as zeros.
+    "llama-1b": dict(kh=4, q_per_kv=8, d=64, bs=16, mb=128, t=32,
+                     ctx=lambda rng: _mix_prompts(rng, 8) + [1] * 23 + [0],
+                     chunked=True),
+    # A speculative verify step (1 + spec_k 4) over 31 decoding lanes.
+    "verify-t5-llama-1b": dict(
+        kh=4, q_per_kv=8, d=64, bs=16, mb=128, t=5,
+        ctx=lambda rng: rng.integers(5, 2049, 31).tolist() + [0],
+        chunked=False),
+    # q_per_kv 4 at head dim 128 (llama3-8b's grouping): 128 rows.
+    "gqa4-d128": dict(kh=8, q_per_kv=4, d=128, bs=16, mb=128, t=32,
+                      ctx=lambda rng: _mix_prompts(rng, 8), chunked=True),
+    # Head dim 256: key tiles of 32.
+    "d256": dict(kh=2, q_per_kv=2, d=256, bs=32, mb=16, t=16,
+                 ctx=lambda rng: rng.integers(1, 513, 4).tolist(),
+                 chunked=True),
+}
+
+
+def _prefill_case(rng, *, kh, q_per_kv, d, bs, mb, t, ctx, chunked):
+    """K5's operands: lanes at contexts `ctx(rng)`, each lane's queries at
+    its last chunk of t (positions past ctx_len in an overhang, as the
+    engine's last prefill chunk) or, not `chunked`, at its last t
+    positions; bf16 values drawn from the seed."""
+    ctx = torch.tensor(ctx(rng), dtype=torch.int64)
+    b, h = len(ctx), kh * q_per_kv
+    nb = b * mb + 8
+    start = ((ctx - 1).clamp(min=0) // t * t if chunked
+             else (ctx - t).clamp(min=0))
+    pos = start[:, None] + torch.arange(t)[None]
+    gen = torch.Generator().manual_seed(int(rng.integers(1 << 31)))
+    tables = torch.randperm(nb, generator=gen)[:b * mb].view(b, mb)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).to(torch.bfloat16).cuda()
+
+    return dict(q=rand(b, t, h, d), k_pool=rand(nb, bs, kh, d),
+                v_pool=rand(nb, bs, kh, d),
+                block_tables=tables.to(torch.int32).cuda(),
+                ctx_lens=ctx.to(torch.int32).cuda(), q_positions=pos.cuda())
+
+
+def _prefill_limits(c):
+    """[B, T]: query (b, t) sees keys [0, limit)."""
+    width = c["block_tables"].shape[1] * c["k_pool"].shape[1]
+    return torch.minimum(c["ctx_lens"].long().clamp(max=width)[:, None],
+                         c["q_positions"] + 1).clamp(min=0)
+
+
+def _prefill_bound(c) -> tuple:
+    """Least time for K5's work on an H100: each lane's visible K/V rows
+    (up to its last visible key) read once, q, the positions, ctx_lens
+    and the table entries read, the output written once; or the QK and
+    PV flops of every visible (query, key) pair at the bf16 peak.
+    Returns (ms, "bytes"|"operations")."""
+    q, k = c["q"], c["k_pool"]
+    b, t, h, d = q.shape
+    _, bs, kh, _ = k.shape
+    lim = _prefill_limits(c)
+    last = lim.amax(1)
+    sz = q.element_size()
+    kv_bytes = int(last.sum()) * kh * d * 2 * sz
+    small = int(((last + bs - 1) // bs).sum()) * 4 + b * 4 + b * t * 8
+    nbytes = kv_bytes + 2 * q.numel() * sz + small
+    flops = 4 * int(lim.sum()) * h * d
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[q.dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _prefill_sdpa_inputs(c):
+    """q [B, H, T, D], the pre-gathered context and the visibility mask,
+    for the library yardstick."""
+    width = c["block_tables"].shape[1] * c["k_pool"].shape[1]
+    mask = (torch.arange(width, device=c["q"].device)[None, None]
+            < _prefill_limits(c)[..., None])[:, None]
+    return (c["q"].transpose(1, 2).contiguous(), _gathered(c, c["k_pool"]),
+            _gathered(c, c["v_pool"]), mask)
+
+
+def _prefill_kernel_cases(F, A) -> dict:
+    """K5 against `paged_attention_reference` at PREFILL_CASES, within
+    TOLERANCE for bf16 on every row that sees a key; the rows that see
+    none must be zeros.  Timed as the decode cases are."""
+    import numpy as np
+
+    rng = np.random.default_rng(22)
+    results = {}
+    for name, spec in PREFILL_CASES.items():
+        c = _prefill_case(rng, **spec)
+        before = A.paged_prefill_attention.launches
+        out = A.paged_prefill_attention(**c)
+        check(A.paged_prefill_attention.launches == before + 1,
+              f"{name}: the prefill kernel did not launch")
+        plain = A.paged_attention_reference(**c)
+        torch.cuda.synchronize()
+        seen = _prefill_limits(c) > 0                           # [B, T]
+        atol, rtol = TOLERANCE[torch.bfloat16]
+        err = (out.float() - plain.float()).abs()[seen]
+        check(bool(torch.isfinite(out.float()).all()),
+              f"{name}: kernel output not finite")
+        check(bool((err <= atol + rtol * plain.float().abs()[seen]).all()),
+              f"{name}: kernel disagrees with its plain version "
+              f"(max abs err {float(err.max())}, atol {atol}, rtol {rtol})")
+        check(not out[~seen].any(), f"{name}: a row that sees no key is "
+              f"not zeros")
+        sdpa = _prefill_sdpa_inputs(c)
+        bound_ms, bound_by = _prefill_bound(c)
+        results[name] = dict(
+            max_abs_err=float(err.max()), atol=atol, rtol=rtol,
+            ms=_time_ms(lambda: A.paged_prefill_attention(**c)),
+            ms_with_launch=_time_ms(lambda: A.paged_prefill_attention(**c),
+                                    spin=False),
+            plain_ms=_time_ms(lambda: A.paged_attention_reference(**c)),
+            library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                sdpa[0], sdpa[1], sdpa[2], attn_mask=sdpa[3])),
+            bound_ms=bound_ms, bound_by=bound_by,
+            ctx_tokens=int(_prefill_limits(c).amax(1).sum()),
+            zero_rows=int((~seen).sum()) * spec["kh"] * spec["q_per_kv"],
+            t=spec["t"], q_per_kv=spec["q_per_kv"], d=spec["d"],
+            split_len=A.PREFILL_SPLIT_LEN,
+            splits=A.prefill_splits(spec["mb"], spec["bs"]))
+        del sdpa, c
+    return results
 
 
 # ------------------------------------------------------------------ flash
@@ -926,15 +1124,46 @@ class _Consumer(threading.Thread):
         self.first.set()
 
 
+def _prefill_dispatches(before: dict, after: dict) -> int:
+    """An engine's T > 1 dispatches between two stats(): prefill chunks
+    and speculative verify steps, each one K5 launch a layer where the
+    engine runs in bf16 at head dim 64, 128 or 256."""
+    return sum(after[k] - before[k] for k in ("prefill_steps",
+                                              "verify_steps"))
+
+
+def _check_prefill_launches(label, launches, dispatches, n_layers) -> None:
+    check(launches == dispatches * n_layers and launches > 0,
+          f"{label}: K5 launched {launches} times for {dispatches} prefill "
+          f"dispatches and verify steps x {n_layers} layers")
+
+
+def _drain_counted(label, eng, reqs, n_layers) -> tuple:
+    """`_drain` through a bf16 engine with K5's count set to 0 just
+    before and read just after, and held to the engine's T > 1
+    dispatches x n_layers.  Returns the handles and the launches."""
+    from ray_tpu_torch.ops import attention as A
+
+    before = eng.stats()
+    A.paged_prefill_attention.launches = 0
+    handles = _drain(eng, reqs)
+    launches = A.paged_prefill_attention.launches
+    _check_prefill_launches(label, launches,
+                            _prefill_dispatches(before, eng.stats()),
+                            n_layers)
+    return handles, launches
+
+
 def _serve(family: str, config_name: str, params=None, extra=(),
            **engine_kw) -> tuple:
     """Serve the 24 requests of `_serve_requests` (and `extra` ones in the
     first wave) through InferenceEngine(family, config_name, **engine_kw)
-    at 32 lanes, block 16, with the decode kernel's count set to 0 just
-    before and read just after; check every stream and the count (once
-    per layer per T=1 decode step: speculative verify steps take the
-    masked-dense path).  Returns the phase's metrics and each request's
-    tokens (first wave, `extra`, second wave)."""
+    at 32 lanes, block 16, with the decode and prefill kernels' counts
+    set to 0 just before and read just after; check every stream and the
+    counts: K4 once per layer per T=1 decode step, K5 once per layer per
+    prefill dispatch and per speculative verify step (T > 1).  Returns
+    the phase's metrics and each request's tokens (first wave, `extra`,
+    second wave)."""
     from ray_tpu_torch.inference import InferenceEngine
     from ray_tpu_torch.ops import attention as A
 
@@ -952,6 +1181,7 @@ def _serve(family: str, config_name: str, params=None, extra=(),
         first, second = _serve_requests(vocab)
 
         A.paged_decode_attention.launches = 0
+        A.paged_prefill_attention.launches = 0
         t_start = time.perf_counter()
 
         def submit(batch):
@@ -972,6 +1202,7 @@ def _serve(family: str, config_name: str, params=None, extra=(),
             check(not c.is_alive(), "a request did not finish")
         wall = time.perf_counter() - t_start
         launches = A.paged_decode_attention.launches
+        prefill_launches = A.paged_prefill_attention.launches
         after = eng.stats()
     finally:
         eng.shutdown()
@@ -992,6 +1223,9 @@ def _serve(family: str, config_name: str, params=None, extra=(),
           f"decode kernel launched {launches} times for {decode_steps} "
           f"decode steps x {n_layers} layers")
     check(launches > 0, "the decode kernel never ran")
+    prefill_steps = delta("prefill_steps")
+    _check_prefill_launches(config_name, prefill_launches,
+                            _prefill_dispatches(before, after), n_layers)
     check(hits >= 1, "no prefix-cache hit")
     generated = sum(len(c.tokens) for _, c in streams)
     ttfts = sorted(c.ttft for _, c in streams)
@@ -1004,9 +1238,8 @@ def _serve(family: str, config_name: str, params=None, extra=(),
         decode_tokens_per_s=decode_tokens / (decode_s + verify_s),
         decode_steps=decode_steps,
         decode_step_ms=decode_s / decode_steps * 1e3,
-        prefill_steps=delta("prefill_steps"),
-        prefill_step_ms=delta("prefill_seconds") / delta("prefill_steps")
-        * 1e3,
+        prefill_steps=prefill_steps,
+        prefill_step_ms=delta("prefill_seconds") / prefill_steps * 1e3,
         ttft_p50_ms=statistics.median(ttfts) * 1e3,
         ttft_max_ms=ttfts[-1] * 1e3,
         prefix_hits=hits,
@@ -1015,7 +1248,8 @@ def _serve(family: str, config_name: str, params=None, extra=(),
         finish_reasons={r: sum(c.handle.finish_reason == r
                                for _, c in streams)
                         for r in ("length", "eos")},
-        decode_kernel_launches=launches)
+        decode_kernel_launches=launches,
+        prefill_kernel_launches=prefill_launches)
     if engine_kw.get("spec_k"):
         out.update(verify_steps=verify_steps,
                    verify_step_ms=(verify_s / verify_steps * 1e3
@@ -1031,6 +1265,8 @@ def phase_serve(report: dict) -> None:
     out, _ = _serve("gpt", "gpt2-small")
     report["paged_decode_attention"]["launches"] = \
         out["decode_kernel_launches"]
+    report["paged_prefill_attention"]["gpt2_small_launches"] = \
+        out["prefill_kernel_launches"]
     emit("serve", **out)
 
 
@@ -1055,6 +1291,8 @@ def phase_serve_llama(report: dict) -> None:
         "prefill_step_ms")})
     report["paged_decode_attention"]["llama_1b"]["launches"] = \
         out["decode_kernel_launches"]
+    report["paged_prefill_attention"]["llama_1b"]["launches"] = \
+        out["prefill_kernel_launches"]
     emit("serve_llama", params_s=params_s,
          q_per_kv=llama.CONFIGS["llama-1b"].q_per_kv, **out)
 
@@ -1309,9 +1547,9 @@ def phase_llama_parity() -> None:
 # the plain path's logits there must be a near-tie: top-2 margin at most
 # this share of the row's largest |logit|, the bf16 bound the CPU tests
 # hold the port's cached logits to (test_torch_llama,
-# test_torch_gpt_cached).  The verify step's masked-dense attention and
-# K4 (or K1, for a draft) round differently in bf16, so a near-tie may
-# fall either way.
+# test_torch_gpt_cached).  The verify step's attention (K5) and K4 (or
+# K1, for a draft) round differently in bf16, so a near-tie may fall
+# either way.
 NEAR_TIE = 2e-2
 # capture_logp in f32 against log_softmax of a plain forward over the
 # same tokens: the same function of logits that agree to ~1e-6.
@@ -1430,7 +1668,8 @@ def phase_serve_spec(report: dict) -> None:
     """llama-1b at full width and depth with spec_k=4 and the n-gram
     proposer: serve's 24 requests plus 8 greedy ones whose prompts repeat
     a 16-token pattern four times.  K4 must have run 22 times per T=1
-    decode step; verify steps (T > 1) take the masked-dense path."""
+    decode step, K5 22 times per prefill dispatch and per verify step
+    (T > 1)."""
     import numpy as np
 
     from ray_tpu_torch.models import llama
@@ -1450,6 +1689,8 @@ def phase_serve_spec(report: dict) -> None:
     check(out["spec_steps"] > 0, "no verify step ran")
     report["paged_decode_attention"]["llama_1b"]["serve_spec"] = dict(
         launches=out["decode_kernel_launches"])
+    report["paged_prefill_attention"]["verify_t5"]["serve_spec"] = dict(
+        launches=out["prefill_kernel_launches"])
     emit("serve_spec", params_s=params_s, spec_k=SPEC_K, **out)
 
 
@@ -1500,7 +1741,7 @@ def phase_spec_parity() -> None:
     lparams = _llama_1b_params()
     prompt = tuple((101 * j + 7) % lconfig.vocab_size for j in range(24))
     kw = dict(max_new_tokens=48)
-    runs = {}
+    runs, launches = {}, {}
     for label, spec_kw in (("plain", {}), ("spec", None)):
         if spec_kw is None:
             spec_kw = dict(spec_k=SPEC_K,
@@ -1508,7 +1749,9 @@ def phase_spec_parity() -> None:
         eng = InferenceEngine("llama", lconfig, params=lparams,
                               device="cuda", max_lanes=4, block_size=16,
                               max_seq_len=256, auto_start=False, **spec_kw)
-        (h,) = _drain(eng, [(list(prompt), kw)])
+        (h,), launches[label] = _drain_counted(
+            f"spec_parity llama-1b {label}", eng, [(list(prompt), kw)],
+            lconfig.n_layers)
         runs[label] = h.tokens(timeout=60)
         stats[label] = eng.stats()
         del eng
@@ -1520,7 +1763,7 @@ def phase_spec_parity() -> None:
     emit("spec_parity_llama", config="llama-1b bf16", new_tokens=48,
          verify_steps=st["verify_steps"],
          spec_accepted_per_step=st["spec_accepted_per_step"],
-         near_tie_share=NEAR_TIE, **tie)
+         prefill_kernel_launches=launches, near_tie_share=NEAR_TIE, **tie)
     check(st["verify_steps"] > 0, "llama-1b: no verify step ran")
     del wparams
     torch.cuda.empty_cache()
@@ -1560,21 +1803,30 @@ def phase_spec_model_draft(report: dict) -> None:
              dict(max_new_tokens=48)) for _ in range(4)]
     kw = dict(device="cuda", max_lanes=4, block_size=16, max_seq_len=128,
               auto_start=False)
-    plain = [h.tokens(timeout=60) for h in _drain(
-        InferenceEngine("gpt", config, params=params, **kw), reqs)]
+    handles, plain_launches = _drain_counted(
+        "spec_model_draft plain", InferenceEngine("gpt", config,
+                                                   params=params, **kw),
+        reqs, config.n_layers)
+    plain = [h.tokens(timeout=60) for h in handles]
     draft = TimedDraft("gpt", config, params=params, window=64,
                        device="cuda")
     eng = InferenceEngine("gpt", config, params=params, spec_k=3,
                           draft_proposer=draft, **kw)
     torch.cuda.synchronize()
+    before = eng.stats()
     A.flash_forward.launches = 0
+    A.paged_prefill_attention.launches = 0
     draft.forwards = 0
     t0 = time.perf_counter()
     handles = _drain(eng, reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = A.flash_forward.launches
+    prefill_launches = A.paged_prefill_attention.launches
     st = eng.stats()
+    _check_prefill_launches("spec_model_draft", prefill_launches,
+                            _prefill_dispatches(before, st),
+                            config.n_layers)
     got = [h.tokens(timeout=60) for h in handles]
     check(launches > 0, "K1 never ran on the draft path")
     check(launches == draft.forwards * config.n_layers,
@@ -1594,6 +1846,8 @@ def phase_spec_model_draft(report: dict) -> None:
          propose_ms=draft.seconds / draft.calls * 1e3,
          forwards_per_propose=draft.forwards / draft.calls,
          flash_forward_launches=launches,
+         prefill_kernel_launches=dict(plain=plain_launches,
+                                      spec=prefill_launches),
          spec_drafted_tokens=st["spec_drafted_tokens"],
          spec_accepted_tokens=st["spec_accepted_tokens"],
          acceptance=acceptance,
@@ -1688,14 +1942,19 @@ def phase_logp() -> None:
 
     wparams = llama.working_params(lparams, lconfig, "cuda")
     out = {}
+    launches = {}
     eng = InferenceEngine("llama", lconfig, params=lparams, **kw)
-    plain = _streams(_drain(eng, reqs))
+    handles, launches["plain"] = _drain_counted("logp llama-1b plain", eng,
+                                                reqs, lconfig.n_layers)
+    plain = _streams(handles)
     del eng
     out["plain"] = _check_logps("llama-1b bf16 plain", llama, lconfig,
                                 wparams, reqs, plain, bf16_bound)
     eng = InferenceEngine("llama", lconfig, params=lparams, spec_k=SPEC_K,
                           draft_proposer=_oracle({greedy: plain[0][0]}), **kw)
-    spec = _streams(_drain(eng, reqs))
+    handles, launches["spec"] = _drain_counted("logp llama-1b spec", eng,
+                                               reqs, lconfig.n_layers)
+    spec = _streams(handles)
     st = eng.stats()
     del eng
     check(st["verify_steps"] > 0, "llama-1b: no verify step ran")
@@ -1705,7 +1964,8 @@ def phase_logp() -> None:
     torch.cuda.empty_cache()
     emit("logp_llama", config="llama-1b bf16",
          bound="2 * 2e-2 * max|logit| / temp",
-         verify_steps=st["verify_steps"], **out)
+         verify_steps=st["verify_steps"], prefill_kernel_launches=launches,
+         **out)
 
 
 # --------------------------------------------------------- disaggregation
@@ -1791,8 +2051,10 @@ def phase_serve_disagg(report: dict) -> None:
     hop, frame, decode hop).  Every frame is v2 bf16 and decodes; the
     decode side imports each distinct chain link once and hits >= 16
     tokens per imported block; K4 ran 22 times per decode step of the
-    decode engine and never for the prefill engine; each stream equals
-    serve_llama's for the request or parts from it at a near-tie."""
+    decode engine and never for the prefill engine; K5 22 times per
+    prefill dispatch of either engine (both run in this process, so one
+    count holds their sum); each stream equals serve_llama's for the
+    request or parts from it at a near-tie."""
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.ops import attention as A
     from ray_tpu_torch.serve import (DecodeLLMDeployment, KVBlockCodec,
@@ -1815,6 +2077,7 @@ def phase_serve_disagg(report: dict) -> None:
         first, second = _serve_requests(config.vocab_size)
 
         A.paged_decode_attention.launches = 0
+        A.paged_prefill_attention.launches = 0
         t_start = time.perf_counter()
         clients = [_DisaggClient(prefill, decode, p, k) for p, k in first]
         for c in clients:
@@ -1832,7 +2095,10 @@ def phase_serve_disagg(report: dict) -> None:
             check(c.error is None, f"a request failed: {c.error!r}")
         wall = time.perf_counter() - t_start
         launches = A.paged_decode_attention.launches
+        prefill_launches = A.paged_prefill_attention.launches
         after = {r: d.stats() for r, d in replicas.items()}
+        dispatches = {r: _prefill_dispatches(before[r], after[r])
+                      for r in replicas}
 
         def delta(role, key):
             return after[role][key] - before[role][key]
@@ -1881,6 +2147,10 @@ def phase_serve_disagg(report: dict) -> None:
               f"K4 launched {launches} times for {decode_steps} decode "
               f"steps x {config.n_layers} layers")
         check(launches > 0, "K4 never ran on the decode side")
+        _check_prefill_launches("serve_disagg", prefill_launches,
+                                sum(dispatches.values()), config.n_layers)
+        check(dispatches["prefill"] > 0, "the prefill replica never "
+                                         "dispatched a prefill chunk")
         # Each stream against serve_llama's stream of the same request.
         wparams = decode._engine._work_params
         ties = [_near_tie(f"serve_disagg request {i}", llama, config,
@@ -1895,6 +2165,8 @@ def phase_serve_disagg(report: dict) -> None:
     torch.cuda.empty_cache()
     report["paged_decode_attention"]["llama_1b"]["serve_disagg"] = dict(
         launches=launches)
+    report["paged_prefill_attention"]["llama_1b"]["serve_disagg"] = dict(
+        launches=prefill_launches, dispatches=dispatches)
     generated = sum(len(c.tokens) for c in clients)
     ttfts = sorted(c.ttft for c in clients)
     ttfts_decode = sorted(c.ttft_decode for c in clients)
@@ -1923,6 +2195,8 @@ def phase_serve_disagg(report: dict) -> None:
                 ("prefill_step_ms", delta(role, "prefill_seconds")
                  / delta(role, "prefill_steps") * 1e3))},
          decode_kernel_launches=launches,
+         prefill_kernel_launches=prefill_launches,
+         prefill_kernel_dispatches=dispatches,
          serve_llama={k: v for k, v in SERVE_LLAMA.items()
                       if k != "streams"},
          diverged=[t["diverged_at"] for t in ties],
@@ -2018,7 +2292,7 @@ def phase_kv_tier(report: dict) -> None:
     round one again.  Blocks spill and restore; the restored chains hold
     the bits exported before their eviction; the repeat's streams equal a
     tier-less engine's or part at a near-tie; K4 ran 22 times per decode
-    step.  Times each spill (the device -> host copy inside `alloc`) and
+    step and K5 22 times per prefill dispatch.  Times each spill (the device -> host copy inside `alloc`) and
     each restoring admission."""
     import numpy as np
 
@@ -2061,7 +2335,9 @@ def phase_kv_tier(report: dict) -> None:
 
         cache.allocator.on_evict, cache.adopt_prefix = timed_evict, timed_adopt
         A.paged_decode_attention.launches = 0
-        steps0 = eng.stats()["decode_steps"]
+        A.paged_prefill_attention.launches = 0
+        st0 = eng.stats()
+        steps0 = st0["decode_steps"]
         streams = [[h.tokens(timeout=60) for h in _drain(eng, rounds[0])]]
         snapshot = [eng.export_prefix(p) for p, _ in rounds[0]]
         for r in rounds[1:]:
@@ -2070,6 +2346,7 @@ def phase_kv_tier(report: dict) -> None:
         restored = [eng.export_prefix(p) for p, _ in rounds[0]]
         st = eng.stats()
         launches = A.paged_decode_attention.launches
+        prefill_launches = A.paged_prefill_attention.launches
         spill_files = len(os.listdir(spill_dir))
         eng.shutdown()
         del eng, cache
@@ -2081,6 +2358,8 @@ def phase_kv_tier(report: dict) -> None:
     check(launches == (st["decode_steps"] - steps0) * config.n_layers,
           f"K4 launched {launches} times for {st['decode_steps'] - steps0} "
           f"decode steps")
+    _check_prefill_launches("kv_tier", prefill_launches,
+                            _prefill_dispatches(st0, st), config.n_layers)
     check(st["kv_tier_spilled_blocks"] > 0 and st["restored_blocks"] > 0
           and st["kv_tier_dropped_blocks"] >= 0, f"tier counters {st}")
     plain = InferenceEngine("llama", config, params, **kw)
@@ -2104,7 +2383,8 @@ def phase_kv_tier(report: dict) -> None:
          restoring_admissions=len(restore_s), restored_bit_exact=exact,
          repeat_equals_round_one=repeat == streams[0],
          diverged=[t["diverged_at"] for t in ties],
-         decode_kernel_launches=launches)
+         decode_kernel_launches=launches,
+         prefill_kernel_launches=prefill_launches)
 
 
 # ------------------------------------------------------ training fabric
@@ -2475,7 +2755,8 @@ def phase_rl_rollout(report: dict) -> None:
     Two rollouts of RL_PROMPTS prompts x RL_NEW_TOKENS tokens with an
     adopt(1) of a second weight set between them, then an adopt
     mid-flight (after 5 steps of 32 lanes) that must keep every lane.
-    K4 must have run 22 times per decode step of the whole drive."""
+    K4 must have run 22 times per decode step of the whole drive, K5 22
+    times per prefill dispatch."""
     from ray_tpu_torch.models import convert, llama
     from ray_tpu_torch.ops import attention as A
     from ray_tpu_torch.rl import EngineRolloutActor
@@ -2505,6 +2786,7 @@ def phase_rl_rollout(report: dict) -> None:
         before = eng.stats()
         handles.clear()
         A.paged_decode_attention.launches = 0
+        A.paged_prefill_attention.launches = 0
         t0 = time.perf_counter()
         batch0, v0, m0 = actor.rollout(prompts, RL_NEW_TOKENS, seed=100)
         wall0 = time.perf_counter() - t0
@@ -2538,6 +2820,7 @@ def phase_rl_rollout(report: dict) -> None:
             pass
         torch.cuda.synchronize()
         launches = A.paged_decode_attention.launches
+        prefill_launches = A.paged_prefill_attention.launches
         after = eng.stats()
     finally:
         eng.shutdown()
@@ -2559,11 +2842,16 @@ def phase_rl_rollout(report: dict) -> None:
     check(launches == decode_steps * config.n_layers and launches > 0,
           f"K4 launched {launches} times for {decode_steps} decode steps x "
           f"{config.n_layers} layers")
+    _check_prefill_launches("rl_rollout", prefill_launches,
+                            _prefill_dispatches(before, after),
+                            config.n_layers)
     hit_tokens = delta("prefix_hit_tokens")
     check(hit_tokens >= RL_TEMPLATE, "no prefix-cache hit on the template")
     tokens = m0["tokens"] + m1["tokens"]
     report["paged_decode_attention"]["llama_1b"]["rl_rollout"] = dict(
         launches=launches)
+    report["paged_prefill_attention"]["llama_1b"]["rl_rollout"] = dict(
+        launches=prefill_launches)
     emit("rl_rollout", config="llama-1b", lanes=32, prompts=RL_PROMPTS,
          new_tokens=RL_NEW_TOKENS, batch=list(batch0["actions"].shape),
          rollout_tokens=tokens, rollout_wall_s=wall0 + wall1,
@@ -2581,7 +2869,8 @@ def phase_rl_rollout(report: dict) -> None:
          adopt_on_card_ms=adopt_on_card_ms,
          adopt_params=llama.num_params(config),
          prefix_hit_tokens=hit_tokens, versions=[v0, v1, 2],
-         mid_flight_lanes=active, decode_kernel_launches=launches)
+         mid_flight_lanes=active, decode_kernel_launches=launches,
+         prefill_kernel_launches=prefill_launches)
 
 
 RL_LEARNER_WARMUP, RL_LEARNER_STEPS = 3, 20

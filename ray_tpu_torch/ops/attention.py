@@ -15,10 +15,14 @@ block_size, kv_heads, head_dim]; each sequence owns a row of a block
 table mapping its logical context positions onto pool blocks
 (inference/kv_cache.py).  The decode step asks: one query per lane
 attends over that lane's block table.  At head dims 64, 128 and 256
-that step runs the hand-written Hopper kernel `csrc/paged_decode.cu`
+that step runs the hand-written Hopper kernel K4 `csrc/paged_decode.cu`
 (split-context: partials per context split, then a merge) on CUDA
-tensors; other head dims and multi-token prefill chunks run the
-masked-dense `paged_attention_reference`, as in the reference.
+tensors.  A multi-token call (prefill chunks, the speculative verify
+step) in bf16 at those head dims runs K5 `csrc/paged_prefill.cu`, which
+reads each lane's own visible context through its table on the tensor
+cores; the reference sends every such call to its masked-dense path,
+and so does the port for f32 calls and other head dims
+(`paged_attention_reference`).
 
 Dispatch follows the tensor, never the environment: a CPU tensor takes
 the kernel's plain PyTorch version, a CUDA tensor launches the kernel or
@@ -487,17 +491,22 @@ def _check_kernel_args(q, k_pool, v_pool, block_tables, ctx_lens) -> None:
             f"{tuple(ctx_lens.shape)}")
     if b > 65535:
         raise ValueError(f"paged_decode_attention: batch {b} > 65535")
+    _check_operands("paged_decode_attention", q, k_pool, v_pool,
+                    block_tables=block_tables, ctx_lens=ctx_lens)
+
+
+def _check_operands(fn, q, k_pool, v_pool, **rest) -> None:
+    """Raise unless every operand is on q's device and contiguous, and q
+    and the pools (read in 16-byte loads) are 16-byte aligned."""
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables), ("ctx_lens", ctx_lens)):
+                    *rest.items()):
         if t.device != q.device:
-            raise ValueError(f"paged_decode_attention: {name} is on "
-                             f"{t.device}, q on {q.device}")
+            raise ValueError(f"{fn}: {name} is on {t.device}, q on "
+                             f"{q.device}")
         if not t.is_contiguous():
-            raise ValueError(f"paged_decode_attention: {name} must be "
-                             f"contiguous")
+            raise ValueError(f"{fn}: {name} must be contiguous")
         if name in ("q", "k_pool", "v_pool") and t.data_ptr() % 16:
-            raise ValueError(f"paged_decode_attention: {name} must be "
-                             f"16-byte aligned")
+            raise ValueError(f"{fn}: {name} must be 16-byte aligned")
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
@@ -557,6 +566,132 @@ def _decode_launch(q, k_pool, v_pool, block_tables, ctx_lens, scale):
 paged_decode_attention.launches = 0
 
 
+# Context positions per split of the prefill kernel (K5).  As for K4,
+# the split count, ceil(max_blocks * block_size / PREFILL_SPLIT_LEN),
+# follows the table's width and never ctx_lens.  A split's partials are
+# T x q_per_kv rows where K4's are one, and every split past a lane's
+# context is a block that starts and exits, hence longer splits: at the
+# serve cell's prefill dispatch (H100) 512 took 0.129 ms a layer against
+# 0.141 at 256 and 0.134 at 1024.
+PREFILL_SPLIT_LEN = 512
+
+
+def prefill_splits(max_blocks: int, block_size: int,
+                   split_len: int = PREFILL_SPLIT_LEN) -> int:
+    """How many context splits of split_len positions the prefill kernel
+    runs per (lane, kv head) over a table of max_blocks blocks of
+    block_size positions; its C entry point counts them the same way
+    from the split_len it is given."""
+    return -(-max_blocks * block_size // split_len)
+
+
+@functools.cache
+def _prefill_kernel():
+    """K5's C entry point, built and bound on first use."""
+    from ray_tpu_torch.ops._build import load_library
+
+    fn = load_library("paged_prefill").paged_prefill_attention
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 9 + [i] * 8 + [ctypes.c_float, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_prefill_args(q, k_pool, v_pool, block_tables, ctx_lens,
+                        q_positions) -> None:
+    """Raise on any input K5 does not take."""
+    fn = "paged_prefill_attention"
+    if q.dim() != 4 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
+        raise ValueError(
+            f"{fn}: want q [B, T, H, D] and pools [NB, BS, KH, D]; got "
+            f"{tuple(q.shape)}, {tuple(k_pool.shape)}, "
+            f"{tuple(v_pool.shape)}")
+    b, t, h, d = q.shape
+    nb, bs, kh, pd = k_pool.shape
+    if not q.dtype == k_pool.dtype == v_pool.dtype == torch.bfloat16:
+        raise TypeError(f"{fn}: q and pools must be bfloat16; got "
+                        f"{q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
+    if d not in _KERNEL_HEAD_DIMS or pd != d:
+        raise ValueError(f"{fn}: head dim must be one of {_KERNEL_HEAD_DIMS} "
+                         f"and match the pool; got q {d}, pool {pd}")
+    if kh < 1 or h % kh:
+        raise ValueError(f"{fn}: {h} query heads are not a multiple of "
+                         f"{kh} kv heads")
+    if block_tables.dtype != torch.int32 or ctx_lens.dtype != torch.int32:
+        raise TypeError(f"{fn}: block_tables and ctx_lens must be int32")
+    if q_positions.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{fn}: q_positions must be int32 or int64; got "
+                        f"{q_positions.dtype}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b \
+            or tuple(ctx_lens.shape) != (b,) \
+            or tuple(q_positions.shape) != (b, t):
+        raise ValueError(
+            f"{fn}: want block_tables [{b}, MB], ctx_lens [{b}] and "
+            f"q_positions [{b}, {t}]; got {tuple(block_tables.shape)}, "
+            f"{tuple(ctx_lens.shape)}, {tuple(q_positions.shape)}")
+    if b > 65535 or b * t * h >= 2 ** 31 or nb * bs >= 2 ** 31 \
+            or prefill_splits(block_tables.shape[1], bs) > 65535:
+        raise ValueError(f"{fn}: batch {b} (at most 65535), rows "
+                         f"{b * t * h}, pool rows {nb * bs} or table width "
+                         f"{block_tables.shape[1] * bs} past the grid's "
+                         f"limits")
+    _check_operands(fn, q, k_pool, v_pool, block_tables=block_tables,
+                    ctx_lens=ctx_lens, q_positions=q_positions)
+
+
+def paged_prefill_attention(q, k_pool, v_pool, block_tables, ctx_lens,
+                            q_positions, *, scale: Optional[float] = None):
+    """Multi-token paged attention: q [B, T, H, D] at absolute
+    q_positions [B, T] over each lane's block table; the function of
+    `paged_attention_reference`.
+
+    On a CPU tensor this is `paged_attention_reference`.  On a CUDA
+    tensor it launches K5, `csrc/paged_prefill.cu` (bf16, D in
+    {64, 128, 256}, any q_per_kv), on the current stream, or raises; it
+    never falls back.  A query row that sees no key (ctx_len = 0, or a
+    position below 0) comes out as zeros on the kernel path, as K4's
+    ctx_len = 0 lane does, where the plain version averages the table.
+    `paged_prefill_attention.launches` counts calls that launched the
+    kernel (its split and merge passes count as one)."""
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pool, v_pool, block_tables,
+                                          ctx_lens, q_positions, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_prefill_attention: no kernel for device "
+                         f"{q.device}")
+    _check_prefill_args(q, k_pool, v_pool, block_tables, ctx_lens,
+                        q_positions)
+    b, t, h, d = q.shape
+    _nb, bs, kh, _ = k_pool.shape
+    mb = block_tables.shape[1]
+    n_splits = prefill_splits(mb, bs)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    positions = q_positions.to(torch.int64)
+    out = torch.empty_like(q)
+    # Freed on return, before the kernel runs: the caching allocator hands
+    # them out again only to work queued after it on the same stream.
+    part_ml = torch.empty(b * t * h, n_splits, 2, dtype=torch.float32,
+                          device=q.device)
+    part_acc = torch.empty(b * t * h, n_splits, d, dtype=torch.float32,
+                           device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _prefill_kernel()(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_tables.data_ptr(), ctx_lens.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), part_ml.data_ptr(),
+            part_acc.data_ptr(), b, t, h, kh, d, bs, mb, PREFILL_SPLIT_LEN,
+            float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"paged_prefill_attention: kernel launch failed "
+                           f"with cudaError_t {err}")
+    paged_prefill_attention.launches += 1
+    return out
+
+
+paged_prefill_attention.launches = 0
+
+
 def _use_paged_kernel(d: int) -> bool:
     """The reference's rule for the decode kernel: head dims 64, 128 and
     256.  A route by shape, as `_use_kernel` is for flash: other head
@@ -564,18 +699,30 @@ def _use_paged_kernel(d: int) -> bool:
     return d in _KERNEL_HEAD_DIMS
 
 
+def _use_prefill_kernel(q) -> bool:
+    """K5 takes bf16 at the decode kernel's head dims; f32 calls and
+    other head dims keep the masked-dense path, on any device."""
+    return q.dtype == torch.bfloat16 and _use_paged_kernel(q.shape[-1])
+
+
 def paged_attention(q, k_pool, v_pool, block_tables, ctx_lens, q_positions,
                     *, scale: Optional[float] = None):
     """Dispatch paged attention for a [B, T, H, D] query slice: the T=1
     decode step rides the single-query kernel path where the head dim
     allows (`_use_paged_kernel`), the masked-dense path at the query's
-    position ctx_len - 1 elsewhere, as the reference routes it;
-    multi-token prefill chunks ride the masked-dense path."""
+    position ctx_len - 1 elsewhere, as the reference routes it.  A
+    multi-token call (prefill chunk, verify step) rides K5 in bf16 at
+    those head dims (`_use_prefill_kernel`), the masked-dense path
+    otherwise."""
     if q.shape[1] == 1:
         if _use_paged_kernel(q.shape[-1]):
             return paged_decode_attention(
                 q[:, 0], k_pool, v_pool, block_tables, ctx_lens,
                 scale=scale)[:, None]
         q_positions = (ctx_lens - 1)[:, None]
+    elif _use_prefill_kernel(q):
+        return paged_prefill_attention(q.contiguous(), k_pool, v_pool,
+                                       block_tables, ctx_lens, q_positions,
+                                       scale=scale)
     return paged_attention_reference(q, k_pool, v_pool, block_tables,
                                      ctx_lens, q_positions, scale=scale)

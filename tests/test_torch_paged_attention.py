@@ -227,3 +227,167 @@ def test_kernel_argument_checks(bad, err):
     tattn._check_kernel_args(**_kernel_args())       # the good case passes
     with pytest.raises(err):
         tattn._check_kernel_args(**_kernel_args(**bad))
+
+
+# ---------------------------------------------------------------- K5
+
+# K5's lanes: a split boundary, a rider (ctx_len 1), a lane whose chunk
+# overhangs its prompt (positions past ctx_len), a full table and a
+# lane with no context (its rows see no key).
+PREFILL_CTX = [256, 1, 40, 512, 0]
+PREFILL_BS, PREFILL_MB = 16, 32                  # a table 512 positions wide
+
+
+def _prefill_case(seed, *, t, q_per_kv, d=64, kh=2):
+    b = len(PREFILL_CTX)
+    c = _case(seed, b=b, kh=kh, q_per_kv=q_per_kv, d=d, bs=PREFILL_BS,
+              mb=PREFILL_MB, nb=b * PREFILL_MB + 4, t=t)
+    ctx = np.asarray(PREFILL_CTX, np.int32)
+    pos = np.maximum(ctx[:, None] - t, 0) + np.arange(t)[None]
+    pos[2] += 8                                  # overhang: rows past ctx
+    args = dict(q=c["q"], k_pool=c["k_pool"], v_pool=c["v_pool"],
+                block_tables=c["tables"], ctx_lens=ctx,
+                q_positions=pos.astype(np.int64))
+    # bf16-representable values, as the kernel's inputs are.
+    return {k: _t(v).to(torch.bfloat16).float() if v.dtype == np.float32
+            else _t(v) for k, v in args.items()}
+
+
+def split_prefill(q, k_pool, v_pool, block_tables, ctx_lens, q_positions,
+                  split_len, keep_lo=True):
+    """K5's two passes written out in f32: per split, each row's partial
+    over the keys below its limit min(ctx_len, width, position + 1), P V
+    with P as bf16 hi + lo; then the merge of the splits each row's limit
+    reaches, in split order (zeros for a row that reaches none).  With
+    `keep_lo` False, P is rounded to bf16 alone."""
+    b, t, h, d = q.shape
+    _, bs, kh, _ = k_pool.shape
+    width = block_tables.shape[1] * bs
+    n_splits = tattn.prefill_splits(block_tables.shape[1], bs, split_len)
+    pad = n_splits * split_len - width
+
+    def ctx(pool):                                # [b, S * len, h, d]
+        x = pool[block_tables.long()].reshape(b, width, kh, d)
+        return torch.nn.functional.pad(x.repeat_interleave(h // kh, dim=2),
+                                       (0, 0, 0, 0, 0, pad))
+
+    k_ctx, v_ctx = ctx(k_pool), ctx(v_pool)
+    s = torch.einsum("bthd,bphd->bthp", q, k_ctx) * (d ** -0.5 / np.log(2))
+    lim = torch.minimum(ctx_lens.long().clamp(max=width)[:, None],
+                        q_positions + 1).clamp(min=0)          # [b, t]
+    vis = torch.arange(n_splits * split_len)[None, None] < lim[..., None]
+    s = s.masked_fill(~vis[:, :, None], -float("inf")).view(
+        b, t, h, n_splits, split_len)
+    m = s.amax(-1)
+    p = torch.exp2(s - torch.where(m == -float("inf"), 0, m)[..., None])
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float() if keep_lo else torch.zeros_like(p)
+    v = v_ctx.view(b, n_splits, split_len, h, d)
+    acc = torch.einsum("bthsl,bslhd->bthsd", hi + lo, v)
+    # The merge reads split s of a row iff s * split_len < its limit.
+    read = (torch.arange(n_splits) * split_len)[None, None] < lim[..., None]
+    read = read[:, :, None]                                    # [b, t, 1, S]
+    mx = torch.where(read, m, -float("inf")).amax(-1, keepdim=True)
+    w = torch.where(read, torch.exp2(m - mx), 0)
+    l_sum = (w * p.sum(-1)).sum(-1)
+    return (w[..., None] * acc).sum(-2) / l_sum.clamp_min(1e-30)[..., None]
+
+
+@pytest.mark.parametrize("split_len", [64, 256, tattn.PREFILL_SPLIT_LEN])
+@pytest.mark.parametrize("t,q_per_kv", [(8, 1), (5, 4), (3, 8)])
+def test_prefill_split_merge_matches_plain(t, q_per_kv, split_len):
+    """K5's arithmetic (csrc/paged_prefill.cu, held to the plain version
+    on the card by chip_smoke.py) against the plain version in f32: equal
+    within f32 rounding and P's hi + lo (2**-17 of P) on every row that
+    sees a key, zeros on the lane with no context.  P rounded to bf16
+    alone misses the same limit: the lo term is what keeps P at f32
+    accuracy."""
+    c = _prefill_case(6, t=t, q_per_kv=q_per_kv)
+    got = split_prefill(**c, split_len=split_len)
+    want = tattn.paged_attention_reference(**c)
+    seen = torch.tensor([n > 0 for n in PREFILL_CTX])
+    torch.testing.assert_close(got[seen], want[seen], atol=2e-5, rtol=2e-5)
+    assert not got[~seen].any()
+    rough = split_prefill(**c, split_len=split_len, keep_lo=False)
+    assert not torch.allclose(rough[seen], want[seen], atol=2e-5, rtol=2e-5)
+
+
+def test_prefill_split_count_follows_the_table_width():
+    assert tattn.PREFILL_SPLIT_LEN == 512
+    assert [tattn.prefill_splits(mb, 16) for mb in (1, 32, 33, 128)] == \
+        [1, 1, 2, 4]
+
+
+@pytest.mark.parametrize("t,q_per_kv", [(2, 1), (5, 4), (32, 1)])
+def test_prefill_wrapper_on_cpu_is_the_plain_version(t, q_per_kv):
+    """On CPU tensors the wrapper IS `paged_attention_reference`, bit for
+    bit in bf16, and no kernel ran."""
+    c = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+         for k, v in _prefill_case(7, t=t, q_per_kv=q_per_kv).items()}
+    before = tattn.paged_prefill_attention.launches
+    got = tattn.paged_prefill_attention(**c)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, tattn.paged_attention_reference(**c))
+    assert tattn.paged_prefill_attention.launches == before
+
+
+@pytest.mark.parametrize("d,dtype,kernel", [
+    (64, torch.bfloat16, True), (128, torch.bfloat16, True),
+    (256, torch.bfloat16, True), (64, torch.float32, False),
+    (16, torch.bfloat16, False)])
+def test_prefill_route_follows_dtype_and_head_dim(monkeypatch, d, dtype,
+                                                  kernel):
+    """A T > 1 call reaches K5's wrapper in bf16 at head dims 64, 128 and
+    256, where on a CUDA tensor it launches the kernel; f32 calls and
+    head dim 16 keep the masked-dense path.  The route reads the dtype
+    and the shape only, never the device, so a CPU call takes the route
+    a CUDA call takes (and the wrapper then runs the plain version)."""
+    calls = []
+    wrapper = tattn.paged_prefill_attention
+    monkeypatch.setattr(tattn, "paged_prefill_attention",
+                        lambda *a, **kw: calls.append(1) or wrapper(*a, **kw))
+    c = {k: v.to(dtype) if v.is_floating_point() else v
+         for k, v in _prefill_case(8, t=4, q_per_kv=2, d=d).items()}
+    got = tattn.paged_attention(*c.values())
+    assert torch.equal(got, tattn.paged_attention_reference(*c.values()))
+    assert len(calls) == kernel
+    assert tattn._use_prefill_kernel(c["q"]) == kernel
+
+
+def _prefill_args(**over):
+    bf = torch.bfloat16
+    args = dict(q=torch.zeros(2, 3, 4, 64, dtype=bf),
+                k_pool=torch.zeros(8, 16, 2, 64, dtype=bf),
+                v_pool=torch.zeros(8, 16, 2, 64, dtype=bf),
+                block_tables=torch.zeros(2, 4, dtype=torch.int32),
+                ctx_lens=torch.ones(2, dtype=torch.int32),
+                q_positions=torch.zeros(2, 3, dtype=torch.int64))
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("bad,err", [
+    (dict(q=torch.zeros(2, 3, 4, 64)), TypeError),                # f32
+    (dict(q=torch.zeros(2, 3, 4, 64, dtype=torch.float16)), TypeError),
+    (dict(q=torch.zeros(2, 3, 4, 32, dtype=torch.bfloat16),
+          k_pool=torch.zeros(8, 16, 2, 32, dtype=torch.bfloat16),
+          v_pool=torch.zeros(8, 16, 2, 32, dtype=torch.bfloat16)),
+     ValueError),                                                 # head dim
+    (dict(q=torch.zeros(2, 3, 3, 64, dtype=torch.bfloat16)), ValueError),
+    (dict(block_tables=torch.zeros(2, 4, dtype=torch.int64)), TypeError),
+    (dict(ctx_lens=torch.ones(2, dtype=torch.int64)), TypeError),
+    (dict(q_positions=torch.zeros(2, 3)), TypeError),
+    (dict(q_positions=torch.zeros(2, 4, dtype=torch.int64)), ValueError),
+    (dict(q=torch.zeros(2, 3, 64, 4, dtype=torch.bfloat16).transpose(2, 3)),
+     ValueError),                                                 # strided
+    (dict(ctx_lens=torch.ones(2, dtype=torch.int32, device="meta")),
+     ValueError),                                                 # device
+    # Contiguous, but 2 bytes off the 16-byte alignment of its loads.
+    (dict(k_pool=torch.zeros(8 * 16 * 2 * 64 + 1, dtype=torch.bfloat16)[1:]
+          .view(8, 16, 2, 64)), ValueError),
+])
+def test_prefill_kernel_argument_checks(bad, err):
+    """What K5 does not take is refused before any launch."""
+    tattn._check_prefill_args(**_prefill_args())     # the good case passes
+    with pytest.raises(err):
+        tattn._check_prefill_args(**_prefill_args(**bad))
