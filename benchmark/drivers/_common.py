@@ -1,5 +1,5 @@
-"""What the drivers share: the program's configuration object built from a
-configuration file, and a fence that waits for the device."""
+"""What the drivers share: the program's family and configuration object
+for a cell, and a fence that waits for the device."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import time
 
 import torch
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+from benchmark import harness
 
 
 def now() -> float:
@@ -21,14 +21,18 @@ def log(what: str, since: float) -> None:
           flush=True)
 
 
-def gpt_config(run: dict, **overrides):
-    """The program's `GPTConfig` from a configuration file's `run`
-    block (the fields of the port's GPT family, as run)."""
-    from ray_tpu_torch.models.gpt import GPTConfig
+def program(spec: dict, **overrides) -> tuple:
+    """(the port's family module, its configuration object) for the
+    cell: the family that `run.family` names, the object of that
+    family's configuration class with the fields that the reference's
+    `program_config` gives."""
+    from ray_tpu_torch.models import family
 
-    fields = {k: run[k] for k in ("vocab_size", "n_layers", "d_model",
-                                  "n_heads", "d_ff", "max_seq_len")}
-    return GPTConfig(dtype=DTYPES[run["dtype"]], **fields, **overrides)
+    fam = family(spec["config"]["run"]["family"])
+    fields = harness.reference(spec).program_config(
+        spec["config"]["run"], **overrides)
+    config_class = type(next(iter(fam.CONFIGS.values())))
+    return fam, config_class(**fields)
 
 
 class Fence:

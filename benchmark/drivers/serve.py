@@ -40,11 +40,11 @@ from typing import List
 import numpy as np
 import torch
 
+from benchmark import harness
 from benchmark import requests as traffic_gen
 from benchmark import trace, weights
 from benchmark.harness import BenchError
-from benchmark.drivers._common import free, gpt_config, log, memory_peak, now
-from benchmark.references import gpt2 as reference
+from benchmark.drivers._common import free, log, memory_peak, now, program
 
 _POLL_S = 0.0005
 
@@ -191,13 +191,14 @@ def run(spec: dict, seed: int, seconds: float, traced: bool, device,
     from ray_tpu_torch.inference.engine import InferenceEngine
 
     cfg, mix = spec["config"]["run"], spec["traffic"]
+    reference = harness.reference(spec)
     device = torch.device(device)
     eng = mix["engine"]
-    conf = gpt_config(cfg)
+    family, conf = program(spec)
     counters = _counting_observer()
     engine = InferenceEngine(
-        "gpt", conf, weights.draw_params(cfg, seed, device,
-                                         matmul_dtype=torch.bfloat16),
+        family, conf, reference.draw_params(cfg, seed, device,
+                                            matmul_dtype=torch.bfloat16),
         max_lanes=eng["max_lanes"], block_size=eng["block_size"],
         num_blocks=eng["num_blocks"], max_seq_len=eng["max_seq_len"],
         prefill_chunk=eng["prefill_chunk"], auto_start=False,
@@ -281,7 +282,7 @@ def run(spec: dict, seed: int, seconds: float, traced: bool, device,
     sample = [(r.prompt.tolist(), r.tokens)
               for r in check_sample(records, seed, mix["check_tokens"])]
     t_ref = now()
-    gaps = reference.served_gaps(cfg, seed, sample, device)
+    gaps = reference.served_gaps(cfg, seed, sample, device, "f32")
     log(f"reference over {len(sample)} requests", t_ref)
     # Fewer served tokens than the mix asks to compare is no check.
     enough = len(gaps) >= mix["check_tokens"]
@@ -332,3 +333,29 @@ def traced_span(ctx: dict):
     """(start, end) host seconds of the traced part of the window."""
     open_, end = _traced(ctx)
     return open_[0], end[0]
+
+
+def readings(spec: dict, seed: int, device, seconds: float,
+             control: bool) -> dict:
+    """The program's `served_gap` over a run of the mix for `seconds`
+    and, with `control`, the control's: at every served position of the
+    same sample, the gap of the token that the reference one precision
+    below the configuration's (fp8) puts first."""
+    out = run(spec, seed, seconds, False, device, time.perf_counter())
+    numbers = {"program": dict(out["checks"])}
+    if control:
+        low = harness.reference(spec).served_gaps(
+            spec["config"]["run"], seed, out["sample"], device, "fp8")
+        numbers["control"] = {"served_gap": max(low)}
+    return numbers
+
+
+def tiny(mix: dict) -> dict:
+    """The mix at the CPU tests' sizes: four lanes, short prompts and
+    outputs, blocks of a second."""
+    return dict(mix, engine=dict(mix["engine"], max_lanes=4, num_blocks=64,
+                                 max_seq_len=256),
+                block_seconds=1.0, block=16, requests=256, ramp_blocks=1,
+                trace_seconds=0.5, drain_seconds=120, check_tokens=32,
+                prompt_len=dict(median=48, sigma=0.5, min=16, max=112),
+                output_len=dict(median=8, sigma=0.7, min=2, max=32))

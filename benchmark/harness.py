@@ -8,6 +8,37 @@ configuration is `configs/<config>.json` (its `file` entry), the mix
 `limits/<workload>.json`, and each metric a reader
 `metrics/<metric>.py` with `read(ctx) -> float | None`.  So a cell, a
 mix, a configuration or a metric is added by adding files and entries.
+
+A configuration's `run` block is the model as run.  `run.family` names
+the port's model family (`ray_tpu_torch.models.family`: "gpt",
+"llama"), whose train step or serving engine the drivers build;
+`run.reference` names the family's plain reference,
+`references/<reference>.py` under the benchmark's root, loaded by path
+(`reference`), which gives everything else that is the family's:
+
+- `program_config(run, **overrides) -> dict`: the fields of the
+  family's configuration object as run (the driver builds the object;
+  the reference imports nothing of the program);
+- `draw_params(run, seed, device, matmul_dtype, keep=None)`: the
+  weights drawn from the seed (`weights.draw_params`);
+- `served_gaps(run, seed, sequences, device, precision)`: for each
+  (prompt, served tokens), every served token's gap below the best f32
+  logit at its position;
+- `train_readings(run, seed, batches, hp, device, **how)`: the plain
+  AdamW steps that a training cell's check follows
+  (`train_reference.readings`);
+- `train_flops(run, rows, length)`: the model FLOPs of a train step;
+- `tiny_run(run) -> run`: the run at the CPU tests' sizes.
+
+A driver, `drivers/<kind>.py`, gives:
+
+- `run(spec, seed, seconds, traced, device, t_start) -> dict`: one run
+  (the result's context for the readers, the checks, the counts, the
+  device's peak);
+- `readings(spec, seed, device, seconds, control) -> dict`: the numbers
+  that a limit is set from, the program's and, with `control`, the
+  control's and the faults' (`controls.py`);
+- `tiny(mix) -> mix`: the mix cut so that a run fits the CPU tests.
 """
 
 from __future__ import annotations
@@ -54,7 +85,7 @@ def load_json(path: Path) -> dict:
 
 def load_cell(workload: str, root: Path = ROOT) -> dict:
     """The cell's entry, its configuration, its traffic mix and its
-    limits, each from its own file."""
+    limits, each from its own file, and the root they were read from."""
     bench = load_json(root / "BENCHMARK.json")
     cells = {w["name"]: w for w in bench["workloads"]}
     if workload not in cells:
@@ -66,7 +97,27 @@ def load_cell(workload: str, root: Path = ROOT) -> dict:
                         / f"{cell['traffic']}.json")
     limits = load_json(root / "benchmark" / "limits" / f"{workload}.json")
     return {"bench": bench, "cell": cell, "config": config,
-            "traffic": traffic, "limits": limits}
+            "traffic": traffic, "limits": limits, "root": Path(root)}
+
+
+_references: Dict[Path, object] = {}
+
+
+def reference(spec: dict):
+    """The plain reference module that the cell's `run.reference` names,
+    `references/<name>.py` under the cell's root (loaded once a
+    path)."""
+    name = spec["config"]["run"]["reference"]
+    path = spec["root"] / "benchmark" / "references" / f"{name}.py"
+    if path not in _references:
+        if not path.exists():
+            raise BenchError(f"no reference {name!r} ({path})")
+        module_spec = importlib.util.spec_from_file_location(
+            f"benchmark_reference_{name}", path)
+        module = importlib.util.module_from_spec(module_spec)
+        module_spec.loader.exec_module(module)
+        _references[path] = module
+    return _references[path]
 
 
 def cell_metrics(bench: dict, workload: str, trace: bool) -> List[dict]:

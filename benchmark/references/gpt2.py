@@ -1,4 +1,7 @@
-"""Plain PyTorch reference of the GPT-2 architecture, in float32.
+"""Plain PyTorch reference of the GPT-2 architecture, in float32, and
+the GPT family's side of the benchmark's family contract (the module
+docstring of `benchmark/harness.py`): the program's configuration
+fields, the weights' layout, the CPU tests' sizes.
 
 It follows the published GPT-2 block: pre-LayerNorm (eps 1e-5),
 multi-head causal self-attention with a softmax over q.k / sqrt(head
@@ -13,26 +16,29 @@ float32.  It imports nothing of the program.
 projections, the MLP's two, the head, and attention's Q.K and P.V)
 takes its operands rounded to float8 e4m3 (a per-tensor scale mapping
 the largest |value| to 448) in the forward; everything else stays f32.
+
+The weights' layout is the port's GPT family's stacked one: the layers
+on a leading dim, `wq/wk/wv [n, d, h, dh]`, `wo [n, h, dh, d]`, `w_up
+[n, d, f]`, `w_down [n, f, d]`, a tied embedding.  The scales are
+GPT-2's published init: N(0, 0.02) for every matrix and the token
+table, 0.02 / sqrt(2 n) for the residual projections (wo, w_down),
+N(0, 0.01) for the position table, LayerNorm scale 1 and bias 0.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from benchmark import weights
+from benchmark import flops, train_reference, weights
+from benchmark.train_reference import configure
 
 FP8_MAX = 448.0
-
-
-def configure() -> None:
-    """Every float32 product in float32 (no TF32)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def _fp8(x: torch.Tensor) -> torch.Tensor:
@@ -78,6 +84,8 @@ def block(x, p: dict, precision: str = "f32"):
 
 
 def _layer(params: dict, i: int) -> dict:
+    """Layer i's leaves (a stacked leaf is a tensor [layers, ...] or the
+    list of its layers)."""
     return {k: v[i] for k, v in params["blocks"].items()}
 
 
@@ -86,7 +94,7 @@ def hidden(params: dict, tokens: torch.Tensor, precision: str = "f32",
     """tokens [B, L] -> final-normed hidden states [B, L, D] f32."""
     l = tokens.shape[1]
     x = params["tok_embed"][tokens] + params["pos_embed"][:l][None]
-    for i in range(params["blocks"]["wq"].shape[0]):
+    for i in range(len(params["blocks"]["wq"])):
         if checkpoint:
             x = torch.utils.checkpoint.checkpoint(
                 block, x, _layer(params, i), precision, use_reentrant=False)
@@ -99,14 +107,69 @@ def logits(params: dict, x: torch.Tensor, precision: str = "f32"):
     return _mm(x, params["tok_embed"].T, precision)
 
 
-def f32_params(cfg: dict, seed: int, device, matmul_dtype=torch.float32,
+# The family contract.
+
+TINY = dict(vocab_size=512, n_layers=2, d_model=128, n_heads=2, d_ff=256,
+            max_seq_len=256)
+
+PROGRAM_FIELDS = ("vocab_size", "n_layers", "d_model", "n_heads", "d_ff",
+                  "max_seq_len")
+
+MATMUL_LEAVES = ("tok_embed", "pos_embed", "blocks/wq", "blocks/wk",
+                 "blocks/wv", "blocks/wo", "blocks/w_up", "blocks/w_down")
+
+
+def program_config(run: dict, **overrides) -> dict:
+    """The fields of the port's GPT configuration for a configuration
+    file's `run` block, as run (the driver builds the object; nothing
+    here imports the program)."""
+    return dict({k: run[k] for k in PROGRAM_FIELDS},
+                dtype=getattr(torch, run["dtype"]), **overrides)
+
+
+def tiny_run(run: dict) -> dict:
+    """`run` at the CPU tests' sizes."""
+    return dict(run, **TINY)
+
+
+def leaf_specs(run: dict) -> weights.LeafSpecs:
+    """{path: (shape, std)}, in the draw order."""
+    n, d, h, f = run["n_layers"], run["d_model"], run["n_heads"], run["d_ff"]
+    dh = d // h
+    resid = 0.02 / math.sqrt(2 * n)
+    return {
+        "blocks/ln1_scale": ((n, d), None), "blocks/ln1_bias": ((n, d), None),
+        "blocks/wq": ((n, d, h, dh), 0.02), "blocks/wk": ((n, d, h, dh), 0.02),
+        "blocks/wv": ((n, d, h, dh), 0.02), "blocks/wo": ((n, h, dh, d), resid),
+        "blocks/ln2_scale": ((n, d), None), "blocks/ln2_bias": ((n, d), None),
+        "blocks/w_up": ((n, d, f), 0.02), "blocks/w_down": ((n, f, d), resid),
+        "tok_embed": ((run["vocab_size"], d), 0.02),
+        "pos_embed": ((run["max_seq_len"], d), 0.01),
+        "final_ln_scale": ((d,), None), "final_ln_bias": ((d,), None),
+    }
+
+
+def draw_params(run: dict, seed: int, device, matmul_dtype=torch.float32,
+                keep: Optional[Callable] = None) -> dict:
+    """The run's weights drawn from the seed (`weights.draw_params`):
+    matrices and tables in `matmul_dtype`, LayerNorm leaves f32."""
+    return weights.draw_params(leaf_specs(run), MATMUL_LEAVES, seed, device,
+                               matmul_dtype=matmul_dtype, keep=keep)
+
+
+def train_flops(run: dict, rows: int, length: int) -> float:
+    """Model FLOPs of one training step (`flops.train_step_flops`)."""
+    return flops.train_step_flops(run, rows, length)
+
+
+def f32_params(run: dict, seed: int, device, matmul_dtype=torch.float32,
                requires_grad: bool = False) -> dict:
     """The run's weights, drawn from the seed as the benchmark hands them
     to the program (matrix leaves in `matmul_dtype`), held in f32."""
     def keep(path, t):
         return t.float().requires_grad_(requires_grad)
-    return weights.draw_params(cfg, seed, device, matmul_dtype=matmul_dtype,
-                               keep=keep)
+    return draw_params(run, seed, device, matmul_dtype=matmul_dtype,
+                       keep=keep)
 
 
 def _leaves(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -119,13 +182,15 @@ def _leaves(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 
 def loss_and_grads(params: dict, tokens: torch.Tensor, precision: str,
-                   rows_per_pass: int) -> float:
+                   rows_per_pass: int, n_targets: int = None) -> float:
     """Next-token cross-entropy over tokens [B, L] (the last position
-    predicts nothing), the mean over B x (L - 1) targets, its gradient
-    accumulated into each leaf's .grad, `rows_per_pass` rows at a time
-    with each block recomputed in the backward, so that it fits."""
+    predicts nothing), summed and divided by `n_targets` (default B x
+    (L - 1), the mean), its gradient accumulated into each leaf's .grad,
+    `rows_per_pass` rows at a time with each block recomputed in the
+    backward, so that it fits."""
     b, l = tokens.shape
-    n_targets = b * (l - 1)
+    if n_targets is None:
+        n_targets = b * (l - 1)
     total = 0.0
     for r in range(0, b, rows_per_pass):
         rows = tokens[r:r + rows_per_pass]
@@ -138,91 +203,17 @@ def loss_and_grads(params: dict, tokens: torch.Tensor, precision: str,
     return total
 
 
-# The change after the checked steps is compared on the elements whose
-# f32 first gradient is at least this share of the root mean square of
-# its leaf's (of its layer's, in a stacked leaf): AdamW scales each
-# element's step by that element's own gradient, so an element whose
-# gradient lies at the rounding noise of a bf16 backward takes a
-# full-size step whose sign the rounding decides.
-CHANGE_KEEP = 0.1
+def train_readings(run: dict, seed: int, batches: List[torch.Tensor],
+                   hp: dict, device, **how) -> dict:
+    """`train_reference.readings` on this family's weights and loss: the
+    plain AdamW steps from the run's weights, one on each of `batches`
+    (`how`: precision, rows_per_pass, judged, keep, kept_by, parts)."""
+    return train_reference.readings(
+        functools.partial(draw_params, run, seed), loss_and_grads,
+        batches, hp, device, **how)
 
 
-def change_kept(g: torch.Tensor, stacked: bool) -> torch.Tensor:
-    """The elements of a leaf whose change is compared, by its first
-    gradient `g` (a stacked leaf: [layers, ...], by layer)."""
-    dims = tuple(range(1 if stacked else 0, g.dim()))
-    rms = g.square().mean(dim=dims, keepdim=True).sqrt() if dims else g.abs()
-    return g.abs() >= CHANGE_KEEP * rms
-
-
-def train_readings(cfg: dict, seed: int, batches: List[torch.Tensor],
-                   hp: dict, device, precision: str = "f32",
-                   rows_per_pass: int = 1, judged: dict = None,
-                   keep: bool = False, kept_by: dict = None) -> dict:
-    """AdamW steps from the run's weights, one on each of `batches`,
-    with AdamW written out (decoupled decay, bias-corrected moments, eps
-    outside the root).  Returns each step's loss, and by leaf path the
-    norm of the first gradient, of the parameter's change after the
-    last step, and of that change on the elements kept by
-    `change_kept` ("change_kept_norms"), the elements chosen by the
-    first gradients of `kept_by` (host tensors by leaf path) or, by
-    default, by this side's own.  `judged` (another side's
-    "first_grads" and "changes", host tensors by leaf path) adds the
-    norms of their differences from these ("grad_diff_norms", and
-    "change_diff_norms" on the kept elements); `keep` returns this
-    side's own, copied to the host."""
-    configure()
-    params = f32_params(cfg, seed, device, requires_grad=True)
-    flat = _leaves(params)
-    m = {k: torch.zeros_like(v) for k, v in flat.items()}
-    v2 = {k: torch.zeros_like(v) for k, v in flat.items()}
-    kept = {}
-    b1, b2, lr, eps, wd = hp["b1"], hp["b2"], hp["lr"], hp["eps"], hp["wd"]
-    out = {"losses": [], "grad_norms": {}, "change_norms": {},
-           "change_kept_norms": {}}
-    if judged is not None:
-        out.update(grad_diff_norms={}, change_diff_norms={})
-    if keep:
-        out.update(first_grads={}, changes={})
-    for step, tokens in enumerate(batches, start=1):
-        out["losses"].append(loss_and_grads(params, tokens, precision,
-                                            rows_per_pass))
-        with torch.no_grad():
-            for k, p in flat.items():
-                g = p.grad
-                if step == 1:
-                    out["grad_norms"][k] = float(g.norm())
-                    if judged is not None:
-                        out["grad_diff_norms"][k] = float(
-                            (judged["first_grads"][k].to(device) - g).norm())
-                    if keep:
-                        out["first_grads"][k] = g.cpu()
-                    by = g if kept_by is None else kept_by[k].to(device)
-                    kept[k] = change_kept(by, k.startswith("blocks/"))
-                    del by
-                p.mul_(1 - lr * wd)
-                m[k].mul_(b1).add_(g, alpha=1 - b1)
-                v2[k].mul_(b2).addcmul_(g, g, value=1 - b2)
-                mhat = m[k] / (1 - b1 ** step)
-                vhat = v2[k] / (1 - b2 ** step)
-                p.sub_(lr * mhat / (vhat.sqrt() + eps))
-                p.grad = None
-    del m, v2
-    with torch.no_grad():
-        for k, p in flat.items():
-            change = p - weights.draw_leaf(cfg, seed, k, device)
-            out["change_norms"][k] = float(change.norm())
-            out["change_kept_norms"][k] = float(change[kept[k]].norm())
-            if judged is not None:
-                out["change_diff_norms"][k] = float(
-                    (judged["changes"][k].to(device) - change)[kept[k]]
-                    .norm())
-            if keep:
-                out["changes"][k] = change.cpu()
-    return out
-
-
-def served_gaps(cfg: dict, seed: int, sequences: List[tuple], device,
+def served_gaps(run: dict, seed: int, sequences: List[tuple], device,
                 precision: str = "f32") -> List[float]:
     """For each (prompt, served tokens): the f32 reference runs once over
     prompt + served tokens, and each served token's gap is the f32 best
@@ -231,7 +222,7 @@ def served_gaps(cfg: dict, seed: int, sequences: List[tuple], device,
     one that the fp8 forward puts first at that position (the control),
     not the served one.  Returns the gaps of all served positions."""
     configure()
-    params = f32_params(cfg, seed, device, matmul_dtype=torch.bfloat16)
+    params = f32_params(run, seed, device, matmul_dtype=torch.bfloat16)
     gaps: List[float] = []
     with torch.no_grad():
         for prompt, served in sequences:

@@ -25,9 +25,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from benchmark import harness  # noqa: E402
 
 
-def device_info(count: int, peak: int) -> dict:
+def device_info(count: int, peak: int, kind: str = None) -> dict:
+    """The result's `device`: `kind` is the card's name as the driver's
+    ranks read it (a driver over several ranks leaves the cards to
+    them), else card 0's."""
     import torch
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+    return {"platform": "gpu",
+            "kind": kind or torch.cuda.get_device_name(0),
             "count": count, "memory_peak_bytes": peak}
 
 
@@ -53,7 +57,8 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     result = {"correct": harness.judge(checks),
               "attempted": out["attempted"], "failed": out["failed"],
               "metrics": metrics,
-              "device": (device_info(chips, out["memory_peak_bytes"])
+              "device": (device_info(chips, out["memory_peak_bytes"],
+                                     out.get("device_kind"))
                          if device == "cuda" else
                          {"platform": "cpu", "kind": "cpu", "count": 0,
                           "memory_peak_bytes": 0})}

@@ -1,19 +1,30 @@
 """Fixtures of the benchmark's tests: a tiny copy of the benchmark (the
-cells' files with every size cut so that a run fits the CPU), and the
-`chip` marker of the tests that need a CUDA card."""
+cells' files with every size cut so that a run fits the CPU, each by its
+family's reference and its mix's driver), and the `chip` marker of the
+tests that need a CUDA card.
+
+The tests' runs keep to `THREADS` of torch's CPU threads, and so do the
+processes they start: the tiny serve cell's window is a second of wall
+clock, and torch's default of a thread a core, on a host whose cores
+other processes also use, stalls every operation on its slowest thread
+(with six busy processes on eight cores, a window and its drain took
+50 s at eight threads and 1.2 s at two)."""
 
 import json
+import os
 import shutil
 import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
-TINY_MODEL = dict(vocab_size=512, n_layers=2, d_model=128, n_heads=2,
-                  d_ff=256, max_seq_len=256)
+THREADS = 2
+os.environ["OMP_NUM_THREADS"] = str(THREADS)
+torch.set_num_threads(THREADS)
 
 
 def pytest_configure(config):
@@ -22,32 +33,25 @@ def pytest_configure(config):
 
 
 def make_tiny_root(dest: Path) -> Path:
-    """A copy of BENCHMARK.json and the benchmark's data files, every
-    configuration at TINY_MODEL's sizes and every mix cut to match."""
+    """A copy of BENCHMARK.json and the benchmark's data files and
+    references, every configuration at its reference's `tiny_run` sizes
+    and every mix cut by its driver's `tiny`."""
+    from benchmark import harness
+
     src = ROOT / "benchmark"
-    for d in ("traffic", "limits", "configs", "metrics"):
+    for d in ("traffic", "limits", "configs", "metrics", "references"):
         shutil.copytree(src / d, dest / "benchmark" / d)
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     for c in bench["configs"]:
         path = dest / c["file"]
         cfg = json.loads(path.read_text())
-        cfg["run"].update(TINY_MODEL)
-        cfg["vocab_published"] = 500
+        ref = harness.reference({"config": cfg, "root": dest})
+        cfg["run"] = ref.tiny_run(cfg["run"])
+        cfg["vocab_published"] = cfg["run"]["vocab_size"] - 12
         path.write_text(json.dumps(cfg))
     for path in (dest / "benchmark" / "traffic").glob("*.json"):
         mix = json.loads(path.read_text())
-        if mix["kind"] == "train":
-            mix.update(rows=4, length=64, trace_seconds=0.5)
-        else:
-            mix["engine"].update(max_lanes=4, num_blocks=64,
-                                 max_seq_len=256)
-            mix.update(block_seconds=1.0, block=16, requests=256,
-                       ramp_blocks=1, trace_seconds=0.5,
-                       drain_seconds=120, check_tokens=32,
-                       prompt_len=dict(median=48, sigma=0.5, min=16,
-                                       max=112),
-                       output_len=dict(median=8, sigma=0.7, min=2, max=32))
-        path.write_text(json.dumps(mix))
+        path.write_text(json.dumps(harness.driver(mix["kind"]).tiny(mix)))
     (dest / "BENCHMARK.json").write_text(json.dumps(bench))
     return dest
 

@@ -1,8 +1,10 @@
 """The controls on the card, at each cell's own size: the program's
 numbers within their limits, the control's (the reference in fp8 put in
-the program's place) and a training cell's half-batch fault beyond at
-least one.  Marked `chip`; without a CUDA card they skip.  Run them on
-the card with `python -m pytest benchmark/tests -m chip`."""
+the program's place) and a training cell's faults (half of the batch, a
+state left unchanged, and over several cards the gradients' exchange
+left out) beyond at least one.  Marked `chip`; without as many CUDA
+cards as a cell asks for, its test skips.  Run them on the card with
+`python -m pytest benchmark/tests -m chip`."""
 
 import json
 
@@ -19,13 +21,14 @@ def _fails(readings: dict, limits: dict) -> bool:
 
 
 @pytest.mark.chip
-@pytest.mark.parametrize("workload",
-                         [w["name"] for w in BENCH["workloads"]])
-def test_controls_on_the_card(workload):
+@pytest.mark.parametrize("cell", BENCH["workloads"],
+                         ids=[w["name"] for w in BENCH["workloads"]])
+def test_controls_on_the_card(cell):
     import torch
 
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+    workload = cell["name"]
+    if torch.cuda.device_count() < cell["chips"]:
+        pytest.skip(f"needs {cell['chips']} CUDA card(s)")
     from benchmark import controls
 
     limits = json.loads(
@@ -34,5 +37,6 @@ def test_controls_on_the_card(workload):
                             seconds=BENCH["run_seconds"])
     assert not _fails(got["program"], limits), got
     assert _fails(got["control"], limits), got
-    if "half_batch" in got:
-        assert _fails(got["half_batch"], limits), got
+    for fault in ("half_batch", "unchanged", "no_exchange"):
+        if fault in got:
+            assert _fails(got[fault], limits), (fault, got)

@@ -2,14 +2,18 @@
 have, planted under a whole run of the tiny cells on the CPU (the look
 for a card skipped): a step that returns its state unchanged, half of
 the batch left out with the mean over the rest, a token altered where
-it is produced.  The cells run on one card, so no exchange between
-chips can be left out."""
+it is produced, and, in the cell over four ranks, the exchange between
+them left out (each rank's gradient shard its own rows' alone).  The
+four-rank cell's ranks are spawned processes, so its faults are planted
+in each rank by a first call of a gang made for the test
+(`_plant`)."""
 
 import pytest
 import torch
 
 TRAIN = "gpt2-xl.train-1k"
 SERVE = "cerebras-gpt-6.7b.serve-longprompt"
+FSDP = "cerebras-gpt-6.7b.fsdp4-train-2k"
 
 
 def _correct(root, workload):
@@ -58,3 +62,45 @@ def test_token_altered_where_produced(tiny_root, monkeypatch):
     monkeypatch.setattr(InferenceEngine, "_run_step", altered)
     correct, got = _correct(tiny_root, SERVE)
     assert not correct, got
+
+
+def _plant(rank, world, state, fault):
+    """Plant `fault` in this rank's program (for the rest of its life)."""
+    import torch.distributed as dist
+    from ray_tpu_torch.models import _functional, gpt
+    from ray_tpu_torch.parallel import collectives
+
+    if fault == "unchanged":
+        _functional.ShardedAdamW.step = lambda self: None
+    elif fault == "half_batch":
+        loss_fn = gpt.loss_fn
+
+        def half(params, batch, config, mesh=None):
+            rows = batch["tokens"].shape[0] // 2
+            return loss_fn(params, {"tokens": batch["tokens"][:rows]},
+                           config, mesh)
+
+        gpt.loss_fn = half
+    elif fault == "no_exchange":
+        def own_chunk(ctx, g):
+            n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+            return g.chunk(n, ctx.dim)[r].contiguous(), None, None, None
+
+        collectives._AllGather.backward = staticmethod(own_chunk)
+
+
+@pytest.mark.parametrize("fault", ["unchanged", "half_batch",
+                                   "no_exchange"])
+def test_fsdp_faults(tiny_root, monkeypatch, fault):
+    from ray_tpu_torch.parallel import launch
+
+    class Planted(launch.RankGang):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.call(_plant, fault)
+
+    monkeypatch.setattr(launch, "RankGang", Planted)
+    correct, got = _correct(tiny_root, FSDP)
+    assert not correct, got
+    if fault == "unchanged":
+        assert got["change_gap"] == pytest.approx(1.0)

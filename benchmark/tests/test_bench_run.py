@@ -1,5 +1,6 @@
 """Whole runs of the tiny cells on the CPU: the result line's keys, a
-cell added as data alone, the refusals (no card, forbidden modules)."""
+cell added as data alone, the refusals (no card, forbidden modules, in
+this process or in a rank of the four-rank cell)."""
 
 import json
 import math
@@ -107,6 +108,29 @@ def test_a_run_loads_no_forbidden_module(tiny_root):
                          text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def _plant_jax(rank, world, state):
+    """A stand-in `jax` in rank 2's modules, for the rest of its life."""
+    import types
+    if rank == 2:
+        sys.modules["jax"] = types.ModuleType("jax")
+
+
+def test_a_rank_that_loads_jax_gives_no_result(tiny_root, monkeypatch):
+    """The four-rank cell's program runs in its ranks, whose modules this
+    process's `sys.modules` cannot show: one that a rank has loaded
+    fails the run, naming the rank and the module."""
+    from ray_tpu_torch.parallel import launch
+
+    class Planted(launch.RankGang):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.call(_plant_jax)
+
+    monkeypatch.setattr(launch, "RankGang", Planted)
+    with pytest.raises(harness.BenchError, match="rank 2: jax$"):
+        _run(tiny_root, "cerebras-gpt-6.7b.fsdp4-train-2k", False)
 
 
 def test_arrival_clock_stands_while_the_profiler_starts(tiny_root,

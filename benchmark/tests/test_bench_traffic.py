@@ -49,15 +49,17 @@ def test_lengths_within_the_mix():
 
 
 def test_weights_and_batches_from_the_seed():
+    from benchmark.references import gpt2
+
     cfg = dict(vocab_size=64, n_layers=2, d_model=16, n_heads=2, d_ff=32,
                max_seq_len=32)
-    a = weights.draw_params(cfg, 2 ** 40 + 3, "cpu")
-    b = weights.draw_params(cfg, 2 ** 40 + 3, "cpu")
-    c = weights.draw_params(cfg, 2 ** 40 + 4, "cpu")
+    a = gpt2.draw_params(cfg, 2 ** 40 + 3, "cpu")
+    b = gpt2.draw_params(cfg, 2 ** 40 + 3, "cpu")
+    c = gpt2.draw_params(cfg, 2 ** 40 + 4, "cpu")
     assert a["blocks"]["wq"].equal(b["blocks"]["wq"])
     assert not a["blocks"]["wq"].equal(c["blocks"]["wq"])
-    assert weights.draw_leaf(cfg, 2 ** 40 + 3, "tok_embed", "cpu").equal(
-        a["tok_embed"])
+    assert weights.draw_leaf(gpt2.leaf_specs(cfg), 2 ** 40 + 3, "tok_embed",
+                             "cpu").equal(a["tok_embed"])
     t1 = weights.token_batch(9, 1, 2, 8, 60, "cpu")
     assert t1.equal(weights.token_batch(9, 1, 2, 8, 60, "cpu"))
     assert not t1.equal(weights.token_batch(9, 2, 2, 8, 60, "cpu"))

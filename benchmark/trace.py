@@ -66,6 +66,33 @@ class Trace:
             merged = [s, e]
         return total + (merged[1] - merged[0] if merged else 0.0)
 
+    def alone_s(self, *names: str) -> float:
+        """Seconds in which an interval named by any of `names` runs and
+        no other device interval does."""
+        def union(evs):
+            merged: List[List[float]] = []
+            for s, e, _ in sorted(evs):
+                if merged and s <= merged[-1][1]:
+                    merged[-1][1] = max(merged[-1][1], e)
+                else:
+                    merged.append([s, e])
+            return merged
+
+        named = self.kernels(*names)
+        skip = set(named)
+        others = union([ev for ev in self.device if ev not in skip])
+        total, j = 0.0, 0
+        for s, e in union(named):
+            alone = e - s
+            while j < len(others) and others[j][1] <= s:
+                j += 1
+            k = j
+            while k < len(others) and others[k][0] < e:
+                alone -= min(e, others[k][1]) - max(s, others[k][0])
+                k += 1
+            total += alone
+        return total
+
     def idle_gaps(self) -> List[Tuple[float, float]]:
         gaps, cursor = [], self.start
         for s, e in self.union():
