@@ -36,7 +36,17 @@ run with a nonzero exit code and no result line:
            one lane at the full 2048 and 23 riders at ctx_len 1), llama-1b's
            (q_per_kv 8 of 64, 256 query rows a kv head, a lane with no
            context, whose rows must be zeros), a speculative verify step at
-           T 5, q_per_kv 4 at head dim 128 and head dim 256.
+           T 5, q_per_kv 4 at head dim 128 and head dim 256.  K4 and K5
+           with a sliding window as well: Mellum's window layers (32 query
+           heads over 4 kv heads of 128, window 1024; K4 over contexts up
+           to 4096 in bf16 and f32, K5 at its chunk of 240) and a window
+           that is no multiple of a split (200 in K4, 100 in K5).  Then
+           Mellum's expert layer at its published widths (64 experts of
+           896 over 2304, top 8): the grouped products against the plain
+           loop over the experts on the same routing, a decode step of 32
+           tokens and a prefill dispatch with masked slots, which must get
+           no expert work; timed beside their bound.  The seconds of the
+           window and expert cases are reported (window_and_expert_s).
   flash    the flash-attention kernels K1 (forward), K2 (dq) and K3
            (dk, dv) against their plain versions at the train shape
            (B 24, L 1024, 12 heads of 64, causal; bf16 and f32), at the
@@ -423,7 +433,7 @@ def check(cond: bool, what: str) -> None:
 # ---------------------------------------------------------------- kernels
 
 def _decode_case(gen, *, b, kh, q_per_kv, d, bs, max_ctx, dtype,
-                 ctx=None):
+                 ctx=None, window=None):
     h = kh * q_per_kv
     mb = max_ctx // bs
     nb = b * mb + 8
@@ -437,10 +447,13 @@ def _decode_case(gen, *, b, kh, q_per_kv, d, bs, max_ctx, dtype,
     def rand(*shape):
         return torch.randn(*shape, generator=gen).to(dtype).cuda()
 
-    return dict(q=rand(b, h, d), k_pool=rand(nb, bs, kh, d),
-                v_pool=rand(nb, bs, kh, d),
-                block_tables=tables.to(torch.int32).cuda(),
-                ctx_lens=ctx.to(torch.int32).cuda())
+    out = dict(q=rand(b, h, d), k_pool=rand(nb, bs, kh, d),
+               v_pool=rand(nb, bs, kh, d),
+               block_tables=tables.to(torch.int32).cuda(),
+               ctx_lens=ctx.to(torch.int32).cuda())
+    if window is not None:
+        out["window"] = window
+    return out
 
 
 # About a millisecond of device time at the H100's clock: queued before
@@ -482,6 +495,8 @@ def _decode_bound(c) -> tuple:
     b, h, d = q.shape
     _, bs, kh, _ = k.shape
     ctx = c["ctx_lens"].long()
+    if c.get("window") is not None:     # a window reads its last positions
+        ctx = ctx.clamp(max=c["window"])
     sz = q.element_size()
     kv_bytes = int(ctx.sum()) * kh * d * 2 * sz
     table_bytes = int(((ctx + bs - 1) // bs).sum()) * 4 + b * 4
@@ -506,8 +521,11 @@ def _gathered(c, pool):
 def _sdpa_inputs(c):
     """The contiguous, pre-gathered context for the library yardstick."""
     max_ctx = c["block_tables"].shape[1] * c["k_pool"].shape[1]
-    mask = (torch.arange(max_ctx, device=c["q"].device)[None]
-            < c["ctx_lens"][:, None])[:, None, None, :]
+    pos = torch.arange(max_ctx, device=c["q"].device)[None]
+    mask = pos < c["ctx_lens"][:, None]
+    if c.get("window") is not None:
+        mask &= pos >= c["ctx_lens"][:, None] - c["window"]
+    mask = mask[:, None, None, :]
     return (c["q"][:, :, None], _gathered(c, c["k_pool"]),
             _gathered(c, c["v_pool"]), mask)
 
@@ -568,9 +586,26 @@ def phase_kernels(report: dict) -> None:
         # in the prefill path: the share of K4's bound at few live lanes.
         **{f"serve-6.7b-{n}live": _serve_decode_case(serve_rng, n)
            for n in (32, 9, 4)},
+        # Mellum's window layers (32 query heads over 4 kv heads of 128,
+        # a window of 1024): contexts up to 4096 read their last 1024
+        # positions; a lane short of the window, one at it, one past it
+        # by one, and the f32 kernel at the same window.
+        **{f"mellum-window-{name}": dict(
+            b=32, kh=4, q_per_kv=8, d=128, bs=16, max_ctx=4096, dtype=dt,
+            window=1024, ctx=[1, 1023, 1024, 1025] + _window_ctx(
+                serve_rng, 28))
+           for name, dt in (("bf16", torch.bfloat16),
+                            ("f32", torch.float32))},
+        # A window that is not a multiple of the split: its first split
+        # starts mid-split.
+        "window-200-gqa2-bf16": dict(b=8, kh=4, q_per_kv=2, d=64, bs=16,
+                                     max_ctx=1024, dtype=torch.bfloat16,
+                                     window=200),
     }
     results = {}
+    t_window = 0.0
     for name, spec in cases.items():
+        t_case = time.perf_counter()
         c = _decode_case(gen, **spec)
         out = A.paged_decode_attention(**c)
         plain = A.paged_decode_attention_plain(**c)
@@ -596,7 +631,11 @@ def phase_kernels(report: dict) -> None:
             bound_ms=bound_ms, bound_by=bound_by,
             ctx_tokens=int(c["ctx_lens"].long().sum()),
             q_per_kv=spec["q_per_kv"], split_len=A.DECODE_SPLIT_LEN,
-            splits=A.decode_splits(c["block_tables"].shape[1], spec["bs"]))
+            splits=A.decode_splits(c["block_tables"].shape[1], spec["bs"],
+                                   spec.get("window")),
+            window=spec.get("window"))
+        if spec.get("window") is not None:
+            t_window += time.perf_counter() - t_case
     emit("kernels", cases=results)
     keys = ("max_abs_err", "ms", "ms_with_launch", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -610,13 +649,119 @@ def phase_kernels(report: dict) -> None:
         serve_6_7b={n: {k: results[f"serve-6.7b-{n}live"][k] for k in keys}
                     for n in (32, 9, 4)})
     prefill = _prefill_kernel_cases(F, A)
+    for r in prefill.values():
+        case_s = r.pop("case_s")
+        if r["window"] is not None:
+            t_window += case_s
     emit("kernels", prefill_cases=prefill)
+    t_case = time.perf_counter()
+    experts = _expert_cases()
+    emit("kernels", expert_cases=experts,
+         window_and_expert_s=t_window + time.perf_counter() - t_case)
     report["paged_prefill_attention"] = dict(
         name="paged_prefill_attention", route="cuda",
         source="ray_tpu_torch/ops/csrc/paged_prefill.cu", replaces=None,
         **{k: prefill["serve-6.7b"][k] for k in keys},
         llama_1b={k: prefill["llama-1b"][k] for k in keys},
-        verify_t5={k: prefill["verify-t5-llama-1b"][k] for k in keys})
+        verify_t5={k: prefill["verify-t5-llama-1b"][k] for k in keys},
+        mellum_window={k: prefill["mellum-window"][k] for k in keys})
+    report["paged_decode_attention"]["mellum_window"] = {
+        k: results["mellum-window-bf16"][k] for k in keys}
+    report["grouped_experts"] = dict(
+        name="grouped_experts", route="cuda",
+        source="torch._grouped_mm (ray_tpu_torch/models/mellum.py)",
+        replaces=None, **{k: experts["decode-32"][k] for k in keys},
+        prefill=experts["prefill-2x240"])
+
+
+def _window_ctx(rng, n):
+    """n contexts up to 4096, uniform."""
+    return [int(x) for x in rng.integers(1, 4097, n)]
+
+
+# Mellum's expert layer at its published widths: 64 experts of SwiGLU
+# width 896 over d_model 2304, top 8, weights N(0, 0.02) in bf16.  The
+# grouped products (torch._grouped_mm, one a projection) against the
+# plain loop over the experts on the same tokens and routing.  Each
+# product computes in f32 and rounds to bf16, and the grouped path sums
+# a token's 8 outputs in one product with the weights rounded to bf16
+# (2**-9 of each), terms of mixed sign: so the difference scales with
+# the token's row, and the tolerance is tensor_core_limit's (2**-7 of the
+# row's largest |plain| + 2**-7 of |plain|).
+EXPERT_CASES = {
+    # A decode step of 32 lanes: 256 routed pairs.
+    "decode-32": dict(tokens=32, valid=32),
+    # A prefill dispatch of 2 live lanes at chunk 240 in a batch of 8
+    # lanes: 1920 slots, 480 of them valid.
+    "prefill-2x240": dict(tokens=1920, valid=480),
+}
+
+
+def _expert_bound(pairs, loads, d=2304, f=896) -> tuple:
+    """Least time of the grouped products on an H100 in bf16: each loaded
+    expert's three matrices read once, each product's input read and
+    output written once, or their FLOPs at the peak."""
+    nbytes = loads * 3 * d * f * 2 + pairs * 3 * (d + f) * 2
+    flops = pairs * 3 * 2 * d * f
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _expert_cases() -> dict:
+    from ray_tpu_torch.models import mellum
+    from ray_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    cfg = mellum.CONFIGS["mellum2-12b-a2.5b"]
+    e, d, f, k = cfg.n_experts, cfg.d_model, cfg.d_expert, \
+        cfg.experts_per_token
+
+    def rand(*shape, std=0.02):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(
+            torch.bfloat16)
+
+    p = {"router": rand(d, e), "w_gate": rand(e, d, f),
+         "w_up": rand(e, d, f), "w_down": rand(e, f, d)}
+    results = {}
+    for name, spec in EXPERT_CASES.items():
+        n = spec["tokens"]
+        h = rand(n, d, std=1.0)
+        valid = torch.arange(n, device="cuda") % (n // spec["valid"]) == 0
+        probs = torch.softmax(h.float() @ p["router"].float(), dim=-1)
+        weight, expert = probs.topk(k, dim=-1)
+        weight = weight / weight.sum(-1, keepdim=True)
+        expert = torch.where(valid[:, None], expert, e)
+        got, per = mellum._grouped_experts(h, p, expert, weight, e)
+        plain, per_plain = mellum._looped_experts(h, p, expert, weight, e)
+        torch.cuda.synchronize()
+        check(torch.equal(per, per_plain), f"experts {name}: counts differ")
+        got, plain = got.to(torch.bfloat16).float(), \
+            plain.to(torch.bfloat16).float()
+        atol, rtol = A.TENSOR_CORE_TOLERANCE
+        err = (got - plain).abs()
+        check(bool(torch.isfinite(got).all()), f"experts {name}: not finite")
+        share = _share(err, A.tensor_core_limit(plain, "O"))
+        check(share <= 1.0, f"experts {name}: grouped products disagree "
+              f"with the loop (max abs err {float(err.max())}, "
+              f"{share} of tensor_core_limit)")
+        check(not got[~valid].any(), f"experts {name}: a masked slot got "
+              f"expert work")
+        pairs, loads = int(per[:e].sum()), int((per[:e] > 0).sum())
+        bound_ms, bound_by = _expert_bound(pairs, loads)
+        results[name] = dict(
+            max_abs_err=float(err.max()), atol=atol, rtol=rtol,
+            limit_share=share,
+            ms=_time_ms(lambda: mellum._grouped_experts(
+                h, p, expert, weight, e)),
+            ms_with_launch=_time_ms(lambda: mellum._grouped_experts(
+                h, p, expert, weight, e), spin=False),
+            plain_ms=_time_ms(lambda: mellum._looped_experts(
+                h, p, expert, weight, e), reps=5),
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+            pairs=pairs, loads=loads)
+    return results
 
 
 def _mix_prompts(rng, n):
@@ -650,10 +795,23 @@ PREFILL_CASES = {
     "d256": dict(kh=2, q_per_kv=2, d=256, bs=32, mb=16, t=16,
                  ctx=lambda rng: rng.integers(1, 513, 4).tolist(),
                  chunked=True),
+    # Mellum's window layers at its prefill chunk (240) and window (1024):
+    # lanes in their last chunk of a prompt up to 4096, one lane inside
+    # its first window, riders at ctx_len 1.
+    "mellum-window": dict(kh=4, q_per_kv=8, d=128, bs=16, mb=256, t=240,
+                          ctx=lambda rng: [4096, 700, 1300]
+                          + _window_ctx(rng, 3) + [1, 1], chunked=True,
+                          window=1024),
+    # A window below the chunk, not a multiple of the split, at head dim
+    # 64: the rows of one chunk read splits that start at different keys.
+    "window-100-d64": dict(kh=2, q_per_kv=4, d=64, bs=16, mb=128, t=64,
+                           ctx=lambda rng: rng.integers(1, 2049, 6).tolist(),
+                           chunked=True, window=100),
 }
 
 
-def _prefill_case(rng, *, kh, q_per_kv, d, bs, mb, t, ctx, chunked):
+def _prefill_case(rng, *, kh, q_per_kv, d, bs, mb, t, ctx, chunked,
+                  window=None):
     """K5's operands: lanes at contexts `ctx(rng)`, each lane's queries at
     its last chunk of t (positions past ctx_len in an overhang, as the
     engine's last prefill chunk) or, not `chunked`, at its last t
@@ -670,10 +828,13 @@ def _prefill_case(rng, *, kh, q_per_kv, d, bs, mb, t, ctx, chunked):
     def rand(*shape):
         return torch.randn(*shape, generator=gen).to(torch.bfloat16).cuda()
 
-    return dict(q=rand(b, t, h, d), k_pool=rand(nb, bs, kh, d),
-                v_pool=rand(nb, bs, kh, d),
-                block_tables=tables.to(torch.int32).cuda(),
-                ctx_lens=ctx.to(torch.int32).cuda(), q_positions=pos.cuda())
+    out = dict(q=rand(b, t, h, d), k_pool=rand(nb, bs, kh, d),
+               v_pool=rand(nb, bs, kh, d),
+               block_tables=tables.to(torch.int32).cuda(),
+               ctx_lens=ctx.to(torch.int32).cuda(), q_positions=pos.cuda())
+    if window is not None:
+        out["window"] = window
+    return out
 
 
 def _prefill_limits(c):
@@ -681,6 +842,16 @@ def _prefill_limits(c):
     width = c["block_tables"].shape[1] * c["k_pool"].shape[1]
     return torch.minimum(c["ctx_lens"].long().clamp(max=width)[:, None],
                          c["q_positions"] + 1).clamp(min=0)
+
+
+def _prefill_firsts(c):
+    """[B, T]: query (b, t) sees keys from this one on (0 without a
+    window), at most its limit."""
+    lim = _prefill_limits(c)
+    if c.get("window") is None:
+        return torch.zeros_like(lim)
+    return torch.minimum((c["q_positions"] - c["window"] + 1).clamp(min=0),
+                         lim)
 
 
 def _prefill_bound(c) -> tuple:
@@ -692,13 +863,13 @@ def _prefill_bound(c) -> tuple:
     q, k = c["q"], c["k_pool"]
     b, t, h, d = q.shape
     _, bs, kh, _ = k.shape
-    lim = _prefill_limits(c)
-    last = lim.amax(1)
+    lim, first = _prefill_limits(c), _prefill_firsts(c)
+    span = (lim.amax(1) - first.amin(1)).clamp(min=0)
     sz = q.element_size()
-    kv_bytes = int(last.sum()) * kh * d * 2 * sz
-    small = int(((last + bs - 1) // bs).sum()) * 4 + b * 4 + b * t * 8
+    kv_bytes = int(span.sum()) * kh * d * 2 * sz
+    small = int(((span + bs - 1) // bs).sum()) * 4 + b * 4 + b * t * 8
     nbytes = kv_bytes + 2 * q.numel() * sz + small
-    flops = 4 * int(lim.sum()) * h * d
+    flops = 4 * int((lim - first).sum()) * h * d
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[q.dtype]
     return (max(t_bytes, t_ops) * 1e3,
@@ -709,8 +880,9 @@ def _prefill_sdpa_inputs(c):
     """q [B, H, T, D], the pre-gathered context and the visibility mask,
     for the library yardstick."""
     width = c["block_tables"].shape[1] * c["k_pool"].shape[1]
-    mask = (torch.arange(width, device=c["q"].device)[None, None]
-            < _prefill_limits(c)[..., None])[:, None]
+    pos = torch.arange(width, device=c["q"].device)[None, None]
+    mask = ((pos < _prefill_limits(c)[..., None])
+            & (pos >= _prefill_firsts(c)[..., None]))[:, None]
     return (c["q"].transpose(1, 2).contiguous(), _gathered(c, c["k_pool"]),
             _gathered(c, c["v_pool"]), mask)
 
@@ -724,6 +896,7 @@ def _prefill_kernel_cases(F, A) -> dict:
     rng = np.random.default_rng(22)
     results = {}
     for name, spec in PREFILL_CASES.items():
+        t_case = time.perf_counter()
         c = _prefill_case(rng, **spec)
         before = A.paged_prefill_attention.launches
         out = A.paged_prefill_attention(**c)
@@ -731,7 +904,7 @@ def _prefill_kernel_cases(F, A) -> dict:
               f"{name}: the prefill kernel did not launch")
         plain = A.paged_attention_reference(**c)
         torch.cuda.synchronize()
-        seen = _prefill_limits(c) > 0                           # [B, T]
+        seen = _prefill_limits(c) > _prefill_firsts(c)          # [B, T]
         atol, rtol = TOLERANCE[torch.bfloat16]
         err = (out.float() - plain.float()).abs()[seen]
         check(bool(torch.isfinite(out.float()).all()),
@@ -752,11 +925,16 @@ def _prefill_kernel_cases(F, A) -> dict:
             library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
                 sdpa[0], sdpa[1], sdpa[2], attn_mask=sdpa[3])),
             bound_ms=bound_ms, bound_by=bound_by,
-            ctx_tokens=int(_prefill_limits(c).amax(1).sum()),
+            ctx_tokens=int((_prefill_limits(c).amax(1)
+                            - _prefill_firsts(c).amin(1)).sum()),
             zero_rows=int((~seen).sum()) * spec["kh"] * spec["q_per_kv"],
             t=spec["t"], q_per_kv=spec["q_per_kv"], d=spec["d"],
             split_len=A.PREFILL_SPLIT_LEN,
-            splits=A.prefill_splits(spec["mb"], spec["bs"]))
+            splits=A.prefill_splits(spec["mb"], spec["bs"],
+                                    window=spec.get("window"),
+                                    q_len=spec["t"]),
+            window=spec.get("window"),
+            case_s=time.perf_counter() - t_case)
         del sdpa, c
     return results
 

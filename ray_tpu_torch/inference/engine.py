@@ -50,6 +50,18 @@ finishes mid-step (cancel, deadline) frees its blocks only once that
 step is done: an import may then allocate them without racing the
 step's writes.
 
+A family whose layers mix sliding-window and full attention (mellum)
+keeps two kinds of KV state (kv_cache.py `WindowPool`): the full
+layers' pool, every position, and the window layers' pool, sized by the
+engine itself at `max_lanes` x `WindowPool.lane_cap` blocks, where a
+lane holds only the blocks its window still shows, so admission and the
+growth reserve reckon over the full pool alone: the window pool cannot
+run out.  Such a family has no prefix
+reuse, and `spec_k > 0` or `kv_tier` raise ValueError.  A family that
+counts on the device (`COUNTERS`, such as the expert layer's routed
+pairs and weight loads) gets an int64 tensor per dispatch kind that its
+cached forward adds to without a sync; `stats()` reads them.
+
 Observability goes through an injected `Observer` (util/observe.py)
 with the reference's metric names and (plane, kind) pairs; the port
 imports nothing of `ray_tpu.util`.
@@ -221,6 +233,12 @@ class InferenceEngine:
     `(put, get)` pair over bytes, or files under `spill_dir` without one.
     `observer` (util/observe.Observer) receives the reference's metrics,
     events and spans; None records nothing.
+
+    A windowed family (a config with `n_window_layers`, as mellum's)
+    serves with its window layers' KV in a pool of their own that the
+    engine sizes from `max_lanes`, `prefill_chunk` and the window
+    (`num_blocks` is the full layers' pool); prefix reuse is off for it,
+    and `spec_k > 0` or `kv_tier` raise ValueError.
     """
 
     def __init__(self, model="gpt", config="nano", params=None, *,
@@ -248,6 +266,15 @@ class InferenceEngine:
         self.max_lanes = max_lanes
         self.prefill_chunk = prefill_chunk
         self.seed = seed
+        if getattr(self.config, "n_window_layers", 0):
+            # The window pool holds no sealed history to roll back into,
+            # spill or share.
+            if spec_k > 0:
+                raise ValueError("spec_k > 0 needs rollback of the window "
+                                 "pool, which a windowed family lacks")
+            if kv_tier:
+                raise ValueError("kv_tier spills sealed prefix blocks, "
+                                 "which a windowed family does not keep")
         max_seq_len = min(max_seq_len or self.config.max_seq_len,
                           self.config.max_seq_len)
         if num_blocks is None:
@@ -256,7 +283,15 @@ class InferenceEngine:
             self.model, self.config, num_blocks=num_blocks,
             block_size=block_size, max_lanes=max_lanes,
             max_seq_len=max_seq_len, prefix_cache=prefix_cache,
-            device=self.device)
+            device=self.device, prefill_chunk=prefill_chunk)
+        # The family's device counters, one int64 row per dispatch kind.
+        self._counter_names = tuple(getattr(self.model, "COUNTERS", ()))
+        self._dev_counts = {
+            kind: torch.zeros(len(self._counter_names), dtype=torch.int64,
+                              device=self.device)
+            for kind in ("prefill", "decode")} if self._counter_names \
+            else None
+        self._reported: dict = {}
         if kv_tier and prefix_cache:
             # Runtime import: the tier lives with the serving package,
             # whose deployments import this module.
@@ -503,6 +538,8 @@ class InferenceEngine:
         cs = self.cache.stats
         st = self._spec_stats
         return {
+            **self._window_stats(),
+            **self._device_counts(),
             "active": self.num_active,
             "waiting": self.num_waiting,
             "max_lanes": self.max_lanes,
@@ -529,6 +566,40 @@ class InferenceEngine:
                                        if st["bursts"] else 0.0),
             **self._steps,
         }
+
+    def _window_stats(self) -> dict:
+        """The window pool's blocks given back so far and held now, also
+        reported to the Observer: the first as a counter (by what it
+        gained since the last read), the second as a gauge."""
+        w = self.cache.window
+        if w is None:
+            return {}
+        gained = w.released - self._reported.get("kv_window_blocks_released",
+                                                 0)
+        if gained:
+            self._obs.inc("kv_window_blocks_released", gained)
+        self._reported["kv_window_blocks_released"] = w.released
+        self._obs.set("kv_window_blocks_resident", w.resident)
+        return {"kv_window_blocks_released": w.released,
+                "kv_window_blocks_resident": w.resident}
+
+    def _device_counts(self) -> dict:
+        """The family's device counters by dispatch kind
+        (`<name>_<kind>`), read from the device (a sync), each also
+        reported to the Observer as a counter by what it gained since
+        the last read."""
+        if self._dev_counts is None:
+            return {}
+        out = {}
+        for kind, row in self._dev_counts.items():
+            for name, value in zip(self._counter_names, row.tolist()):
+                key = f"{name}_{kind}"
+                out[key] = value
+                gained = value - self._reported.get(key, 0)
+                if gained:
+                    self._obs.inc(f"inference_{key}", gained)
+                self._reported[key] = value
+        return out
 
     # ---------------- scheduler ----------------
 
@@ -558,7 +629,8 @@ class InferenceEngine:
         """Blocks every LIVE lane may still claim before finishing (its
         worst-case final length minus what it already owns).  Admission
         leaves this much unclaimed so decode growth can never exhaust
-        the pool mid-flight."""
+        the pool mid-flight.  A window pool needs no reserve: it holds
+        `lane_cap` blocks for every lane (`WindowPool`)."""
         reserve = 0
         for lane, req in enumerate(self._lanes):
             if req is None:
@@ -667,8 +739,11 @@ class InferenceEngine:
             t0 = time.perf_counter()
             vtok = obs.begin("engine", "spec_verify") if kind == "verify" \
                 else None
-            toks, lps = self._run_step(params, *batch,
-                                       spec=kind == "verify")
+            toks, lps = self._run_step(
+                params, *batch, spec=kind == "verify",
+                counts=(None if self._dev_counts is None else
+                        self._dev_counts["prefill" if kind == "prefill"
+                                         else "decode"]))
             toks = toks.cpu().numpy().reshape(self.max_lanes, -1)
             if lps is not None:
                 lps = lps.cpu().numpy().reshape(self.max_lanes, -1)
@@ -738,7 +813,8 @@ class InferenceEngine:
 
     @torch.no_grad()
     def _run_step(self, params, tokens, positions, valid, tables, ctx_lens,
-                  gather, temps, seeds, counters, sample, *, spec=False):
+                  gather, temps, seeds, counters, sample, *, spec=False,
+                  counts=None):
         """The step function: cached forward (pools written in place),
         lm head, in-step sampling.  Plain and prefill steps take the head
         on each lane's last valid position only and return int32
@@ -746,11 +822,14 @@ class InferenceEngine:
         position j with the key the plain step would use after j more
         commits — and returns int32 [max_lanes, T].  The second result is
         the chosen tokens' float32 log-probs of the same shape with
-        `capture_logp`, else None."""
+        `capture_logp`, else None.  `counts`: the dispatch kind's device
+        counters, for a family that has them."""
         model, config = self.model, self.config
+        k_pool, v_pool = self.cache.pools()
         x, _, _ = model.forward_cached(
-            params, tokens, positions, valid, self.cache.k, self.cache.v,
-            tables, ctx_lens, config)
+            params, tokens, positions, valid, k_pool, v_pool,
+            tables, ctx_lens, config,
+            **({} if counts is None else {"counts": counts}))
         if not spec:
             x = x[torch.arange(x.shape[0], device=x.device), gather]
         logits = model.lm_head(params, x, config)     # [B, V] / [B, T, V]

@@ -32,6 +32,15 @@ Restore and install write, in place, only into blocks they have just
 allocated.  Host copies of a bf16 pool are its uint16 bits (numpy has no
 bf16), so spills and frames round-trip bit-exactly; a float32 pool's
 export is the reference's v1 payload.
+
+A model that mixes sliding-window and full-attention layers keeps two
+kinds of state side by side (`WindowPool`): the pool above holds the
+full layers' K/V, every position of a lane; the window layers' K/V lives
+in a pool of its own, where a lane holds only the blocks that a query
+still to come can see (the last `window` positions and the chunk in
+flight).  Its blocks are allocated as a lane's chunks advance and given
+back as soon as the window has passed them, so that pool is sized by
+lanes, not by context: `max_lanes` x `WindowPool.lane_cap` blocks.
 """
 
 from __future__ import annotations
@@ -172,6 +181,93 @@ class BlockAllocator:
         self._cached[block] = True
 
 
+class WindowPool:
+    """The window layers' K/V: pools [n_layers, num_blocks, block_size,
+    kv_heads, head_dim] and per-lane block tables as wide as the full
+    pool's (logical block i of a lane covers positions [i * block_size,
+    (i + 1) * block_size)), of which a lane holds only the blocks that a
+    query at or past its next position can see.
+
+    A query at position p sees p - window < j <= p, so once the lane's
+    next query is at position n, block i is invisible to every query to
+    come when (i + 1) * block_size <= n - window + 1: `ensure` gives such
+    blocks back before it allocates the step's, and their table entries
+    return to 0, which the window's mask never lets a query read.  A
+    lane then holds the blocks over [n - window + 1, n + chunk), at most
+    `lane_cap` = ceil((window + chunk) / block_size) + 1 of them, and the
+    pool has `max_lanes * lane_cap` blocks, which no admission can
+    exhaust.  There is no prefix reuse here: a window block is one
+    lane's alone."""
+
+    def __init__(self, n_layers: int, kv_heads: int, head_dim: int, *,
+                 window: int, chunk: int, block_size: int, max_lanes: int,
+                 max_seq_len: int, dtype=torch.float32,
+                 device: DeviceLike = None):
+        if window < 1 or chunk < 1:
+            raise ValueError(f"window {window} and chunk {chunk} must be >= 1")
+        self.device = resolve_device(device)
+        self.window = window
+        self.block_size = block_size
+        self.lane_cap = -(-(window + chunk) // block_size) + 1
+        self.num_blocks = max_lanes * self.lane_cap
+        shape = (n_layers, self.num_blocks, block_size, kv_heads, head_dim)
+        self.k = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.allocator = BlockAllocator(self.num_blocks)
+        self.block_tables = np.zeros(
+            (max_lanes, math.ceil(max_seq_len / block_size)), np.int32)
+        # Per lane: {logical block: pool block} of the blocks it holds.
+        self._held: List[Dict[int, int]] = [{} for _ in range(max_lanes)]
+        self._dev_tables: Optional[torch.Tensor] = None
+        self.released = 0      # blocks given back, as passed or at lane end
+
+    @property
+    def resident(self) -> int:
+        """Blocks held by lanes now."""
+        return self.num_blocks - self.allocator.num_free
+
+    def held(self, lane: int) -> int:
+        return len(self._held[lane])
+
+    def _drop(self, lane: int, blocks) -> None:
+        held = self._held[lane]
+        for i in blocks:
+            self.allocator.decref(held.pop(i))
+            self.block_tables[lane, i] = 0
+            self.released += 1
+            self._dev_tables = None
+
+    def ensure(self, lane: int, start: int, new_len: int) -> None:
+        """Before a step whose queries sit at [start, new_len): give back
+        the blocks no query from `start` on can see, then hold every
+        block over [start - window + 1, new_len)."""
+        bs = self.block_size
+        first = max(start - self.window + 1, 0) // bs
+        held = self._held[lane]
+        self._drop(lane, [i for i in held if i < first])
+        missing = [i for i in range(first, math.ceil(new_len / bs))
+                   if i not in held]
+        # At most lane_cap a lane, so the pool's max_lanes x lane_cap
+        # blocks are never exhausted and admission need not count them.
+        assert len(held) + len(missing) <= self.lane_cap, (
+            f"lane {lane} would hold {len(held) + len(missing)} window "
+            f"blocks, more than {self.lane_cap}: steps of more than the "
+            "chunk the pool was sized for")
+        for i, b in zip(missing, self.allocator.alloc(len(missing))):
+            held[i] = b
+            self.block_tables[lane, i] = b
+            self._dev_tables = None
+
+    def free_lane(self, lane: int) -> None:
+        self._drop(lane, list(self._held[lane]))
+
+    def device_tables(self) -> torch.Tensor:
+        if self._dev_tables is None:
+            self._dev_tables = torch.from_numpy(self.block_tables.copy()).to(
+                self.device)
+        return self._dev_tables
+
+
 class PagedKVCache:
     """Device pools + per-lane block tables for a fixed lane capacity.
 
@@ -213,6 +309,8 @@ class PagedKVCache:
         # Optional spill tier: evicted sealed blocks move here instead of
         # being destroyed, and match / adopt restore them on a hit.
         self.tier = None
+        # The window layers' pool, for a model that has them (for_model).
+        self.window: Optional[WindowPool] = None
 
     def attach_tier(self, tier) -> None:
         """Attach a spill tier (duck-typed: contains/put/pop/discard/
@@ -221,12 +319,36 @@ class PagedKVCache:
         self.tier = tier
 
     @classmethod
-    def for_model(cls, model, config, **kw) -> "PagedKVCache":
-        """Build a cache shaped for a models/ module."""
+    def for_model(cls, model, config, *, prefill_chunk: int = 1,
+                  **kw) -> "PagedKVCache":
+        """Build a cache shaped for a models/ module.  A config with
+        window layers (`n_window_layers`, `sliding_window`) gets this
+        pool for its full layers and a `WindowPool` for the others, sized
+        for steps of at most `prefill_chunk` tokens a lane; prefix reuse
+        is then off."""
         kv_heads = getattr(config, "n_kv_heads", config.n_heads)
         kw.setdefault("max_seq_len", config.max_seq_len)
         kw.setdefault("dtype", config.dtype)
-        return cls(config.n_layers, kv_heads, config.head_dim, **kw)
+        n_window = getattr(config, "n_window_layers", 0)
+        if n_window:
+            kw["prefix_cache"] = False
+        cache = cls(config.n_layers - n_window, kv_heads, config.head_dim,
+                    **kw)
+        if n_window:
+            cache.window = WindowPool(
+                n_window, kv_heads, config.head_dim,
+                window=config.sliding_window, chunk=prefill_chunk,
+                block_size=cache.block_size, max_lanes=cache.max_lanes,
+                max_seq_len=cache.max_seq_len, dtype=kw["dtype"],
+                device=cache.device)
+        return cache
+
+    def pools(self) -> tuple:
+        """(K, V) as a model's cached forward takes them: the pools, or
+        with a window pool the pairs (full, window)."""
+        if self.window is None:
+            return self.k, self.v
+        return (self.k, self.window.k), (self.v, self.window.v)
 
     # ---------------- host-side lane lifecycle ----------------
 
@@ -558,9 +680,13 @@ class PagedKVCache:
     # ---------------- lane growth / teardown ----------------
 
     def ensure_capacity(self, lane: int, new_len: int) -> None:
-        """Grow the lane's table as decode crosses block boundaries."""
+        """Grow the lane's table as decode crosses block boundaries; with
+        a window pool, also move the lane's window up to the step whose
+        queries start at its current length (`WindowPool.ensure`)."""
         if new_len > self.max_seq_len:
             raise RuntimeError(f"lane {lane} exceeded max_seq_len")
+        if self.window is not None:
+            self.window.ensure(lane, int(self.seq_lens[lane]), new_len)
         need = self.blocks_needed(new_len)
         blocks = self._lane_blocks[lane]
         while len(blocks) < need:
@@ -588,6 +714,8 @@ class PagedKVCache:
         evictable list; everything else returns to the free list."""
         for b in self._lane_blocks[lane]:
             self.allocator.decref(b)
+        if self.window is not None:
+            self.window.free_lane(lane)
         self._lane_blocks[lane] = []
         self.block_tables[lane, :] = 0
         self.seq_lens[lane] = 0
@@ -600,10 +728,13 @@ class PagedKVCache:
 
     # ---------------- device mirror ----------------
 
-    def device_tables(self) -> torch.Tensor:
+    def device_tables(self):
         """Block tables as an int32 tensor on the cache's device,
-        uploaded again only after a host-side change."""
+        uploaded again only after a host-side change; with a window pool
+        the pair (full, window), as `pools`."""
         if self._dev_tables is None:
             self._dev_tables = torch.from_numpy(self.block_tables.copy()).to(
                 self.device)
+        if self.window is not None:
+            return self._dev_tables, self.window.device_tables()
         return self._dev_tables

@@ -224,18 +224,39 @@ def _rope(x, theta: float, offset=0):
     `offset` is the absolute position of x's first token: a scalar shared
     by the batch, or a per-lane [B] tensor (cached decode: lanes sit at
     different depths).  The frequencies are the reference's f32
-    `theta ** (-arange(half) / half)`."""
-    l, half = x.shape[1], x.shape[-1] // 2
-    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
-                                    device=x.device) / half)
-    off = torch.as_tensor(offset, dtype=torch.float32, device=x.device)
+    `theta ** (-arange(half) / half)`.  It is `_rope_rotate` by
+    `_rope_tables`, which a caller rotating several tensors at the same
+    positions may build once."""
+    return _rope_rotate(x, *_rope_tables(x.shape[1], x.shape[-1] // 2,
+                                         theta, offset, x.device))
+
+
+def _rope_tables(l: int, half: int, theta: float, offset, device,
+                 freqs=None, scale: float = 1.0):
+    """(cos, sin), each [1|B, L, 1, half] f32, of `_rope` at positions
+    offset .. offset + l - 1; `freqs` [half] f32 in place of theta's (a
+    scaled rope such as YaRN's), and `scale` multiplying cos and sin
+    both (YaRN's attention factor, so q.k scales by its square)."""
+    if freqs is None:
+        freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                        device=device) / half)
+    off = torch.as_tensor(offset, dtype=torch.float32, device=device)
     pos = off[..., None] + torch.arange(l, dtype=torch.float32,
-                                        device=x.device)   # [L] or [B, L]
+                                        device=device)     # [L] or [B, L]
     ang = pos[..., None] * freqs                 # [L, half] / [B, L, half]
     if ang.dim() == 2:
         ang = ang[None]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
+    if scale != 1.0:
+        cos, sin = cos * scale, sin * scale
+    return cos, sin
+
+
+def _rope_rotate(x, cos, sin):
+    """x [B, L, H, K] rotated by the tables of `_rope_tables`, in f32,
+    back in x's dtype."""
+    half = x.shape[-1] // 2
     x32 = x.float()
     x1, x2 = x32[..., :half], x32[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

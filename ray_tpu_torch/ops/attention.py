@@ -24,6 +24,12 @@ cores; the reference sends every such call to its masked-dense path,
 and so does the port for f32 calls and other head dims
 (`paged_attention_reference`).
 
+Every paged call takes an optional sliding `window`: a query at
+position i then sees key j only where i - window < j <= i (the window
+layers of a model that mixes window and full attention).  K4 and K5 run
+only the context splits that can hold a visible key, under kernel names
+of their own; without a window nothing changes.
+
 Dispatch follows the tensor, never the environment: a CPU tensor takes
 the kernel's plain PyTorch version, a CUDA tensor launches the kernel or
 raises.
@@ -378,7 +384,7 @@ def paged_kv_update(k_pool, v_pool, k_new, v_new, block_tables, positions,
     flat = (phys * bs + torch.remainder(positions, bs)).reshape(-1)
     keep = valid.reshape(-1) & (flat >= 0) & (flat < nb * bs)
     first = torch.argmax(keep.to(torch.int32))
-    any_kept = keep[first]
+    any_kept = keep.any()
     src = torch.where(keep, torch.arange(keep.numel(), device=keep.device),
                       first)
     idx = torch.where(any_kept, flat[src], 0)
@@ -391,16 +397,18 @@ def paged_kv_update(k_pool, v_pool, k_new, v_new, block_tables, positions,
 
 
 def paged_attention_reference(q, k_pool, v_pool, block_tables, ctx_lens,
-                              q_positions, *, scale: Optional[float] = None):
+                              q_positions, *, scale: Optional[float] = None,
+                              window: Optional[int] = None):
     """Masked-dense paged attention (the prefill path and the kernel's
     plain version).
 
     q [B, T, H, D] at absolute q_positions [B, T]; pools [NB, BS, KH, D]
     (KH may divide H — GQA); ctx_lens [B] = tokens written per lane.
     Each query attends to context positions <= its own (the query's K/V
-    must already be in the pool).  All-masked rows (a lane with
-    ctx_len = 0) come out as a uniform average over the gathered
-    context, never NaN (finite NEG_INF) — as in the reference."""
+    must already be in the pool), and with a `window` to those past its
+    own minus the window.  All-masked rows (a lane with ctx_len = 0) come
+    out as a uniform average over the gathered context, never NaN (finite
+    NEG_INF) — as in the reference."""
     b, t, h, d = q.shape
     nb, bs, kh, _ = k_pool.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -415,6 +423,9 @@ def paged_attention_reference(q, k_pool, v_pool, block_tables, ctx_lens,
     kpos = torch.arange(max_ctx, device=q.device)
     mask = ((kpos[None, None, None, :] <= q_positions[:, None, :, None])
             & (kpos[None, None, None, :] < ctx_lens[:, None, None, None]))
+    if window is not None:
+        mask &= (kpos[None, None, None, :]
+                 > q_positions[:, None, :, None] - window)
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhtk,bkhd->bthd", probs, v_ctx.float())
@@ -422,7 +433,8 @@ def paged_attention_reference(q, k_pool, v_pool, block_tables, ctx_lens,
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, ctx_lens,
-                                 *, scale: Optional[float] = None):
+                                 *, scale: Optional[float] = None,
+                                 window: Optional[int] = None):
     """Plain PyTorch version of the decode kernel: `paged_attention_reference`
     at T = 1, the query at position ctx_len - 1.  q [B, H, D] -> [B, H, D].
 
@@ -431,7 +443,7 @@ def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, ctx_lens,
     the kernel writes zeros (as the reference's Pallas kernel)."""
     out = paged_attention_reference(
         q[:, None], k_pool, v_pool, block_tables, ctx_lens,
-        (ctx_lens - 1)[:, None], scale=scale)
+        (ctx_lens - 1)[:, None], scale=scale, window=window)
     return out[:, 0]
 
 
@@ -441,10 +453,17 @@ def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, ctx_lens,
 DECODE_SPLIT_LEN = 128
 
 
-def decode_splits(max_blocks: int, block_size: int) -> int:
+def decode_splits(max_blocks: int, block_size: int,
+                  window: Optional[int] = None) -> int:
     """How many context splits the decode kernel runs per (lane, head)
-    over a table of max_blocks blocks of block_size positions."""
-    return -(-max_blocks * block_size // DECODE_SPLIT_LEN)
+    over a table of max_blocks blocks of block_size positions; with a
+    `window`, at most the splits that the window's positions can reach
+    from its first, ceil((window + DECODE_SPLIT_LEN - 1) /
+    DECODE_SPLIT_LEN)."""
+    n = -(-max_blocks * block_size // DECODE_SPLIT_LEN)
+    if window:
+        n = min(n, -(-(window + DECODE_SPLIT_LEN - 1) // DECODE_SPLIT_LEN))
+    return n
 
 
 @functools.cache
@@ -454,9 +473,15 @@ def _kernel():
 
     fn = load_library("paged_decode").paged_decode_attention
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 8 + [i] * 8 + [ctypes.c_float, i, p]
+    fn.argtypes = [p] * 8 + [i] * 8 + [ctypes.c_float, i, i, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check_window(fn, window) -> None:
+    if window is not None and (not isinstance(window, int) or window < 1):
+        raise ValueError(f"{fn}: window must be a positive int or None; got "
+                         f"{window!r}")
 
 
 def _check_kernel_args(q, k_pool, v_pool, block_tables, ctx_lens) -> None:
@@ -510,10 +535,13 @@ def _check_operands(fn, q, k_pool, v_pool, **rest) -> None:
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
-                           scale: Optional[float] = None):
+                           scale: Optional[float] = None,
+                           window: Optional[int] = None):
     """Single-query paged attention: q [B, H, D] (one decode token per
     lane) over each lane's block table.  ctx_lens counts tokens already
-    written to the pool INCLUDING the current one.
+    written to the pool INCLUDING the current one.  With a `window` the
+    query sees the last `window` positions of its context only, and the
+    kernel reads no other (`paged_decode_window_*` kernels).
 
     On a CPU tensor this is `paged_decode_attention_plain`.  On a CUDA
     tensor it launches `csrc/paged_decode.cu` (bf16/f32, D in
@@ -522,19 +550,23 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
     kernel path (see the plain version).  `paged_decode_attention.launches`
     counts calls that launched the kernel (its split and merge passes
     count as one)."""
+    _check_window("paged_decode_attention", window)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
-                                            ctx_lens, scale=scale)
+                                            ctx_lens, scale=scale,
+                                            window=window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for device "
                          f"{q.device}")
     _check_kernel_args(q, k_pool, v_pool, block_tables, ctx_lens)
-    out = _decode_launch(q, k_pool, v_pool, block_tables, ctx_lens, scale)
+    out = _decode_launch(q, k_pool, v_pool, block_tables, ctx_lens, scale,
+                         window)
     paged_decode_attention.launches += 1
     return out
 
 
-def _decode_launch(q, k_pool, v_pool, block_tables, ctx_lens, scale):
+def _decode_launch(q, k_pool, v_pool, block_tables, ctx_lens, scale,
+                   window=None):
     """Launch the decode kernel on checked CUDA operands, its f32
     partials allocated here.  They are freed on return, before the kernel
     runs: the caching allocator hands them out again only to work queued
@@ -542,7 +574,7 @@ def _decode_launch(q, k_pool, v_pool, block_tables, ctx_lens, scale):
     b, h, d = q.shape
     _nb, bs, kh, _ = k_pool.shape
     mb = block_tables.shape[1]
-    n_splits = decode_splits(mb, bs)
+    n_splits = decode_splits(mb, bs, window)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
     part_ml = torch.empty(b, h, n_splits, 2, dtype=torch.float32,
@@ -556,7 +588,7 @@ def _decode_launch(q, k_pool, v_pool, block_tables, ctx_lens, scale):
             block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
             part_ml.data_ptr(), part_acc.data_ptr(), b, h, kh, d, bs, mb,
             DECODE_SPLIT_LEN, n_splits, float(scale), _KERNEL_DTYPES[q.dtype],
-            stream)
+            window or 0, stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention: kernel launch failed "
                            f"with cudaError_t {err}")
@@ -577,12 +609,18 @@ PREFILL_SPLIT_LEN = 512
 
 
 def prefill_splits(max_blocks: int, block_size: int,
-                   split_len: int = PREFILL_SPLIT_LEN) -> int:
+                   split_len: int = PREFILL_SPLIT_LEN,
+                   window: Optional[int] = None, q_len: int = 1) -> int:
     """How many context splits of split_len positions the prefill kernel
     runs per (lane, kv head) over a table of max_blocks blocks of
-    block_size positions; its C entry point counts them the same way
-    from the split_len it is given."""
-    return -(-max_blocks * block_size // split_len)
+    block_size positions; with a `window`, at most the splits that the
+    visible keys of q_len queries can reach from the window's first,
+    ceil((window + split_len + q_len - 2) / split_len).  Its C entry
+    point counts them the same way from the split_len it is given."""
+    n = -(-max_blocks * block_size // split_len)
+    if window:
+        n = min(n, -(-(window + split_len + q_len - 2) // split_len))
+    return n
 
 
 @functools.cache
@@ -592,7 +630,7 @@ def _prefill_kernel():
 
     fn = load_library("paged_prefill").paged_prefill_attention
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 9 + [i] * 8 + [ctypes.c_float, p]
+    fn.argtypes = [p] * 9 + [i] * 8 + [ctypes.c_float, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -640,10 +678,13 @@ def _check_prefill_args(q, k_pool, v_pool, block_tables, ctx_lens,
 
 
 def paged_prefill_attention(q, k_pool, v_pool, block_tables, ctx_lens,
-                            q_positions, *, scale: Optional[float] = None):
+                            q_positions, *, scale: Optional[float] = None,
+                            window: Optional[int] = None):
     """Multi-token paged attention: q [B, T, H, D] at absolute
     q_positions [B, T] over each lane's block table; the function of
-    `paged_attention_reference`.
+    `paged_attention_reference`.  With a `window` (the
+    `paged_prefill_window_*` kernels) each lane's queries must ascend by
+    one from its first, as the engine's chunks do.
 
     On a CPU tensor this is `paged_attention_reference`.  On a CUDA
     tensor it launches K5, `csrc/paged_prefill.cu` (bf16, D in
@@ -653,9 +694,11 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, ctx_lens,
     ctx_len = 0 lane does, where the plain version averages the table.
     `paged_prefill_attention.launches` counts calls that launched the
     kernel (its split and merge passes count as one)."""
+    _check_window("paged_prefill_attention", window)
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pool, v_pool, block_tables,
-                                          ctx_lens, q_positions, scale=scale)
+                                          ctx_lens, q_positions, scale=scale,
+                                          window=window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: no kernel for device "
                          f"{q.device}")
@@ -664,7 +707,7 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, ctx_lens,
     b, t, h, d = q.shape
     _nb, bs, kh, _ = k_pool.shape
     mb = block_tables.shape[1]
-    n_splits = prefill_splits(mb, bs)
+    n_splits = prefill_splits(mb, bs, window=window, q_len=t)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     positions = q_positions.to(torch.int64)
     out = torch.empty_like(q)
@@ -681,7 +724,7 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, ctx_lens,
             block_tables.data_ptr(), ctx_lens.data_ptr(),
             positions.data_ptr(), out.data_ptr(), part_ml.data_ptr(),
             part_acc.data_ptr(), b, t, h, kh, d, bs, mb, PREFILL_SPLIT_LEN,
-            float(scale), stream)
+            float(scale), window or 0, stream)
     if err != 0:
         raise RuntimeError(f"paged_prefill_attention: kernel launch failed "
                            f"with cudaError_t {err}")
@@ -706,23 +749,26 @@ def _use_prefill_kernel(q) -> bool:
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, ctx_lens, q_positions,
-                    *, scale: Optional[float] = None):
+                    *, scale: Optional[float] = None,
+                    window: Optional[int] = None):
     """Dispatch paged attention for a [B, T, H, D] query slice: the T=1
     decode step rides the single-query kernel path where the head dim
     allows (`_use_paged_kernel`), the masked-dense path at the query's
     position ctx_len - 1 elsewhere, as the reference routes it.  A
     multi-token call (prefill chunk, verify step) rides K5 in bf16 at
     those head dims (`_use_prefill_kernel`), the masked-dense path
-    otherwise."""
+    otherwise.  `window`: each query sees the last `window` positions up
+    to its own only."""
     if q.shape[1] == 1:
         if _use_paged_kernel(q.shape[-1]):
             return paged_decode_attention(
                 q[:, 0], k_pool, v_pool, block_tables, ctx_lens,
-                scale=scale)[:, None]
+                scale=scale, window=window)[:, None]
         q_positions = (ctx_lens - 1)[:, None]
     elif _use_prefill_kernel(q):
         return paged_prefill_attention(q.contiguous(), k_pool, v_pool,
                                        block_tables, ctx_lens, q_positions,
-                                       scale=scale)
+                                       scale=scale, window=window)
     return paged_attention_reference(q, k_pool, v_pool, block_tables,
-                                     ctx_lens, q_positions, scale=scale)
+                                     ctx_lens, q_positions, scale=scale,
+                                     window=window)

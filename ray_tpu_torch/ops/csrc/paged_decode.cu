@@ -44,6 +44,19 @@
 //      result is deterministic), and writes acc / max(l, 1e-30).
 // The wrapper allocates the partials; the kernels allocate nothing.
 //
+// Sliding window (window > 0, the window layers of a model that mixes
+// window and full attention): the query at ctx_len - 1 sees positions
+// p > ctx_len - 1 - window only.  The launch then counts its splits from
+// the lane's first visible position rounded down to a split, base =
+// floor(max(ctx_len - window, 0) / split_len) * split_len, and runs only
+// the ceil((window + split_len - 1) / split_len) splits that can hold a
+// visible position (fewer where the table is narrower), so a step reads
+// min(ctx_len, window) positions a lane and launches no block for the
+// rest of the table.  The windowed launches are kernels of their own
+// names, paged_decode_window_split_kernel and
+// paged_decode_window_merge_kernel, which a device trace can select;
+// without a window the two kernels above run as before, to the bit.
+//
 // Bound.  Decode reads every K and V row of the context once:
 // sum over lanes of ctx_len * KH * D * 2 * sizeof(dtype) bytes, over the
 // H100's 3.35 TB/s.  The arithmetic (4 * ctx_len * H * D flops per lane)
@@ -61,6 +74,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -106,13 +121,16 @@ struct Geometry {
   static constexpr int kGroups = kThreads / kGroup;
 };
 
-template <typename T, int D, int QH>
-__global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
+// One split of one lane's context for QH query heads of one kv head; with
+// kWindow the splits count from the lane's window base and positions at
+// or before ctx_len - 1 - window are not read.
+template <typename T, int D, int QH, bool kWindow>
+__device__ __forceinline__ void decode_split(
     const T* __restrict__ q, const T* __restrict__ k_pool,
     const T* __restrict__ v_pool, const int32_t* __restrict__ block_tables,
     const int32_t* __restrict__ ctx_lens, float* __restrict__ part_ml,
     float* __restrict__ part_acc, int n_heads, int kv_heads, int block_size,
-    int max_blocks, int split_len, float scale) {
+    int max_blocks, int split_len, float scale, int window) {
   using G = Geometry<T, D>;
   constexpr int E = G::kElems, EV = G::kEv;
   // Positions per group in flight at a time: 4 rows of one load a
@@ -134,8 +152,12 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
   const size_t part = ((size_t)b * n_heads + h0) * n_splits + split;
 
   const int ctx = min(ctx_lens[b], max_blocks * block_size);
-  const int start = split * split_len;
-  if (start >= ctx) {
+  // The lane's first visible position and the first position of split 0.
+  const int lo = kWindow ? max(ctx - window, 0) : 0;
+  const int lane_base = kWindow ? lo / split_len * split_len : 0;
+  const int first = lane_base + split * split_len;
+  const int start = kWindow ? max(first, lo) : first;
+  if (start >= ctx || (kWindow && first + split_len <= lo)) {
     if (threadIdx.x < QH) {
       float* ml = part_ml + 2 * (part + (size_t)threadIdx.x * n_splits);
       ml[0] = -CUDART_INF_F;
@@ -143,7 +165,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
     }
     return;
   }
-  const int n = min(split_len, ctx - start);
+  const int n = min(first + split_len, ctx) - start;
 
   // q of the QH heads, this thread's elements, times scale * log2(e).
   float qr[QH][E], m[QH], l[QH], acc[QH][E];
@@ -291,11 +313,36 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
   }
 }
 
+template <typename T, int D, int QH>
+__global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
+    const T* __restrict__ q, const T* __restrict__ k_pool,
+    const T* __restrict__ v_pool, const int32_t* __restrict__ block_tables,
+    const int32_t* __restrict__ ctx_lens, float* __restrict__ part_ml,
+    float* __restrict__ part_acc, int n_heads, int kv_heads, int block_size,
+    int max_blocks, int split_len, float scale) {
+  decode_split<T, D, QH, false>(q, k_pool, v_pool, block_tables, ctx_lens,
+                                part_ml, part_acc, n_heads, kv_heads,
+                                block_size, max_blocks, split_len, scale, 0);
+}
+
+template <typename T, int D, int QH>
+__global__ void __launch_bounds__(kThreads) paged_decode_window_split_kernel(
+    const T* __restrict__ q, const T* __restrict__ k_pool,
+    const T* __restrict__ v_pool, const int32_t* __restrict__ block_tables,
+    const int32_t* __restrict__ ctx_lens, float* __restrict__ part_ml,
+    float* __restrict__ part_acc, int n_heads, int kv_heads, int block_size,
+    int max_blocks, int split_len, float scale, int window) {
+  decode_split<T, D, QH, true>(q, k_pool, v_pool, block_tables, ctx_lens,
+                               part_ml, part_acc, n_heads, kv_heads,
+                               block_size, max_blocks, split_len, scale,
+                               window);
+}
+
 // One block per (query head, lane): the lane's partials, in split order.
 // An empty split (m = -inf) has weight 0 and its acc is never read; a
 // lane with no context at all (every split empty) writes zeros.
 template <typename T>
-__global__ void __launch_bounds__(kMergeThreads) paged_decode_merge_kernel(
+__device__ __forceinline__ void decode_merge(
     const float* __restrict__ part_ml, const float* __restrict__ part_acc,
     T* __restrict__ out, int n_splits, int head_dim) {
   const size_t bh = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
@@ -317,26 +364,51 @@ __global__ void __launch_bounds__(kMergeThreads) paged_decode_merge_kernel(
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kMergeThreads) paged_decode_merge_kernel(
+    const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+    T* __restrict__ out, int n_splits, int head_dim) {
+  decode_merge<T>(part_ml, part_acc, out, n_splits, head_dim);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMergeThreads)
+    paged_decode_window_merge_kernel(const float* __restrict__ part_ml,
+                                     const float* __restrict__ part_acc,
+                                     T* __restrict__ out, int n_splits,
+                                     int head_dim) {
+  decode_merge<T>(part_ml, part_acc, out, n_splits, head_dim);
+}
+
 struct Args {
   const void *q, *k_pool, *v_pool, *block_tables, *ctx_lens;
   void *out, *part_ml, *part_acc;
   int batch, n_heads, kv_heads, head_dim, block_size, max_blocks, split_len,
       n_splits;
   float scale;
+  int window;  // 0: no window
   cudaStream_t stream;
 };
 
 template <typename T, int D, int QH>
 cudaError_t launch_split(const Args& a) {
   dim3 grid(a.kv_heads * (a.n_heads / a.kv_heads / QH), a.batch, a.n_splits);
-  paged_decode_split_kernel<T, D, QH><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k_pool),
-      static_cast<const T*>(a.v_pool),
-      static_cast<const int32_t*>(a.block_tables),
-      static_cast<const int32_t*>(a.ctx_lens),
-      static_cast<float*>(a.part_ml), static_cast<float*>(a.part_acc),
-      a.n_heads, a.kv_heads, a.block_size, a.max_blocks, a.split_len,
-      a.scale);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k_pool);
+  const T* v = static_cast<const T*>(a.v_pool);
+  const auto* tables = static_cast<const int32_t*>(a.block_tables);
+  const auto* ctx = static_cast<const int32_t*>(a.ctx_lens);
+  auto* ml = static_cast<float*>(a.part_ml);
+  auto* acc = static_cast<float*>(a.part_acc);
+  if (a.window > 0)
+    paged_decode_window_split_kernel<T, D, QH>
+        <<<grid, kThreads, 0, a.stream>>>(
+            q, k, v, tables, ctx, ml, acc, a.n_heads, a.kv_heads,
+            a.block_size, a.max_blocks, a.split_len, a.scale, a.window);
+  else
+    paged_decode_split_kernel<T, D, QH><<<grid, kThreads, 0, a.stream>>>(
+        q, k, v, tables, ctx, ml, acc, a.n_heads, a.kv_heads, a.block_size,
+        a.max_blocks, a.split_len, a.scale);
   return cudaGetLastError();
 }
 
@@ -364,10 +436,14 @@ cudaError_t launch(const Args& a) {
     if (err != cudaSuccess) return err;
   }
   dim3 grid(a.n_heads, a.batch);
-  paged_decode_merge_kernel<T><<<grid, kMergeThreads, 0, a.stream>>>(
-      static_cast<const float*>(a.part_ml),
-      static_cast<const float*>(a.part_acc), static_cast<T*>(a.out),
-      a.n_splits, a.head_dim);
+  const auto* ml = static_cast<const float*>(a.part_ml);
+  const auto* acc = static_cast<const float*>(a.part_acc);
+  if (a.window > 0)
+    paged_decode_window_merge_kernel<T><<<grid, kMergeThreads, 0, a.stream>>>(
+        ml, acc, static_cast<T*>(a.out), a.n_splits, a.head_dim);
+  else
+    paged_decode_merge_kernel<T><<<grid, kMergeThreads, 0, a.stream>>>(
+        ml, acc, static_cast<T*>(a.out), a.n_splits, a.head_dim);
   return cudaGetLastError();
 }
 
@@ -375,26 +451,32 @@ cudaError_t launch(const Args& a) {
 
 // part_ml [B, H, n_splits, 2] and part_acc [B, H, n_splits, D], f32, are
 // the caller's scratch; n_splits must be ceil(max_blocks * block_size /
-// split_len).  dtype: 0 = float32, 1 = bfloat16.  Launches both kernels
-// on `stream`; returns the first failing launch's cudaError_t.
+// split_len), and with a window (window > 0) the least of that and
+// ceil((window + split_len - 1) / split_len).  dtype: 0 = float32,
+// 1 = bfloat16.  Launches both kernels on `stream`; returns the first
+// failing launch's cudaError_t.
 extern "C" int paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* block_tables, const void* ctx_lens, void* out,
     void* part_ml, void* part_acc, int batch, int n_heads, int kv_heads,
     int head_dim, int block_size, int max_blocks, int split_len,
-    int n_splits, float scale, int dtype, void* stream) {
+    int n_splits, float scale, int dtype, int window, void* stream) {
   if (batch == 0) return cudaSuccess;
   const long long width = (long long)max_blocks * block_size;
+  long long want = split_len > 0 ? (width + split_len - 1) / split_len : -1;
+  if (window > 0 && split_len > 0)
+    want = std::min(want, ((long long)window + 2 * split_len - 2) /
+                              split_len);  // ceil((window + split_len - 1) / split_len)
   if ((head_dim != 64 && head_dim != 128 && head_dim != 256) ||
       kv_heads <= 0 || n_heads % kv_heads != 0 || batch > 65535 ||
       n_heads > 65535 || block_size <= 0 || max_blocks < 0 ||
-      split_len <= 0 || n_splits > 65535 ||
-      n_splits != (width + split_len - 1) / split_len)
+      split_len <= 0 || window < 0 || n_splits > 65535 || n_splits != want)
     return cudaErrorInvalidValue;
   const Args a{q,          k_pool,    v_pool,     block_tables, ctx_lens,
                out,        part_ml,   part_acc,   batch,        n_heads,
                kv_heads,   head_dim,  block_size, max_blocks,   split_len,
-               n_splits,   scale,     static_cast<cudaStream_t>(stream)};
+               n_splits,   scale,     window,
+               static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return launch<float>(a);
   if (dtype == 1) return launch<__nv_bfloat16>(a);
   return cudaErrorInvalidValue;

@@ -23,6 +23,20 @@
 // engine never sends such a row).  Table entries past a lane's last
 // visible key are never read.
 //
+// Sliding window (window > 0, the window layers of a model that mixes
+// window and full attention): query (b, t) also needs p > q_positions[b,
+// t] - window.  The splits then count from the lane's window base, its
+// first query's first visible key rounded down to a split (the queries of
+// a lane ascend by one from its first, as every caller sends them), and
+// only the ceil((window + split_len + T - 2) / split_len) splits that can
+// hold a visible key are launched (fewer where the table is narrower); a
+// block reads from the first key that one of its rows sees.  A row whose
+// keys lie in one split is written there; the others are merged over the
+// splits they reach.  The windowed launches are kernels of their own
+// names, paged_prefill_window_split_kernel and
+// paged_prefill_window_merge_kernel, which a device trace can select;
+// without a window the two kernels below run as before, to the bit.
+//
 // Bound.  The work is each visible K and V row read once: sum over lanes
 // of min(ctx_len, max_t q_position + 1) * KH * D * 2 * 2 bytes over the
 // H100's 3.35 TB/s, beside q and out.  Per row of K/V the kernel does
@@ -83,6 +97,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -225,15 +241,39 @@ __device__ __forceinline__ void load_kv(bf16* kd, bf16* vd,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) paged_prefill_split_kernel(
+// A row's keys are [lo, lim): lo = max(q_position - window + 1, 0) with a
+// window, else 0; lim = min(ctx_len, width, q_position + 1), at least 0.
+// Split s of a lane covers [base + s * split_len, base + (s + 1) *
+// split_len), base 0 without a window and with one the lane's first
+// query's lo rounded down to a split (a lane's queries ascend from its
+// first).  A row reads splits s_lo .. s_hi; a row that sees no key (lim
+// <= lo) is split 0's alone.
+__device__ __forceinline__ void row_splits(int lo, int lim, int base,
+                                           int split_len, int* s_lo,
+                                           int* s_hi) {
+  if (lim <= lo) {
+    *s_lo = *s_hi = 0;
+    return;
+  }
+  *s_lo = (lo - base) / split_len;
+  *s_hi = (lim - 1 - base) / split_len;
+}
+
+__device__ __forceinline__ int window_base(const int64_t* q_positions_b,
+                                           int window, int split_len) {
+  const long long lo = max((long long)q_positions_b[0] - window + 1, 0LL);
+  return (int)(lo / split_len) * split_len;
+}
+
+template <int D, bool kWindow>
+__device__ __forceinline__ void prefill_split(
     const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
     const bf16* __restrict__ v_pool, const int32_t* __restrict__ block_tables,
     const int32_t* __restrict__ ctx_lens,
     const int64_t* __restrict__ q_positions, bf16* __restrict__ out,
     float* __restrict__ part_ml, float* __restrict__ part_acc, int q_len,
     int n_heads, int kv_heads, int block_size, int max_blocks,
-    int split_len, float scale) {
+    int split_len, float scale, int window) {
   constexpr int KT = key_tile<D>();
   constexpr int KD = D / 16;   // k16 steps of Q K^T
   constexpr int NS = KT / 8;   // n-tiles of S (keys)
@@ -244,8 +284,8 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_split_kernel(
   bf16* ks = qs + kRows * D;                                 // [2][TILE]
   bf16* vs = ks + 2 * TILE;                                  // [2][TILE]
   int* rows_s = reinterpret_cast<int*>(vs + 2 * TILE);       // [split_len]
-  __shared__ int lim_s[kRows];
-  __shared__ int hi_s;
+  __shared__ int lim_s[kRows], lo_s[kRows];
+  __shared__ int hi_s, lo_min_s;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -258,34 +298,47 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_split_kernel(
   const int b = blockIdx.y;
   const int split = blockIdx.z, n_splits = gridDim.z;
   const int width = max_blocks * block_size;
-  const int start = split * split_len;
+  const int base =
+      kWindow ? window_base(q_positions + (size_t)b * q_len, window,
+                            split_len)
+              : 0;
+  const int first = base + split * split_len;  // the split's first key
   const int cap = min(ctx_lens[b], width);
-  if (split > 0 && start >= cap) return;  // past the lane's context
+  if (split > 0 && first >= cap) return;  // past the lane's context
 
-  // Each row's limit: it sees keys [0, lim).
-  if (threadIdx.x == 0) hi_s = 0;
+  // Each row's keys [lo, lim); the block reads keys [lo_min, hi) of the
+  // split, those of the rows that see it.
+  if (threadIdx.x == 0) {
+    hi_s = 0;
+    lo_min_s = INT32_MAX;
+  }
   __syncthreads();
   if (threadIdx.x < kRows) {
     const int r = r0 + threadIdx.x;
-    int lim = 0;
+    int lim = 0, lo = 0;
     if (r < n_rows) {
       const long long qp =
           (long long)q_positions[(size_t)b * q_len + r / qpk];
       lim = (int)max(min((long long)cap, qp + 1), 0LL);
+      if (kWindow) lo = (int)min(max(qp - window + 1, 0LL), (long long)lim);
     }
     lim_s[threadIdx.x] = lim;
-    if (lim > start) atomicMax(&hi_s, lim);
+    lo_s[threadIdx.x] = lo;
+    if (lim > first && lo < first + split_len && lo < lim) {
+      atomicMax(&hi_s, lim);
+      if (kWindow) atomicMin(&lo_min_s, lo);
+    }
   }
   __syncthreads();
   const int hi = hi_s;
   const size_t q_stride = (size_t)n_heads * D;  // one (b, t) of q and out
-  if (hi <= start) {  // no row of this block sees this split
-    if (split == 0) {   // every row sees no key: zeros
+  if (hi <= first) {  // no row of this block sees this split
+    if (split == 0) {   // rows that see no key at all: zeros
       bf16* out_b = out + (size_t)b * q_len * q_stride + (size_t)kv * D *
                               (n_heads / kv_heads);
       for (int e = threadIdx.x; e < kRows * D / 2; e += kThreads) {
-        const int r = r0 + e / (D / 2);
-        if (r < n_rows)
+        const int rl = e / (D / 2), r = r0 + rl;
+        if (r < n_rows && (!kWindow || lim_s[rl] <= lo_s[rl]))
           reinterpret_cast<uint32_t*>(
               out_b + (size_t)(r / (n_heads / kv_heads)) * q_stride +
               (size_t)(r % (n_heads / kv_heads)) * D)[e % (D / 2)] = 0u;
@@ -293,7 +346,8 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_split_kernel(
     }
     return;
   }
-  const int end = min(start + split_len, hi);
+  const int start = kWindow ? max(first, lo_min_s) : first;
+  const int end = min(first + split_len, hi);
   const int n_tiles = (end - start + KT - 1) / KT;
 
   // Q rows of the block: row r is (t, i) = (r / qpk, r % qpk), at
@@ -333,6 +387,7 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_split_kernel(
   const bool active = r0 + row_w < n_rows;
   const int lim[2] = {min(lim_s[row_w + g], end),
                       min(lim_s[row_w + g + 8], end)};
+  const int lo[2] = {lo_s[row_w + g], lo_s[row_w + g + 8]};
   const float sl2 = scale * kLog2e;
   float acc[NO][4], m[2], l[2];
 #pragma unroll
@@ -385,9 +440,11 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_split_kernel(
 #pragma unroll
       for (int n = 0; n < NS; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k0 + 8 * n + 2 * t + (e & 1) >= lim[e >> 1])
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * n + 2 * t + (e & 1);
+          if (key >= lim[e >> 1] || (kWindow && key < lo[e >> 1]))
             s[n][e] = -CUDART_INF_F;
+        }
 
       // Online softmax on the fragments; a row's 4 owners are one quad.
 #pragma unroll
@@ -439,10 +496,10 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_split_kernel(
   }
   if (!active) return;
 
-  // A row whose limit lies in split 0 is done: split 0 writes its output
-  // (zeros for a row that sees no key).  Every other row that sees this
-  // split writes its partial (the merge reads no other): m, the quad's l,
-  // and the unnormalised acc.
+  // A row whose keys lie in one split is done there: that split writes
+  // its output (split 0 the zeros of a row that sees no key).  Every other
+  // row that sees this split writes its partial (the merge reads no
+  // other): m, the quad's l, and the unnormalised acc.
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float sum = l[r];
@@ -453,7 +510,10 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_split_kernel(
     if (rr >= n_rows) continue;
     const size_t o =
         ((size_t)b * q_len + rr / qpk) * n_heads + kv * qpk + rr % qpk;
-    if (split == 0 && lim_s[rl] <= split_len) {
+    int s_lo, s_hi;
+    row_splits(lo_s[rl], lim_s[rl], base, split_len, &s_lo, &s_hi);
+    if (s_lo == s_hi) {
+      if (split != s_lo) continue;
       const float inv = 1.f / fmaxf(sum, 1e-30f);
       bf16* row = out + o * D + 2 * t;
 #pragma unroll
@@ -462,7 +522,7 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_split_kernel(
             pack_bf16(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
       continue;
     }
-    if (lim_s[rl] <= start) continue;
+    if (split < s_lo || split > s_hi) continue;
     const size_t p = o * n_splits + split;
     float* dst = part_acc + p * D + 2 * t;
 #pragma unroll
@@ -476,7 +536,37 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_split_kernel(
   }
 }
 
-// The output rows (b, t, h) whose limit reaches past split 0, one warp a
+template <int D>
+__global__ void __launch_bounds__(kThreads) paged_prefill_split_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
+    const bf16* __restrict__ v_pool, const int32_t* __restrict__ block_tables,
+    const int32_t* __restrict__ ctx_lens,
+    const int64_t* __restrict__ q_positions, bf16* __restrict__ out,
+    float* __restrict__ part_ml, float* __restrict__ part_acc, int q_len,
+    int n_heads, int kv_heads, int block_size, int max_blocks,
+    int split_len, float scale) {
+  prefill_split<D, false>(q, k_pool, v_pool, block_tables, ctx_lens,
+                          q_positions, out, part_ml, part_acc, q_len,
+                          n_heads, kv_heads, block_size, max_blocks,
+                          split_len, scale, 0);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) paged_prefill_window_split_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
+    const bf16* __restrict__ v_pool, const int32_t* __restrict__ block_tables,
+    const int32_t* __restrict__ ctx_lens,
+    const int64_t* __restrict__ q_positions, bf16* __restrict__ out,
+    float* __restrict__ part_ml, float* __restrict__ part_acc, int q_len,
+    int n_heads, int kv_heads, int block_size, int max_blocks,
+    int split_len, float scale, int window) {
+  prefill_split<D, true>(q, k_pool, v_pool, block_tables, ctx_lens,
+                         q_positions, out, part_ml, part_acc, q_len, n_heads,
+                         kv_heads, block_size, max_blocks, split_len, scale,
+                         window);
+}
+
+// The output rows (b, t, h) whose keys reach past one split, one warp a
 // row, lane j holding elements [j * D / 32, (j + 1) * D / 32): the row's
 // splits up to its limit, in split order.  Every split read holds the
 // row's key at its start, so its m is finite.  Rows that split 0 wrote
@@ -484,10 +574,10 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_split_kernel(
 template <int D>
 __device__ __forceinline__ void merge_row(
     const float* __restrict__ part_ml, const float* __restrict__ part_acc,
-    bf16* __restrict__ out, int o, int n, int n_splits, int lane) {
+    bf16* __restrict__ out, int o, int s0, int n, int n_splits, int lane) {
   constexpr int E = D / 32;
-  const float* ml = part_ml + (size_t)o * n_splits * 2;
-  const float* acc = part_acc + (size_t)o * n_splits * D + lane * E;
+  const float* ml = part_ml + ((size_t)o * n_splits + s0) * 2;
+  const float* acc = part_acc + ((size_t)o * n_splits + s0) * D + lane * E;
   float mx = -CUDART_INF_F;
   for (int s = 0; s < n; ++s) mx = fmaxf(mx, ml[2 * s]);
   float sum = 0.f, a[E];
@@ -511,6 +601,41 @@ __device__ __forceinline__ void merge_row(
     dst[e / 2] = pack_bf16(a[e] * inv, a[e + 1] * inv);
 }
 
+template <int D, bool kWindow>
+__device__ __forceinline__ void prefill_merge(
+    const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+    const int32_t* __restrict__ ctx_lens,
+    const int64_t* __restrict__ q_positions, bf16* __restrict__ out,
+    int n_out_rows, int q_len, int n_heads, int width, int split_len,
+    int n_splits, int window) {
+  const int lane = threadIdx.x & 31;
+  const int step = gridDim.x * (kMergeThreads / 32);
+  for (int o = blockIdx.x * (kMergeThreads / 32) + (threadIdx.x >> 5);
+       o < n_out_rows; o += step) {
+    const int bt = o / n_heads, b = bt / q_len;
+    const long long cap = min(ctx_lens[b], width);
+    const long long qp = q_positions[bt];
+    const long long lim = max(min(cap, qp + 1), 0LL);
+    if (!kWindow) {
+      if (lim > split_len)
+        merge_row<D>(part_ml, part_acc, out, o, 0,
+                     (int)((lim + split_len - 1) / split_len), n_splits,
+                     lane);
+      continue;
+    }
+    const int lo = (int)min(max(qp - window + 1, 0LL), lim);
+    int s_lo, s_hi;
+    row_splits(lo, (int)lim,
+               window_base(q_positions + (size_t)b * q_len, window,
+                           split_len),
+               split_len, &s_lo, &s_hi);
+    s_hi = min(s_hi, n_splits - 1);  // rows past the launch's span
+    if (s_hi > s_lo)
+      merge_row<D>(part_ml, part_acc, out, o, s_lo, s_hi - s_lo + 1,
+                   n_splits, lane);
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(kMergeThreads) paged_prefill_merge_kernel(
     const float* __restrict__ part_ml, const float* __restrict__ part_acc,
@@ -518,17 +643,22 @@ __global__ void __launch_bounds__(kMergeThreads) paged_prefill_merge_kernel(
     const int64_t* __restrict__ q_positions, bf16* __restrict__ out,
     int n_out_rows, int q_len, int n_heads, int width, int split_len,
     int n_splits) {
-  const int lane = threadIdx.x & 31;
-  const int step = gridDim.x * (kMergeThreads / 32);
-  for (int o = blockIdx.x * (kMergeThreads / 32) + (threadIdx.x >> 5);
-       o < n_out_rows; o += step) {
-    const int bt = o / n_heads, b = bt / q_len;
-    const long long cap = min(ctx_lens[b], width);
-    const long long lim = min(cap, (long long)q_positions[bt] + 1);
-    if (lim > split_len)
-      merge_row<D>(part_ml, part_acc, out, o,
-                   (int)((lim + split_len - 1) / split_len), n_splits, lane);
-  }
+  prefill_merge<D, false>(part_ml, part_acc, ctx_lens, q_positions, out,
+                          n_out_rows, q_len, n_heads, width, split_len,
+                          n_splits, 0);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMergeThreads)
+    paged_prefill_window_merge_kernel(
+        const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+        const int32_t* __restrict__ ctx_lens,
+        const int64_t* __restrict__ q_positions, bf16* __restrict__ out,
+        int n_out_rows, int q_len, int n_heads, int width, int split_len,
+        int n_splits, int window) {
+  prefill_merge<D, true>(part_ml, part_acc, ctx_lens, q_positions, out,
+                         n_out_rows, q_len, n_heads, width, split_len,
+                         n_splits, window);
 }
 
 struct Args {
@@ -537,6 +667,7 @@ struct Args {
   int batch, q_len, n_heads, kv_heads, block_size, max_blocks, split_len,
       n_splits;
   float scale;
+  int window;  // 0: no window
   cudaStream_t stream;
 };
 
@@ -554,59 +685,84 @@ cudaError_t launch(const Args& a) {
   const size_t smem = sizeof(bf16) * (size_t)(kRows + 4 * KT) * D +
                       sizeof(int) * (size_t)a.split_len;
   auto kernel = paged_prefill_split_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto window_kernel = paged_prefill_window_split_kernel<D>;
+  cudaError_t err = a.window > 0
+      ? cudaFuncSetAttribute(window_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem)
+      : cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(a.kv_heads * n_rb, a.batch, a.n_splits);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k_pool),
-      static_cast<const bf16*>(a.v_pool),
-      static_cast<const int32_t*>(a.block_tables), ctx, qpos,
-      static_cast<bf16*>(a.out), static_cast<float*>(a.part_ml),
-      static_cast<float*>(a.part_acc),
-      a.q_len, a.n_heads, a.kv_heads, a.block_size, a.max_blocks,
-      a.split_len, a.scale);
+  const auto* q = static_cast<const bf16*>(a.q);
+  const auto* k = static_cast<const bf16*>(a.k_pool);
+  const auto* v = static_cast<const bf16*>(a.v_pool);
+  const auto* tables = static_cast<const int32_t*>(a.block_tables);
+  auto* out = static_cast<bf16*>(a.out);
+  auto* ml = static_cast<float*>(a.part_ml);
+  auto* acc = static_cast<float*>(a.part_acc);
+  if (a.window > 0)
+    window_kernel<<<grid, kThreads, smem, a.stream>>>(
+        q, k, v, tables, ctx, qpos, out, ml, acc, a.q_len, a.n_heads,
+        a.kv_heads, a.block_size, a.max_blocks, a.split_len, a.scale,
+        a.window);
+  else
+    kernel<<<grid, kThreads, smem, a.stream>>>(
+        q, k, v, tables, ctx, qpos, out, ml, acc, a.q_len, a.n_heads,
+        a.kv_heads, a.block_size, a.max_blocks, a.split_len, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (a.n_splits < 2) return cudaSuccess;  // split 0 wrote every row
   const int out_rows = a.batch * a.q_len * a.n_heads;
   constexpr int kRowsPerBlock = kMergeThreads / 32 * kMergeRowsPerWarp;
-  paged_prefill_merge_kernel<D>
-      <<<(out_rows + kRowsPerBlock - 1) / kRowsPerBlock, kMergeThreads, 0,
-         a.stream>>>(static_cast<const float*>(a.part_ml),
-                     static_cast<const float*>(a.part_acc), ctx, qpos,
-                     static_cast<bf16*>(a.out), out_rows, a.q_len,
-                     a.n_heads, a.max_blocks * a.block_size, a.split_len,
-                     a.n_splits);
+  const int blocks = (out_rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  const int width = a.max_blocks * a.block_size;
+  if (a.window > 0)
+    paged_prefill_window_merge_kernel<D><<<blocks, kMergeThreads, 0,
+                                           a.stream>>>(
+        ml, acc, ctx, qpos, out, out_rows, a.q_len, a.n_heads, width,
+        a.split_len, a.n_splits, a.window);
+  else
+    paged_prefill_merge_kernel<D><<<blocks, kMergeThreads, 0, a.stream>>>(
+        ml, acc, ctx, qpos, out, out_rows, a.q_len, a.n_heads, width,
+        a.split_len, a.n_splits);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // The table's width splits into n_splits = ceil(max_blocks * block_size /
-// split_len) spans of split_len positions; part_ml [B * T * H, n_splits,
-// 2] and part_acc [B * T * H, n_splits, D], f32, are the caller's scratch
-// for them.  bf16 only.  Launches both kernels on `stream`; returns the
-// first failing launch's cudaError_t.
+// split_len) spans of split_len positions, and with a window (window > 0)
+// into the least of that and ceil((window + split_len + q_len - 2) /
+// split_len) spans from each lane's window base (`row_splits`); part_ml
+// [B * T * H, n_splits, 2] and part_acc [B * T * H, n_splits, D], f32, are
+// the caller's scratch for them.  bf16 only.  Launches both kernels on
+// `stream`; returns the first failing launch's cudaError_t.
 extern "C" int paged_prefill_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* block_tables, const void* ctx_lens, const void* q_positions,
     void* out, void* part_ml, void* part_acc, int batch, int q_len,
     int n_heads, int kv_heads, int head_dim, int block_size, int max_blocks,
-    int split_len, float scale, void* stream) {
+    int split_len, float scale, int window, void* stream) {
   if (batch == 0 || q_len == 0) return cudaSuccess;
   const long long width = (long long)max_blocks * block_size;
   if (kv_heads <= 0 || n_heads % kv_heads != 0 || batch > 65535 ||
       q_len < 0 || block_size <= 0 || max_blocks < 0 || width > INT32_MAX ||
-      split_len <= 0 || (width + split_len - 1) / split_len > 65535 ||
+      split_len <= 0 || window < 0 ||
+      (width + split_len - 1) / split_len > 65535 ||
       (long long)batch * q_len * n_heads > INT32_MAX)
     return cudaErrorInvalidValue;
-  const int n_splits = (int)((width + split_len - 1) / split_len);
+  long long n_splits = (width + split_len - 1) / split_len;
+  if (window > 0)
+    n_splits = std::min(n_splits, ((long long)window + 2 * split_len +
+                                   q_len - 3) / split_len);
   const Args a{q,        k_pool,   v_pool,       block_tables,
                ctx_lens, q_positions, out,       part_ml,
                part_acc, batch,    q_len,        n_heads,
                kv_heads, block_size, max_blocks, split_len,
-               n_splits, scale,    static_cast<cudaStream_t>(stream)};
+               (int)n_splits, scale, window,
+               static_cast<cudaStream_t>(stream)};
   switch (head_dim) {
     case 64: return launch<64>(a);
     case 128: return launch<128>(a);

@@ -110,5 +110,5 @@ def test_device_rule_raises_without_cuda():
 
 
 def test_unknown_family_raises():
-    with pytest.raises(ValueError, match="'gpt' and 'llama'"):
+    with pytest.raises(ValueError, match="'gpt', 'llama' and 'mellum'"):
         InferenceEngine("mamba", "tiny", device="cpu")
